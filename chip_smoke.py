@@ -7,35 +7,44 @@ Needs one CUDA device; with none it exits non-zero before doing anything.
 Phases, each printed before the last line:
 
 1. Device: the card's name and power limit, as nvidia-smi reports them.
-2. Build: compile the port's CUDA kernels (otto_tpu_torch/csrc/*.cu) with
-   nvcc for sm_90a; print the build seconds.
-3. Kernel check: K1 (row gather) and K2 (segmented scan) against their
-   plain PyTorch twins on the card at the main path's shapes, with CUDA
-   event times of kernel and twin.
-4. Main path at production width: synthetic OTTO-shaped sessions (1.8M
-   aids, sessions up to 512 events, ~10k test sessions after the split,
-   all four length buckets), a seeded retrieval context at production
-   shape (co-visitation top-10/10/20/20/20, kNN k = 20, 50 clusters x 128
-   popularity candidates, 100-d item embeddings: ~4.2 GB on the card) and
-   three seeded GBDT rankers (150 trees, depth 4, 64 bins). Runs the
-   port's score_pass (retrieval -> scoring -> top-20, batch 2048, 32 kept
-   aids, 512 candidates) and submit_and_eval, and checks that K1 and K2
-   were launched on the way. The seeded tables and trees stand in for the
-   offline stages (co-visitation counting, word2vec + kNN, k-means +
-   popularity, GBDT training) until those are ported; the recall they give
-   says nothing about model quality. Each aid's seeded co-visitation and
-   kNN neighbours lie within 64 ids of it, so the sources overlap and the
-   groupbys merge duplicates; no deployment was measured for that, and
-   real tables differ in overlap, row fill and count skew. The sessions/s
-   this phase prints is a smoke reading of this one run, not a benchmark.
-5. Cross-check: one 256-session batch on a 2^16-aid seeded context, run on
-   the card (kernels) and on the CPU (twins): candidates and integer
-   features bit-equal, float features within a stated tolerance.
+2. Build: compile the port's CUDA kernels (otto_tpu_torch/csrc/*.cu, one
+   nvcc per source, all at once) for sm_90a; print the build seconds.
+3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search)
+   and K4 (table row gather) against their plain PyTorch twins on the card
+   at the main paths' shapes, with CUDA event times of kernel and twin.
+4. Table build at production width: synthetic OTTO-shaped sessions (1.8M
+   aids, sessions up to 512 events, 40k sessions), two seeded word2vec
+   models (w2v-all, w2v-1-2: 100-d, every one of the 1.8M aids a word,
+   each aid's vector near those of the 63 other aids of its 64-id group),
+   and the port's build_retriever: kNN tables of k = 20 for the 600,000
+   most frequent words of each model against all 1.8M (K3), session
+   embeddings of every session (K4), k-means with 50 clusters. Checks that
+   K3 and K4 were launched on the way. Co-visitation and popularity
+   tables stay seeded (their builders are not ported yet).
+5. Serving at production width: the Retriever that phase 4 built (its kNN
+   tables, item embeddings and session -> (cluster, embedding) lookup),
+   seeded co-visitation / popularity tables (top-10/10/20/20/20, 50
+   clusters x 128 candidates) and three seeded GBDT rankers (150 trees,
+   depth 4, 64 bins). Runs the port's score_pass (retrieval -> scoring ->
+   top-20, batch 2048, 32 kept aids, 512 candidates) over ~10k test
+   sessions and submit_and_eval, and checks that K1 and K2 were launched
+   on the way. Each aid's seeded co-visitation neighbours lie within 64
+   ids of it, as its kNN neighbours do, so the sources overlap and the
+   groupbys merge duplicates; no deployment was measured for that. The
+   recall says nothing about model quality, and the sessions/s this phase
+   prints is a smoke reading of this one run, not a benchmark.
+6. Cross-check, small cases run on the card (kernels) and on the CPU
+   (twins): one 256-session retrieval batch (candidates and integer
+   features bit-equal, float features within a stated tolerance); K3
+   through knn_search; session embeddings (within one float16 ulp);
+   k-means from the same start (labels equal but at near-ties, inertia
+   within a stated relative tolerance).
 
 Then one JSON line with the kernels' results and, last, the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and the result line is not printed.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,6 +58,17 @@ import torch
 SEED = 1234
 N_AIDS = 1_800_000
 BATCH = 2048
+N_SESSIONS = 40_000
+EMB_D = 100
+KNN_K = 20
+KNN_QUERIES = 600_000      # knn_first_n_aids
+N_CLUSTERS = 50
+
+# K3 scores: float32 FFMA chains in the kernel against cuBLAS's sums in the
+# twin, a few ulps of the terms |q|^2 + |c|^2 they cancel; an index may
+# differ from the twin's only where the kernel's pick, rescored in float64,
+# lies within this tolerance of the twin's entry (a near-tie)
+MIPS_TOL = 1e-4
 
 
 def require(cond, msg):
@@ -69,6 +89,56 @@ def cuda_ms(fn, reps=10):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), milliseconds of that one call on the card)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def zero_launch_counts():
+    from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+
+    for m in (gather, segscan, mips, dma_gather):
+        m.launches = 0
+
+
+def launch_counts():
+    from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+
+    return {"gather_rows": gather.launches, "segmented_scan": segscan.launches,
+            "mips_topk": mips.launches, "gather_rows_hbm": dma_gather.launches}
+
+
+def topk_max_err(got, want, q, c, metric):
+    """Hold K3's (scores, index) to the twin's: scores within MIPS_TOL of
+    (1 + the largest |score|), an index differing only at a near-tie.
+    -> (max |score difference|, number of differing indices)."""
+    gs, gi = got
+    ws, wi = want
+    tol = MIPS_TOL * (1.0 + float(ws.abs().max()))
+    err = float((gs - ws).abs().max()) if gs.numel() else 0.0
+    require(err <= tol, f"K3 {metric} scores within {tol:.3g}: {err:.3g}")
+    diff = gi != wi
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = diff.nonzero()[:, 0]
+        qq, cc = q[rows].double(), c[gi[diff].long()].double()
+        s = (qq * cc).sum(1)
+        if metric == "l2":
+            s = 2 * s - (qq * qq).sum(1) - (cc * cc).sum(1)
+        worst = float((s - ws[diff].double()).abs().max())
+        require(worst <= tol, f"K3 {metric}: {n_diff} differing indices, "
+                f"rescored {worst:.3g} from the twin's (tolerance {tol:.3g})")
+        require(n_diff <= max(2, diff.numel() // 1000), f"K3 {metric}: {n_diff} near-ties")
+    return err, n_diff
 
 
 # --------------------------------------------------------------------------
@@ -95,7 +165,7 @@ def phase_build():
     log = _build.library_path().with_suffix(".log")
     if log.exists():
         usage = [ln.strip() for ln in log.read_text().splitlines()
-                 if "registers" in ln or "Compiling entry" in ln]
+                 if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         for ln in usage:
             print(f"#   {ln}")
 
@@ -103,7 +173,7 @@ def phase_build():
 def phase_kernels(dev, smi):
     """Each kernel against its twin at main-path shapes. Returns
     {kernel: {max_abs_err, ms, plain_ms}} at the first (headline) shape."""
-    from otto_tpu_torch.ops.kernels import gather, segscan
+    from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -174,13 +244,50 @@ def phase_kernels(dev, smi):
             report(f"segmented_scan {dtype} {red}", (B, S, P), err, ms, plain)
             del got, want
         del v
+    del keys, first
+
+    # K3: one knn_search query block against the full corpus (the table
+    # build's shape), then a small inner-product case
+    for Q, V, metric in ((16384, N_AIDS, "l2"), (1000, 100_000, "dot")):
+        q = torch.randn((Q, EMB_D), generator=g, device=dev) * 0.3
+        c = torch.randn((V, EMB_D), generator=g, device=dev) * 0.3
+        got = mips.mips_topk(q, c, KNN_K, metric)
+        want, plain = timed_once(lambda: mips.mips_topk_ref(q, c, KNN_K, metric))
+        torch.cuda.synchronize()
+        err, n_diff = topk_max_err(got, want, q, c, metric)
+        ms = cuda_ms(lambda: mips.mips_topk(q, c, KNN_K, metric), reps=3)
+        tflops = 2 * Q * V * EMB_D / (ms * 1e-3) / 1e12
+        report(f"mips_topk {metric}", (Q, V, EMB_D, KNN_K), err, ms, plain)
+        print(f"#   {tflops:.2f} TFLOP/s, {n_diff} near-tie index swaps, twin timed once")
+        del q, c, got, want
+
+    # K4: a session-embedding microbatch of 2^19 lanes from the item table,
+    # and the int32 case
+    n = 1 << 19
+    ids = torch.randint(-2, N_AIDS + 2, (n,), generator=g, device=dev, dtype=torch.int32)
+    for dtype in (torch.float32, torch.int32):
+        if dtype == torch.float32:
+            table = torch.randn((N_AIDS, EMB_D), generator=g, device=dev)
+        else:
+            table = torch.randint(-2**31, 2**31 - 1, (N_AIDS, EMB_D), generator=g,
+                                  device=dev, dtype=torch.int32)
+        got = dma_gather.gather_rows_hbm(table, ids)
+        want = dma_gather.gather_rows_hbm_ref(table, ids)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K4 {dtype} bit-equal")
+        ms = cuda_ms(lambda: dma_gather.gather_rows_hbm(table, ids))
+        plain = cuda_ms(lambda: dma_gather.gather_rows_hbm_ref(table, ids))
+        report(f"gather_rows_hbm {dtype}", (N_AIDS, EMB_D, n), 0.0, ms, plain)
+        gbs = 2 * n * EMB_D * 4 / (ms * 1e-3) / 1e9
+        print(f"#   {gbs:.1f} GB/s (row bytes read + written)")
+        del table, got, want
     return out
 
 
 # --------------------------------------------------------------------------
-# seeded tables and rankers (stand-ins for the offline stages)
+# seeded tables, models and rankers (stand-ins for the stages not ported)
 # --------------------------------------------------------------------------
-def seeded_context(n_aids, device, seed, emb_dim=100):
+def seeded_context(n_aids, device, seed, emb_dim=EMB_D):
     """A RetrievalContext at production shape, made on `device` from a
     seed: per-aid neighbour lists near the aid (so sources overlap and the
     groupbys have real duplicates to merge), descending counts, partly
@@ -212,7 +319,7 @@ def seeded_context(n_aids, device, seed, emb_dim=100):
             perc_pop=torch.where(present, ri(0, 10_000, (n_aids, n)), 0).to(i32),
             count_rel=(count * 100 // count[:, :1].clamp(min=1)).to(i32),
         ))
-    k = 20
+    k = KNN_K
 
     def knn():
         dist = torch.sort(torch.rand((n_aids, k), generator=g, device=device), dim=1)
@@ -224,11 +331,33 @@ def seeded_context(n_aids, device, seed, emb_dim=100):
         covis=tuple(covis),
         knn_all=knn(),
         knn_1_2=knn(),
-        pop_cl50_cand=ri(0, min(n_aids, 10_000), (50, 128)).to(i32),
-        pop_cl50_ranks=ri(1, 60, (50, 128, 6)).to(i32),
+        pop_cl50_cand=ri(0, min(n_aids, 10_000), (N_CLUSTERS, 128)).to(i32),
+        pop_cl50_ranks=ri(1, 60, (N_CLUSTERS, 128, 6)).to(i32),
         pop_cl1_rank=ri(1, 999, (n_aids, 6)).to(i32),
         aid_emb=emb,
     )
+
+
+def seeded_models(events, n_aids, device, seed):
+    """The two word2vec models of W2VEC_MODELS at their width, vocabularies
+    from build_vocab with min_count = 0 (every aid a word). An aid's vector
+    is its 64-id group's centre plus noise: its kNN neighbours lie within
+    64 ids of it, as the seeded co-visitation neighbours do."""
+    from otto_tpu_torch.config import W2VEC_MODELS
+    from otto_tpu_torch.models.word2vec import Word2Vec, build_vocab
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, cfg in W2VEC_MODELS.items():
+        cfg = dataclasses.replace(cfg, min_count=0)
+        vocab = build_vocab(events, cfg.types, cfg.min_count, n_aids)
+        centre = torch.randn(((n_aids + 63) // 64, cfg.vector_size),
+                             generator=g, device=device)
+        group = torch.from_numpy(vocab.aid_of_word // 64).to(device)
+        emb = centre[group.long()] + 0.3 * torch.randn(
+            (vocab.size, cfg.vector_size), generator=g, device=device)
+        out[name] = Word2Vec(cfg, vocab, emb.cpu().numpy())
+    return out
 
 
 def seeded_rankers(feats, seed):
@@ -256,31 +385,30 @@ def seeded_rankers(feats, seed):
     }
 
 
-def session_lookup(test, seed, emb_dim=100):
+def session_lookup(test, seed, emb_dim=EMB_D):
     from otto_tpu_torch.engine.retrieval import SessionLookup
 
     ids = np.unique(test.session)
     rng = np.random.default_rng(seed)
     return SessionLookup.build(
-        ids, rng.integers(0, 50, len(ids)).astype(np.int32),
+        ids, rng.integers(0, N_CLUSTERS, len(ids)).astype(np.int32),
         rng.normal(size=(len(ids), emb_dim)).astype(np.float32),
     )
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the table build
 # --------------------------------------------------------------------------
-def phase_main_path(dev, smi, n_aids=N_AIDS, n_sessions=40_000, batch=BATCH):
+def phase_table_build(dev, smi):
     from otto_tpu_torch.config import RetrievalConfig
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.data.split import split_events
     from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
-    from otto_tpu_torch.engine.retrieval import FEATURE_INDEX, Retriever
-    from otto_tpu_torch.ops.kernels import gather, segscan
-    from otto_tpu_torch.pipeline.runner import score_pass, submit_and_eval
+    from otto_tpu_torch.engine.popularity import PopularityTables
+    from otto_tpu_torch.pipeline.runner import build_retriever
 
     t0 = time.perf_counter()
-    spec = SyntheticSpec(n_sessions=n_sessions, n_aids=n_aids, max_len=512,
+    spec = SyntheticSpec(n_sessions=N_SESSIONS, n_aids=N_AIDS, max_len=512,
                          mean_len=18, seed=SEED)
     sp = split_events(generate(spec, dev), test_days=7, seed=0)
     cfg = RetrievalConfig()
@@ -292,12 +420,80 @@ def phase_main_path(dev, smi, n_aids=N_AIDS, n_sessions=40_000, batch=BATCH):
     require(set(buckets) == set(cfg.session_len_buckets), "all four buckets run")
 
     t0 = time.perf_counter()
-    ctx = seeded_context(n_aids, dev, SEED)
+    seeded = seeded_context(N_AIDS, dev, SEED)
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    pop50 = PopularityTables(seeded.pop_cl50_cand, seeded.pop_cl50_ranks, empty)
+    pop1 = PopularityTables(empty, empty, seeded.pop_cl1_rank)
+    covis = seeded.covis
+    del seeded
+    models = seeded_models(sp.train.concat(sp.test), N_AIDS, dev, SEED)
     torch.cuda.synchronize()
-    table_bytes = sum(t.nbytes for t in ctx.tensors())
-    print(f"# tables: {table_bytes / 1e9:.2f} GB on the card, "
-          f"{time.perf_counter() - t0:.1f} s")
-    retriever = Retriever(ctx=ctx, cfg=cfg, sessions=session_lookup(sp.test, SEED))
+    print(f"# seeded co-visitation / popularity tables and word2vec models: "
+          f"{time.perf_counter() - t0:.1f} s; vocab sizes "
+          f"{ {n: m.vocab.size for n, m in models.items()} }")
+    require(all(m.vocab.size == N_AIDS for m in models.values()), "every aid a word")
+
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    retriever, rep = build_retriever(
+        sp.train, sp.test, covis, models, pop50, pop1, N_AIDS, dev, retrieval=cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# table build: {dt:.2f} s, peak {peak / 2**30:.2f} GiB allocated, "
+          f"launches {launches} ({smi})")
+    for stage, s in rep.seconds.items():
+        extra = ""
+        if stage.startswith("knn "):
+            q = min(models[stage[4:]].cfg.knn_first_n_aids, N_AIDS)
+            extra = (f" ({q} queries x {N_AIDS} x {EMB_D}: "
+                     f"{2 * q * N_AIDS * EMB_D / s / 1e12:.2f} TFLOP/s)")
+        print(f"#   {stage}: {s:.3f} s{extra}")
+    km = rep.kmeans
+    print(f"# kmeans: inertia {km['inertia']:.1f}, {km['n_iter']} iterations, "
+          f"{km['n_nonempty']} of {N_CLUSTERS} clusters non-empty, "
+          f"{km['n_points']} sessions")
+    print(f"# w2vec x co-visitation overlap: {json.dumps(rep.overlap)}")
+    require(launches["mips_topk"] > 0 and launches["gather_rows_hbm"] > 0,
+            f"K3 and K4 launched by the table build: {launches}")
+
+    ctx = retriever.ctx
+    for name, (nbr, dist) in zip(models, (ctx.knn_all, ctx.knn_1_2)):
+        require(nbr.shape == (N_AIDS, KNN_K) and dist.shape == (N_AIDS, KNN_K),
+                f"{name} kNN table shape")
+        rows = torch.from_numpy(models[name].vocab.aid_of_word[:KNN_QUERIES]).to(dev).long()
+        require(int((nbr[:, 0] >= 0).sum()) == KNN_QUERIES, f"{name}: {KNN_QUERIES} rows")
+        self_hit = float((nbr[rows, 0] == rows).float().mean())
+        print(f"# {name}: self is the nearest neighbour for {self_hit:.4f} of the queries")
+        require(self_hit > 0.999, f"{name} self-neighbour share {self_hit}")
+        d = dist[rows]
+        require(bool(torch.isfinite(d).all()) and bool((d[:, 1:] >= d[:, :-1]).all()),
+                f"{name} distances finite and ascending")
+        same_group = float((nbr[rows] // 64 == rows[:, None] // 64).float().mean())
+        print(f"#   neighbours in the aid's 64-id group: {same_group:.4f}")
+    lookup = retriever.sessions
+    n_sessions = int(np.unique(np.concatenate([sp.train.session, sp.test.session])).size)
+    require(len(lookup.ids) == n_sessions, "every session embedded")
+    require(bool(np.isfinite(lookup.emb).all()), "session embeddings finite")
+    require(lookup.cluster.min() >= 0 and lookup.cluster.max() < N_CLUSTERS,
+            "cluster labels in range")
+    require(km["n_nonempty"] > 1, "k-means found several clusters")
+    return sp, retriever, launches
+
+
+# --------------------------------------------------------------------------
+# phase 5: serving from the built tables
+# --------------------------------------------------------------------------
+def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
+    from otto_tpu_torch.engine.retrieval import FEATURE_INDEX
+    from otto_tpu_torch.pipeline.runner import score_pass, submit_and_eval
+
+    n_test = int(np.unique(sp.test.session).size)
+    table_bytes = sum(t.nbytes for t in retriever.ctx.tensors())
+    print(f"# serving tables: {table_bytes / 1e9:.2f} GB on the card "
+          f"(kNN tables, item embeddings and session lookup from the build)")
 
     # warm-up batch: fits the rankers' bin edges to real features and pays
     # the one-time CUDA costs outside the timed pass
@@ -307,14 +503,14 @@ def phase_main_path(dev, smi, n_aids=N_AIDS, n_sessions=40_000, batch=BATCH):
     rankers = seeded_rankers(sample, SEED)
     del b, valid, sample
 
-    gather.launches = segscan.launches = 0
+    zero_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     preds = score_pass(retriever, sp.test, rankers, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"gather_rows": gather.launches, "segmented_scan": segscan.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     with tempfile.TemporaryDirectory() as work:
         recall = submit_and_eval(work, preds, sp.labels)
@@ -322,11 +518,11 @@ def phase_main_path(dev, smi, n_aids=N_AIDS, n_sessions=40_000, batch=BATCH):
           f"{n_test / dt:.1f} sessions/s, peak {peak / 2**30:.2f} GiB allocated, "
           f"launches {launches} ({smi})")
     print(f"# recall@20 (seeded rankers): {json.dumps(recall)}")
-    require(all(n > 0 for n in launches.values()),
-            f"every kernel launched on the main path: {launches}")
+    require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
+            f"K1 and K2 launched on the serving path: {launches}")
     for t, (s, a) in preds.items():
         require(s.shape == (n_test,) and a.shape == (n_test, 20), f"{t} shapes")
-        require(((a >= -1) & (a < n_aids)).all(), f"{t} aids in range")
+        require(((a >= -1) & (a < N_AIDS)).all(), f"{t} aids in range")
         require((a[:, 0] >= 0).mean() > 0.99, f"{t} sessions get predictions")
     require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in recall.values()),
             "recall values in [0, 1]")
@@ -334,7 +530,7 @@ def phase_main_path(dev, smi, n_aids=N_AIDS, n_sessions=40_000, batch=BATCH):
 
 
 # --------------------------------------------------------------------------
-# phase 5: card against CPU
+# phase 6: card against CPU
 # --------------------------------------------------------------------------
 FLOAT_FEATURES = ("cos_sim_ses_aid", "eucl_dist_ses_aid", "dist_w2vec_all",
                   "dist_w2vec_1_2", "heur_score")
@@ -342,6 +538,15 @@ FLOAT_FEATURES = ("cos_sim_ses_aid", "eucl_dist_ses_aid", "dist_w2vec_all",
 # another order than the CPU (K2's chunked scan vs the Hillis-Steele twin,
 # cuBLAS vs the CPU's einsum), all in full float32 (TF32 off)
 FLOAT_TOL = 1e-4
+# k-means: the per-cluster sums and distances are float32 matmuls summed in
+# other orders on the two devices; the inertia is a float32 sum of ~8k terms
+KMEANS_RTOL = 1e-4
+
+
+def f16_ulp(x):
+    """The spacing of float16 values at |x| (2^-24 below the normal range)."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0**-14)))
+    return torch.exp2(e - 10)
 
 
 def phase_cross_check(dev):
@@ -349,13 +554,17 @@ def phase_cross_check(dev):
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
     from otto_tpu_torch.engine.retrieval import FEATURE_INDEX, retrieve_batch
+    from otto_tpu_torch.engine.session_embed import compute_session_embeddings
+    from otto_tpu_torch.ops import kmeans
+    from otto_tpu_torch.ops.knn import knn_search
 
+    cpu = torch.device("cpu")
     n_aids, S = 1 << 16, 256
     ev = generate(SyntheticSpec(n_sessions=2000, n_aids=n_aids, max_len=32,
                                 mean_len=14, seed=SEED + 1), dev)
     p = pack_sessions(ev, (32,))[0]
     cfg = RetrievalConfig()
-    ctx_cpu = seeded_context(n_aids, torch.device("cpu"), SEED + 1)
+    ctx_cpu = seeded_context(n_aids, cpu, SEED + 1)
     ctx_dev = ctx_cpu.to(dev)
     lookup = session_lookup(ev, SEED + 1)
     cluster, semb = lookup.lookup(p.session[:S])
@@ -391,6 +600,49 @@ def phase_cross_check(dev):
           f"integer features bit-equal, float features max |diff| {worst:.3g} "
           f"(tolerance {FLOAT_TOL})")
 
+    # K3 through knn_search, two query blocks
+    emb = ctx_cpu.aid_emb[: 1 << 15]
+    got = knn_search(emb[:600].to(dev), emb.to(dev), KNN_K, query_block=512)
+    want = knn_search(emb[:600], emb, KNN_K, query_block=512)
+    err, n_diff = topk_max_err([x.cpu() for x in got], want, emb[:600], emb, "l2")
+    print(f"# cross-check knn_search: 600 x {emb.shape[0]} x {EMB_D}, scores "
+          f"max |diff| {err:.3g}, {n_diff} near-tie index swaps")
+
+    # session embeddings: K4 + einsum on the card, the twins on the CPU
+    batches = pack_sessions(ev)
+    ids_d, e_d = compute_session_embeddings(batches, ctx_dev.aid_emb)
+    ids_c, e_c = compute_session_embeddings(batches, ctx_cpu.aid_emb)
+    require(np.array_equal(ids_d, ids_c), "session ids equal")
+    e_d = e_d.cpu()
+    ulp = f16_ulp(torch.maximum(e_d.abs(), e_c.abs()))
+    d = (e_d - e_c).abs()
+    require(bool((d <= ulp).all()), "session embeddings within one float16 ulp")
+    print(f"# cross-check session embeddings: {len(ids_c)} sessions, "
+          f"{int((d > 0).sum())} of {d.numel()} values one float16 ulp apart")
+
+    # k-means from one start: 50 blobs in 100-d
+    g = torch.Generator().manual_seed(SEED)
+    centres = torch.randn((N_CLUSTERS, EMB_D), generator=g) * 3
+    x = centres[torch.randint(0, N_CLUSTERS, (8192,), generator=g)]
+    x = x + torch.randn(x.shape, generator=g)
+    init = kmeans.init_centroids(x, N_CLUSTERS, 1 << 16, g)
+    cents, lab_c, in_c, it_c = kmeans.lloyd_fit(x, init)
+    _, lab_d, in_d, it_d = kmeans.lloyd_fit(x.to(dev), init.to(dev))
+    lab_d = lab_d.cpu()
+    swapped = (lab_c != lab_d).nonzero()[:, 0]
+    if len(swapped):
+        # a point may change sides only where its two centroids tie
+        dd = torch.cdist(x[swapped].double(), cents.double()) ** 2
+        gap = (dd.gather(1, lab_c[swapped, None].long())
+               - dd.gather(1, lab_d[swapped, None].long())).abs()
+        require(bool((gap <= 1e-3 * dd.min(1, keepdim=True).values.clamp(min=1)).all()),
+                "k-means labels differ only at near-ties")
+    rel = abs(in_d - in_c) / max(abs(in_c), 1e-30)
+    require(rel <= KMEANS_RTOL, f"k-means inertia within {KMEANS_RTOL}: {rel:.3g}")
+    print(f"# cross-check k-means: 8192 x {EMB_D}, {N_CLUSTERS} clusters, "
+          f"{len(swapped)} labels differ, inertia {in_d:.3f} vs {in_c:.3f} "
+          f"(rel {rel:.3g}), iterations {it_d} vs {it_c}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -406,20 +658,28 @@ def main():
     phase_build()
     kernels = phase_kernels(dev, smi)
     torch.cuda.empty_cache()
-    launches = phase_main_path(dev, smi)
+    sp, retriever, build_launches = phase_table_build(dev, smi)
+    torch.cuda.empty_cache()
+    serve_launches = phase_main_path(dev, smi, sp, retriever)
+    del retriever
     torch.cuda.empty_cache()
     phase_cross_check(dev)
 
     sources = {
+        # name: (source, TPU kernel it replaces, the path whose run counts)
         "gather_rows": ("otto_tpu_torch/csrc/gather_rows.cu",
-                        "otto_tpu/ops/pallas/gather.py:54"),
+                        "otto_tpu/ops/pallas/gather.py:54", serve_launches),
         "segmented_scan": ("otto_tpu_torch/csrc/segscan.cu",
-                           "otto_tpu/ops/pallas/segscan.py:90"),
+                           "otto_tpu/ops/pallas/segscan.py:90", serve_launches),
+        "mips_topk": ("otto_tpu_torch/csrc/mips_topk.cu",
+                      "otto_tpu/ops/pallas/mips.py:87", build_launches),
+        "gather_rows_hbm": ("otto_tpu_torch/csrc/gather_rows_hbm.cu",
+                            "otto_tpu/ops/pallas/dma_gather.py:43", build_launches),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}
-        for name, (src, rep) in sources.items()
+        for name, (src, rep, launches) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,19 @@ the serving path reads (`config`, `data.{schema,batching,split}`,
 `eval.recall`) has its counterparts here, held equal to otto_tpu's by
 tests, and `data.synthetic` generates sessions on the device.
 
-Ported so far: the per-session serving path — retrieval (Stages A-E),
-GBDT scoring, top-20 selection, the submission file and recall@20 — with
-two hand-written CUDA kernels: K1 `ops/kernels/gather.py` (row gather)
-and K2 `ops/kernels/segscan.py` (segmented scan), built from `csrc/` at
-first use. The table-building stages and training are still otto_tpu's;
-their numpy output crosses over through `otto_tpu_torch.convert`.
+Ported so far:
+- the per-session serving path — retrieval (Stages A-E), GBDT scoring,
+  top-20 selection, the submission file and recall@20 — on K1
+  `ops/kernels/gather.py` (row gather) and K2 `ops/kernels/segscan.py`
+  (segmented scan);
+- the embedding-table build (`pipeline.runner.build_retriever`): item
+  kNN tables on K3 `ops/kernels/mips.py` (exact top-k search), session
+  embeddings on K4 `ops/kernels/dma_gather.py` (table row gather) and
+  k-means session clusters.
+The four hand-written CUDA kernels are built from `csrc/` at first use.
+Co-visitation counting, popularity, SGNS training and ranker training
+are still otto_tpu's; their output crosses over through
+`otto_tpu_torch.convert`.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
-"""Configuration of the serving path.
+"""Configuration of the ported stages.
 
 Counterpart of the part of otto_tpu/config.py that the ported modules
 read: the event types and recall weights, the retrieval caps, the
-co-visitation top-N per table and the shape of a GBDT ranker's trees.
+co-visitation top-N per table, the shape of a GBDT ranker's trees, and
+what the embedding-table build reads of the word2vec and k-means settings.
 Names and defaults are otto_tpu's; tests/test_torch_host.py holds them
-equal. The settings of the offline stages (counting, embeddings,
-clustering, training) come with those stages.
+equal. The settings of the stages still to port (counting, SGNS
+training, ranker training) come with those stages.
 """
 from __future__ import annotations
 
@@ -56,3 +57,35 @@ class GBDTConfig:
         """From a saved ranker's full config dict (extra keys ignored)."""
         return GBDTConfig(**{f.name: int(d[f.name])
                              for f in dataclasses.fields(GBDTConfig)})
+
+
+@dataclasses.dataclass(frozen=True)
+class Word2VecConfig:
+    """An item-embedding model as the kNN tables read it: its vocabulary
+    filter and width, and the kNN search over its table. The SGNS
+    training settings come with the trainer."""
+
+    name: str = "w2v-all"
+    types: Tuple[int, ...] = (0, 1, 2)   # event types in the corpus
+    vector_size: int = 100
+    min_count: int = 5
+    knn_k: int = 20
+    knn_first_n_aids: int = 600_000      # queries: the most frequent words
+
+
+# the two embedding models, in build order; the first is the main model
+# whose table serves as the item embeddings
+W2VEC_MODELS: Dict[str, Word2VecConfig] = {
+    "w2v-all": Word2VecConfig(name="w2v-all", types=(0, 1, 2)),
+    "w2v-1-2": Word2VecConfig(name="w2v-1-2", types=(1, 2)),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KMeansConfig:
+    """Session clustering."""
+
+    n_clusters_to_find: Tuple[int, ...] = (50,)
+    max_iter: int = 100
+    tol: float = 1e-3
+    seed: int = 42

@@ -37,6 +37,11 @@ class Events:
     def sort_by_session_ts(self) -> "Events":
         return self.select(np.lexsort((self.ts, self.session)))
 
+    def concat(self, other: "Events") -> "Events":
+        """This table's rows, then `other`'s."""
+        return Events(*(np.concatenate([getattr(self, c), getattr(other, c)])
+                        for c in ("session", "aid", "ts", "type")))
+
 
 @dataclasses.dataclass
 class Labels:

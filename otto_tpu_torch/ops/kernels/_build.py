@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Every `otto_tpu_torch/csrc/*.cu` file is compiled by `nvcc` for `sm_90a`
-into one shared library with a plain C interface, which is loaded with
-`ctypes` (no PyTorch headers, so a build takes seconds). The library lives
-in `otto_tpu_torch/build/` under a name keyed by a hash of the sources and
+Every `otto_tpu_torch/csrc/*.cu` file is compiled by its own `nvcc` for
+`sm_90a`, all at once, and the objects are linked into one shared library
+with a plain C interface, which is loaded with `ctypes` (no PyTorch
+headers, so a build takes seconds). The library lives in
+`otto_tpu_torch/build/` under a name keyed by a hash of the sources and
 flags: the first use after a source change builds it, later uses load it.
 Nothing is fetched; only the package's own sources are compiled.
 """
@@ -23,7 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -62,20 +63,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = lib.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # build in a private directory and rename the library into place:
+    # concurrent builds never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                os.path.join(tmp, "lib.so"), *objs]
+        failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode]
+        if not failed:
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            cmds.append(link)
+            outs.append(proc.stdout)
+            if proc.returncode:
+                failed = [(link, proc.stdout)]
+        log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        lib.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "".join(
+                " ".join(c) + "\n" + o for c, o in failed))
+        os.replace(os.path.join(tmp, "lib.so"), lib)
     return lib
 
 
@@ -88,6 +102,12 @@ def load() -> ctypes.CDLL:
     lib.otto_gather_rows.restype = i32
     lib.otto_segscan.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.otto_segscan.restype = i32
+    lib.otto_mips_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                   i32, i32, i32, i32, i32, ptr]
+    lib.otto_mips_topk.restype = i32
+    lib.otto_gather_rows_hbm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
+                                         i32, i32, ptr]
+    lib.otto_gather_rows_hbm.restype = i32
     return lib
 
 

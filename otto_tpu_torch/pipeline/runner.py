@@ -1,25 +1,155 @@
-"""The serving functions of the pipeline.
+"""The ported functions of the pipeline.
 
-Counterpart of otto_tpu/pipeline/runner.py's scoring pass and tail:
-re-retrieve the test sessions, score every batch with the three target
-rankers on the device, keep the top-20 per target, write the submission
-file and evaluate recall@20. A plain loop: the batches run one after the
-other on the device's stream.
+Counterpart of otto_tpu/pipeline/runner.py's embedding-table build and
+its serving pass and tail:
+
+- `build_retriever`: the item kNN tables (C9), the session embeddings
+  (C10) and the session clusters (C11) on the device, and the Retriever
+  that serves from them;
+- `score_pass`: re-retrieve the test sessions, score every batch with the
+  three target rankers on the device, keep the top-20 per target;
+- `submit_and_eval`: write the submission file and evaluate recall@20.
+
+Plain loops: the batches run one after the other on the device's stream.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import os
-from typing import Dict, Optional
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from otto_tpu_torch.config import TYPES
+from otto_tpu_torch.config import TYPES, KMeansConfig, RetrievalConfig
+from otto_tpu_torch.data.batching import pack_sessions
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.engine import rank as rank_engine
-from otto_tpu_torch.engine.retrieval import Retriever
+from otto_tpu_torch.engine.covis import CoVisTables
+from otto_tpu_torch.engine.popularity import PopularityTables
+from otto_tpu_torch.engine.retrieval import (
+    RetrievalContext,
+    Retriever,
+    SessionLookup,
+)
+from otto_tpu_torch.engine.session_embed import (
+    build_knn_tables,
+    compute_session_embeddings,
+)
+from otto_tpu_torch.eval.diagnostics import w2vec_covis_overlap, write_overlap_report
 from otto_tpu_torch.eval.recall import evaluate_topk
 from otto_tpu_torch.models.gbdt import GBDTRanker
+from otto_tpu_torch.models.word2vec import Word2Vec
+from otto_tpu_torch.ops.kmeans import kmeans_fit
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class BuildReport:
+    """What `build_retriever` measured: seconds per stage (ended by a device
+    sync), the w2vec x co-visitation overlap per model, and the k-means
+    fit (inertia, n_iter, n_points, n_nonempty clusters)."""
+
+    seconds: Dict[str, float]
+    overlap: Dict[str, Dict[str, float]]
+    kmeans: Dict[str, float]
+
+
+def build_retriever(
+    train: Events,
+    test: Events,
+    covis: Sequence[CoVisTables],
+    models: Dict[str, Word2Vec],
+    pop_cl50: PopularityTables,
+    pop_cl1: PopularityTables,
+    n_aids: int,
+    device,
+    retrieval: RetrievalConfig = RetrievalConfig(),
+    kmeans: KMeansConfig = KMeansConfig(),
+    report_dir: Optional[str] = None,
+) -> Tuple[Retriever, BuildReport]:
+    """Stages C9-C11 and the retrieval context, on `device`.
+
+    Takes what the port does not build yet: the five co-visitation tables
+    (in COVIS_FIRST_N order), the two word2vec models by name (in
+    W2VEC_MODELS order; the first is the main model, whose table becomes
+    the item embeddings) and the two popularity tables, all on `device`.
+    Runs, as otto_tpu's Pipeline.build_retriever does:
+      C9  `build_knn_tables` for each model (K3), then the w2vec x
+          click-to-click co-visitation overlap (logged; written as
+          `stats_w2vec_x_co_click-{name}.csv` into `report_dir` if given);
+      C10 `compute_session_embeddings` over every session of train + test
+          with the main model's table (K4);
+      C11 `kmeans_fit` with `n_clusters_to_find[0]` clusters.
+    Writes no artifact cache. -> (Retriever, BuildReport)."""
+    dev = torch.device(device)
+    if len(models) != 2:
+        raise ValueError(f"build_retriever: two w2vec models, got {list(models)}")
+    seconds: Dict[str, float] = {}
+    t = time.perf_counter()
+
+    def lap(stage):
+        nonlocal t
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        seconds[stage] = now - t
+        t = now
+
+    # ---- C9 kNN -----------------------------------------------------------
+    knns = {}
+    for name, model in models.items():
+        knns[name] = build_knn_tables(model, n_aids, dev)
+        lap(f"knn {name}")
+    co_nbr = covis[0].neighbor.cpu().numpy()
+    overlap = {}
+    for name, kt in knns.items():
+        overlap[name] = w2vec_covis_overlap(kt.neighbor.cpu().numpy(), co_nbr)
+        log.info("w2vec overlap %s: %s", name, overlap[name])
+        if report_dir is not None:
+            write_overlap_report(
+                os.path.join(report_dir, f"stats_w2vec_x_co_click-{name}.csv"),
+                overlap[name])
+    lap("overlap")
+
+    # ---- C10 session embeddings --------------------------------------------
+    main_model = next(iter(models.values()))
+    aid_emb = torch.from_numpy(main_model.embedding_by_aid(n_aids)).to(dev)
+    sess_ids, sess_emb = compute_session_embeddings(
+        pack_sessions(train.concat(test)), aid_emb)
+    lap("session_emb")
+
+    # ---- C11 kmeans --------------------------------------------------------
+    n_clusters = kmeans.n_clusters_to_find[0]
+    _, labels, inertia, n_iter = kmeans_fit(
+        sess_emb, n_clusters, max_iter=kmeans.max_iter, tol=kmeans.tol,
+        seed=kmeans.seed)
+    labels = labels.cpu().numpy()
+    km = {"inertia": inertia, "n_iter": n_iter, "n_points": len(labels),
+          "n_nonempty": int(np.unique(labels).size)}
+    log.info("kmeans %s", km)
+    lap("kmeans")
+
+    names = list(models)
+    ctx = RetrievalContext(
+        covis=tuple(covis),
+        knn_all=tuple(knns[names[0]]),
+        knn_1_2=tuple(knns[names[1]]),
+        pop_cl50_cand=pop_cl50.candidate,
+        pop_cl50_ranks=pop_cl50.ranks,
+        pop_cl1_rank=pop_cl1.aid_rank,
+        aid_emb=aid_emb,
+    )
+    retriever = Retriever(
+        ctx=ctx, cfg=retrieval,
+        sessions=SessionLookup.build(sess_ids, labels, sess_emb.cpu().numpy()),
+    )
+    lap("context")
+    return retriever, BuildReport(seconds, overlap, km)
 
 
 def score_pass(

@@ -1,0 +1,180 @@
+"""The embedding-table build slice against otto_tpu: kNN tables (C9),
+session embeddings (C10), k-means clusters (C11), then serving from them.
+
+The reference side calls otto_tpu's C9-C11 functions in the order of its
+Pipeline.build_retriever (runner.py:727-813) on tiny synthetic data,
+two seeded word2vec models and the co-visitation / popularity tables of
+test_torch_retrieval.py's world; the port runs its build_retriever on the
+CPU with the same inputs. k-means starts from otto_tpu's k-means++
+centroids on both sides (test_torch_kmeans.py says why).
+
+Tolerances: kNN distances within 1e-5 relative + 1e-4 absolute and
+session embeddings within one float16 ulp (test_torch_session_embed.py
+says why); neighbours, session ids, cluster labels and the served top-20
+are equal (the seeded rankers split only on integer-valued features, see
+test_torch_slice.py).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from otto_tpu.config import TYPES
+from otto_tpu.config import Word2VecConfig as RefW2VConfig
+from otto_tpu.data.batching import pack_sessions as ref_pack_sessions
+from otto_tpu.engine import retrieval as ref_retrieval
+from otto_tpu.engine.retrieval import FEATURE_INDEX
+from otto_tpu.engine import session_embed as ref_se
+from otto_tpu.eval.diagnostics import w2vec_covis_overlap as ref_overlap
+from otto_tpu.eval.diagnostics import write_overlap_report as ref_write_overlap
+from otto_tpu.models.word2vec import Word2Vec as RefWord2Vec
+from otto_tpu.models.word2vec import build_vocab as ref_build_vocab
+from otto_tpu.ops import kmeans as ref_kmeans
+from otto_tpu_torch import convert
+from otto_tpu_torch.data.schema import Events
+from otto_tpu_torch.engine.popularity import PopularityTables
+from otto_tpu_torch.ops import kmeans as port_kmeans
+from otto_tpu_torch.pipeline import runner as port_runner
+from test_torch_retrieval import BATCH, CFG, N_AIDS, PORT_CFG, build_world
+from test_torch_session_embed import assert_within_f16_ulp
+from test_torch_slice import _ref_pipeline, seeded_rankers
+
+N_CLUSTERS = 50
+FIRST_N = 200     # kNN queries: fewer than the vocabulary, so some rows stay -1
+
+
+def _ref_models(full):
+    rng = np.random.default_rng(21)
+    out = {}
+    for name, types in (("w2v-all", (0, 1, 2)), ("w2v-1-2", (1, 2))):
+        cfg = RefW2VConfig(name=name, types=types, vector_size=16, min_count=1,
+                           knn_k=20, knn_first_n_aids=FIRST_N)
+        vocab = ref_build_vocab(full, types, cfg.min_count, N_AIDS)
+        out[name] = RefWord2Vec(cfg, vocab, rng.normal(size=(vocab.size, 16)).astype(np.float32))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def build_both(tmp_root):
+    w = build_world()
+    sp = w["split"]
+    ref_ctx = w["ref"].ctx
+    full = sp.train.concat(sp.test)
+    models = _ref_models(full)
+
+    # ---- otto_tpu, in runner.py's order ------------------------------------
+    knns = {n: ref_se.build_knn_tables(m, N_AIDS) for n, m in models.items()}
+    co_nbr = np.asarray(ref_ctx.covis[0].neighbor)
+    ref_stats = {n: ref_overlap(knns[n].neighbor, co_nbr) for n in models}
+    aid_emb = models["w2v-all"].embedding_by_aid(N_AIDS)
+    sess_ids, sess_emb = ref_se.compute_session_embeddings(ref_pack_sessions(full), aid_emb)
+    # the start both fits share: otto_tpu's k-means++ as its _fit_core draws
+    # it (fewer sessions than the 64k init sample: seeded on all of them)
+    assert len(sess_ids) < 1 << 16
+    _, kinit = jax.random.split(jax.random.PRNGKey(42))
+    init = np.array(ref_kmeans._kmeanspp_init_device(jnp.asarray(sess_emb), N_CLUSTERS, kinit))
+    _, labels, _, _ = ref_kmeans.kmeans_fit(sess_emb, N_CLUSTERS, max_iter=100, tol=1e-3, seed=42)
+    ref = ref_retrieval.Retriever(
+        ctx=ref_ctx._replace(
+            knn_all=tuple(jnp.asarray(a) for a in knns["w2v-all"]),
+            knn_1_2=tuple(jnp.asarray(a) for a in knns["w2v-1-2"]),
+            aid_emb=jnp.asarray(aid_emb)),
+        cfg=CFG,
+        sessions=ref_retrieval.SessionLookup.build(sess_ids, labels, sess_emb),
+    )
+
+    # ---- the port ----------------------------------------------------------
+    def reference_init(x, k, init_sample, generator):
+        assert k == N_CLUSTERS
+        return torch.from_numpy(init)
+
+    def ev(e):
+        return Events(e.session, e.aid, e.ts, e.type)
+
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32)  # noqa: E731
+    report_dir = tmp_root / "build"
+    report_dir.mkdir()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_kmeans, "init_centroids", reference_init)
+        port, report = port_runner.build_retriever(
+            ev(sp.train), ev(sp.test),
+            covis=convert.covis_from_numpy(
+                [tuple(np.asarray(a) for a in t) for t in ref_ctx.covis], "cpu"),
+            models={n: convert.word2vec_from_numpy(m) for n, m in models.items()},
+            pop_cl50=PopularityTables(i32(ref_ctx.pop_cl50_cand),
+                                      i32(ref_ctx.pop_cl50_ranks), i32(np.zeros((0, 6)))),
+            pop_cl1=PopularityTables(i32(np.zeros((1, 0))), i32(np.zeros((1, 0, 6))),
+                                     i32(ref_ctx.pop_cl1_rank)),
+            n_aids=N_AIDS, device="cpu", retrieval=PORT_CFG,
+            report_dir=str(report_dir),
+        )
+    return {"w": w, "knns": knns, "ref_stats": ref_stats, "sess_ids": sess_ids,
+            "sess_emb": sess_emb, "labels": labels, "ref": ref, "port": port,
+            "report": report, "report_dir": report_dir, "models": models}
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    return build_both(tmp_path_factory.getbasetemp())
+
+
+@pytest.mark.parametrize("name,field", [("w2v-all", "knn_all"), ("w2v-1-2", "knn_1_2")])
+def test_knn_tables_equal(both, name, field):
+    nbr, dist = getattr(both["port"].ctx, field)
+    want = both["knns"][name]
+    np.testing.assert_array_equal(nbr.numpy(), want.neighbor)
+    np.testing.assert_allclose(dist.numpy(), want.dist, rtol=1e-5, atol=1e-4)
+    assert int((nbr[:, 0] >= 0).sum()) == FIRST_N
+
+
+def test_item_embeddings_are_the_main_models(both):
+    want = both["models"]["w2v-all"].embedding_by_aid(N_AIDS)
+    np.testing.assert_array_equal(both["port"].ctx.aid_emb.numpy(), want)
+
+
+def test_session_embeddings_equal(both):
+    lookup = both["port"].sessions
+    np.testing.assert_array_equal(lookup.ids, both["sess_ids"])
+    assert_within_f16_ulp(lookup.emb, both["sess_emb"])
+    # train + test sessions
+    w = both["w"]
+    n = len(np.unique(np.concatenate([w["split"].train.session, w["split"].test.session])))
+    assert len(lookup.ids) == n
+
+
+def test_cluster_labels_equal(both):
+    lookup = both["port"].sessions
+    np.testing.assert_array_equal(lookup.cluster, both["labels"])
+    km = both["report"].kmeans
+    assert km["n_points"] == len(both["labels"])
+    assert km["n_nonempty"] == len(np.unique(both["labels"])) > 1
+    assert 0 < km["n_iter"] <= 100 and km["inertia"] > 0
+
+
+def test_overlap_report_equal(both, tmp_path):
+    for name, stats in both["ref_stats"].items():
+        assert both["report"].overlap[name] == stats
+        ref_write_overlap(str(tmp_path / name), stats)
+        got = (both["report_dir"] / f"stats_w2vec_x_co_click-{name}.csv").read_text()
+        assert got == (tmp_path / name).read_text()
+    assert set(both["report"].seconds) == {
+        "knn w2v-all", "knn w2v-1-2", "overlap", "session_emb", "kmeans", "context"}
+
+
+def test_top20_from_built_tables_equal(both, tmp_path):
+    """score_pass over the tables each package built."""
+    sp = both["w"]["split"]
+    batches = [np.asarray(b.feats) for b in both["ref"].iter_run(sp.test, BATCH)]
+    flat = np.concatenate([f.reshape(-1, f.shape[-1]) for f in batches])
+    ref_rankers = seeded_rankers(flat[flat[:, FEATURE_INDEX["src_any"]] > 0])
+    want = _ref_pipeline(tmp_path)._score_pass(both["ref"], sp.test, ref_rankers, BATCH)
+    got = port_runner.score_pass(
+        both["port"], both["w"]["port_test"],
+        {t: convert.gbdt_from_numpy(r) for t, r in ref_rankers.items()}, BATCH)
+    for t in TYPES:
+        np.testing.assert_array_equal(got[t][0], want[t][0])
+        np.testing.assert_array_equal(got[t][1], want[t][1])
+    assert (got["clicks"][1][:, 0] >= 0).mean() > 0.9

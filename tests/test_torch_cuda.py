@@ -11,7 +11,7 @@ machine with only PyTorch:
 import pytest
 import torch
 
-from otto_tpu_torch.ops.kernels import gather, segscan
+from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
 
 @pytest.fixture
@@ -56,3 +56,102 @@ def test_cuda_segscan_matches_twin(cuda_device, red, dtype, P):
     assert segscan.launches == before + 1
     # small integer values: float sums are exact in any order here
     assert torch.equal(got, segscan.segmented_scan_ref(vals, first, red))
+
+
+# K3 scores: float32 FFMA chains against cuBLAS's sums, a few ulps of the
+# terms |q|^2 + |c|^2 (~200 at D = 100); an index may differ from the
+# twin's only where the kernel's pick scores, recomputed in float64, within
+# that tolerance of the twin's entry (a near-tie summed in another order)
+MIPS_TOL = 1e-4
+
+
+def assert_topk_agree(got, want, q, c, metric):
+    gs, gi = got
+    ws, wi = want
+    scale = 1.0 + float(ws.abs().max()) if ws.numel() else 1.0
+    assert torch.allclose(gs, ws, rtol=0, atol=MIPS_TOL * scale)
+    diff = gi != wi
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        qq, cc = q[rows].double(), c[gi[diff].long()].double()
+        s = (qq * cc).sum(1)
+        if metric == "l2":
+            s = 2 * s - (qq * qq).sum(1) - (cc * cc).sum(1)
+        assert torch.allclose(s, ws[diff].double(), rtol=0, atol=MIPS_TOL * scale)
+        assert int(diff.sum()) <= max(2, diff.numel() // 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("Q,V,D,k", [
+    (1, 1000, 100, 20),      # one query
+    (333, 1000, 100, 20),    # V and Q not tile multiples
+    (64, 7, 100, 20),        # V < k: -1 entries
+    (3, 0, 8, 4),            # empty corpus
+    (200, 4097, 128, 20),    # D = 128
+    (130, 3000, 16, 5),
+    (65, 300, 100, 32),      # the largest k
+])
+def test_cuda_mips_matches_twin(cuda_device, metric, Q, V, D, k):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn((Q, D), generator=g, device=cuda_device)
+    c = torch.randn((V, D), generator=g, device=cuda_device)
+    before = mips.launches
+    got = mips.mips_topk(q, c, k, metric)
+    torch.cuda.synchronize()
+    assert mips.launches == before + 1
+    want = mips.mips_topk_ref(q, c, k, metric)
+    assert got[0].shape == (Q, k) and got[1].dtype == torch.int32
+    assert_topk_agree(got, want, q, c, metric)
+    if V < k:
+        assert (got[1][:, V:] == -1).all() and (got[0][:, V:] == mips.NEG_INF).all()
+
+
+@pytest.mark.cuda
+def test_cuda_mips_tie_lower_index_first(cuda_device):
+    """Identical rows 10, 700 and 1500, in three different 128-row tiles."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    c = torch.randn((2000, 100), generator=g, device=cuda_device)
+    c[700] = c[10]
+    c[1500] = c[10]
+    q = c[[10, 700]].clone()
+    s, i = mips.mips_topk(q, c, 5)
+    torch.cuda.synchronize()
+    assert i[:, :3].tolist() == [[10, 700, 1500]] * 2
+    assert torch.equal(i, mips.mips_topk_ref(q, c, 5)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,D,N,dtype", [
+    (1000, 100, 777, torch.float32),
+    (1000, 128, 300, torch.int32),
+    (50, 3, 1000, torch.float32),      # D % 4 != 0: 4-byte loads
+    (1, 100, 5, torch.int32),
+    (10, 100, 0, torch.float32),
+])
+def test_cuda_gather_hbm_matches_twin(cuda_device, V, D, N, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    table = torch.randint(-2**31, 2**31 - 1, (V, D), generator=g, device=cuda_device,
+                          dtype=torch.int32)
+    if dtype == torch.float32:
+        table = torch.randn((V, D), generator=g, device=cuda_device)
+    ids = torch.randint(-5, V + 5, (N,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    before = dma_gather.launches
+    got = dma_gather.gather_rows_hbm(table, ids)
+    torch.cuda.synchronize()
+    assert dma_gather.launches == before + (1 if N else 0)
+    assert torch.equal(got, dma_gather.gather_rows_hbm_ref(table, ids))
+
+
+@pytest.mark.cuda
+def test_cuda_gather_hbm_unaligned_table(cuda_device):
+    """A table that starts 4 bytes into its storage takes 4-byte loads."""
+    V, D = 300, 100
+    base = torch.randn(V * D + 1, device=cuda_device)
+    table = base[1:].view(V, D)
+    assert table.data_ptr() % 16 != 0
+    ids = torch.randint(0, V, (1000,), device=cuda_device, dtype=torch.int32)
+    got = dma_gather.gather_rows_hbm(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dma_gather.gather_rows_hbm_ref(table, ids))

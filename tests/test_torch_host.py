@@ -14,10 +14,12 @@ from otto_tpu.data.schema import Labels as RefLabels
 from otto_tpu.data.synthetic import SyntheticSpec as RefSpec
 from otto_tpu.data.synthetic import generate as ref_generate
 from otto_tpu.eval import recall as ref_recall
-from otto_tpu_torch import config
+from otto_tpu.models import word2vec as ref_word2vec
+from otto_tpu_torch import config, convert
 from otto_tpu_torch.data import batching, split, synthetic
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.eval import recall
+from otto_tpu_torch.models import word2vec
 
 
 @pytest.fixture(scope="module")
@@ -162,3 +164,66 @@ def test_generate_feeds_split_and_packing():
     assert len(sp.train) and len(sp.labels)
     packed = batching.pack_sessions(sp.test, (8, 32, 128))
     assert [p.aid.shape[1] for p in packed] == [8, 32, 128]
+
+
+def test_build_config_matches_reference():
+    """The word2vec and k-means settings the table build reads."""
+    for name, cfg in config.W2VEC_MODELS.items():
+        ref = ref_config.W2VEC_MODELS[name]
+        for f in dataclasses.fields(config.Word2VecConfig):
+            assert getattr(cfg, f.name) == getattr(ref, f.name), (name, f.name)
+    assert list(config.W2VEC_MODELS) == list(ref_config.W2VEC_MODELS)
+    ref_default = ref_config.Word2VecConfig()
+    for f in dataclasses.fields(config.Word2VecConfig):
+        assert getattr(config.Word2VecConfig(), f.name) == getattr(ref_default, f.name)
+    ref_km = ref_config.KMeansConfig()
+    for f in dataclasses.fields(config.KMeansConfig):
+        assert getattr(config.KMeansConfig(), f.name) == getattr(ref_km, f.name), f.name
+
+
+def test_events_concat_matches_reference(events):
+    ref_ev, ev = events
+    half = len(ev) // 2
+    want = ref_ev.select(np.arange(half)).concat(ref_ev.select(np.arange(half, len(ev))))
+    got = ev.select(np.arange(half)).concat(ev.select(np.arange(half, len(ev))))
+    for col in ("session", "aid", "ts", "type"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+        assert getattr(got, col).dtype == getattr(want, col).dtype
+
+
+@pytest.mark.parametrize("types,min_count", [((0, 1, 2), 5), ((1, 2), 1), ((0,), 0)])
+def test_build_vocab_matches_reference(events, types, min_count):
+    ref_ev, ev = events
+    want = ref_word2vec.build_vocab(ref_ev, types, min_count, 400)
+    got = word2vec.build_vocab(ev, types, min_count, 400)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype
+    assert got.size == want.size
+
+
+def test_word2vec_load_reads_reference_npz(events, tmp_path):
+    """An otto_tpu-saved model loads into the port; the port's save writes
+    a file otto_tpu loads back."""
+    ref_ev, _ = events
+    cfg = ref_config.W2VEC_MODELS["w2v-1-2"]
+    vocab = ref_word2vec.build_vocab(ref_ev, cfg.types, 2, 400)
+    emb = np.random.default_rng(0).normal(size=(vocab.size, 12)).astype(np.float32)
+    ref = ref_word2vec.Word2Vec(cfg, vocab, emb)
+    ref.save(str(tmp_path / "ref.npz"))
+    got = word2vec.Word2Vec.load(str(tmp_path / "ref.npz"), config.W2VEC_MODELS["w2v-1-2"])
+    np.testing.assert_array_equal(got.emb, emb)
+    for g, w in zip(got.vocab, vocab):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got.embedding_by_aid(400), ref.embedding_by_aid(400))
+    carried = convert.word2vec_from_numpy(ref)
+    assert carried.cfg == config.W2VEC_MODELS["w2v-1-2"]
+    np.testing.assert_array_equal(carried.embedding_by_aid(400), ref.embedding_by_aid(400))
+    got.save(str(tmp_path / "port.npz"))
+    back = ref_word2vec.Word2Vec.load(str(tmp_path / "port.npz"), cfg)
+    np.testing.assert_array_equal(back.emb, emb)
+    np.testing.assert_array_equal(back.vocab.word_of_aid, vocab.word_of_aid)
+    np.savez(str(tmp_path / "bad.npz"), aid_of_word=vocab.aid_of_word,
+             word_of_aid=vocab.word_of_aid, counts=vocab.counts, emb=emb[:-1])
+    with pytest.raises(ValueError):
+        word2vec.Word2Vec.load(str(tmp_path / "bad.npz"), got.cfg)

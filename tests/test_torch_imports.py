@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from otto_tpu_torch.device import pin_fp32, resolve
-from otto_tpu_torch.ops.kernels import gather, segscan
+from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -25,7 +25,7 @@ for n in names:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "otto_tpu"))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -49,7 +49,14 @@ def test_every_module_imports_without_jax():
         env=_env_without_cuda_toolkit(), cwd=str(REPO), timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 22
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 28
+    assert {
+        "otto_tpu_torch.models.word2vec", "otto_tpu_torch.ops.knn",
+        "otto_tpu_torch.ops.kmeans", "otto_tpu_torch.ops.kernels.mips",
+        "otto_tpu_torch.ops.kernels.dma_gather", "otto_tpu_torch.eval.diagnostics",
+        "otto_tpu_torch.engine.session_embed", "otto_tpu_torch.pipeline.runner",
+    } <= names
 
 
 FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|otto_tpu)\b(?!_)")
@@ -77,6 +84,16 @@ def test_cpu_tensors_run_the_twins():
     out = segscan.segmented_scan(v, first, "sum")
     assert torch.equal(out, torch.cumsum(v, dim=2, dtype=torch.int32))
     assert gather.launches == 0 and segscan.launches == 0
+
+
+def test_cpu_tensors_run_the_k3_k4_twins():
+    mips.launches = dma_gather.launches = 0
+    c = torch.eye(6)
+    s, i = mips.mips_topk(c[:2], c, 3, "dot")
+    assert i[:, 0].tolist() == [0, 1] and i[0, 1:].tolist() == [1, 2]
+    rows = dma_gather.gather_rows_hbm(c, torch.tensor([5, -3, 9], dtype=torch.int32))
+    assert torch.equal(rows, c[[5, 0, 5]])
+    assert mips.launches == 0 and dma_gather.launches == 0
 
 
 def test_other_devices_are_refused():
