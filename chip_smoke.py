@@ -64,10 +64,11 @@ KNN_K = 20
 KNN_QUERIES = 600_000      # knn_first_n_aids
 N_CLUSTERS = 50
 
-# K3 scores: float32 FFMA chains in the kernel against cuBLAS's sums in the
-# twin, a few ulps of the terms |q|^2 + |c|^2 they cancel; an index may
-# differ from the twin's only where the kernel's pick, rescored in float64,
-# lies within this tolerance of the twin's entry (a near-tie)
+# K3 scores: 3xTF32 tensor-core sums in the kernel (about 2^-21 relative per
+# product) against cuBLAS's float32 sums in the twin, far inside this share
+# of the terms |q|^2 + |c|^2 they cancel; an index may differ from the
+# twin's only where the kernel's pick, rescored in float64, lies within this
+# tolerance of the twin's entry (a near-tie)
 MIPS_TOL = 1e-4
 
 
@@ -247,8 +248,11 @@ def phase_kernels(dev, smi):
     del keys, first
 
     # K3: one knn_search query block against the full corpus (the table
-    # build's shape), then a small inner-product case
-    for Q, V, metric in ((16384, N_AIDS, "l2"), (1000, 100_000, "dot")):
+    # build's shape), then smaller blocks whose query blocks cannot fill the
+    # card (the kernel splits the corpus into S ranges and merges)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Q, V, metric in ((16384, N_AIDS, "l2"), (2048, 200_000, "l2"),
+                         (1000, 100_000, "dot"), (2048, 200_000, "dot")):
         q = torch.randn((Q, EMB_D), generator=g, device=dev) * 0.3
         c = torch.randn((V, EMB_D), generator=g, device=dev) * 0.3
         got = mips.mips_topk(q, c, KNN_K, metric)
@@ -258,7 +262,8 @@ def phase_kernels(dev, smi):
         ms = cuda_ms(lambda: mips.mips_topk(q, c, KNN_K, metric), reps=3)
         tflops = 2 * Q * V * EMB_D / (ms * 1e-3) / 1e12
         report(f"mips_topk {metric}", (Q, V, EMB_D, KNN_K), err, ms, plain)
-        print(f"#   {tflops:.2f} TFLOP/s, {n_diff} near-tie index swaps, twin timed once")
+        print(f"#   {tflops:.2f} TFLOP/s, split S = {mips.split_plan(Q, V, n_sm)[0]}, "
+              f"{n_diff} near-tie index swaps, twin timed once")
         del q, c, got, want
 
     # K4: a session-embedding microbatch of 2^19 lanes from the item table,

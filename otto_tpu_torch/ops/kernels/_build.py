@@ -102,8 +102,7 @@ def load() -> ctypes.CDLL:
     lib.otto_gather_rows.restype = i32
     lib.otto_segscan.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.otto_segscan.restype = i32
-    lib.otto_mips_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                   i32, i32, i32, i32, i32, ptr]
+    lib.otto_mips_topk.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
     lib.otto_mips_topk.restype = i32
     lib.otto_gather_rows_hbm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
                                          i32, i32, ptr]

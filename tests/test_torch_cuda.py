@@ -58,10 +58,11 @@ def test_cuda_segscan_matches_twin(cuda_device, red, dtype, P):
     assert torch.equal(got, segscan.segmented_scan_ref(vals, first, red))
 
 
-# K3 scores: float32 FFMA chains against cuBLAS's sums, a few ulps of the
-# terms |q|^2 + |c|^2 (~200 at D = 100); an index may differ from the
-# twin's only where the kernel's pick scores, recomputed in float64, within
-# that tolerance of the twin's entry (a near-tie summed in another order)
+# K3 scores: 3xTF32 tensor-core sums (about 2^-21 relative per product)
+# against cuBLAS's float32 sums, far inside this tolerance of the terms
+# |q|^2 + |c|^2 (~200 at D = 100); an index may differ from the twin's only
+# where the kernel's pick scores, recomputed in float64, within that
+# tolerance of the twin's entry (a near-tie summed in another order)
 MIPS_TOL = 1e-4
 
 
@@ -81,6 +82,10 @@ def assert_topk_agree(got, want, q, c, metric):
         assert int(diff.sum()) <= max(2, diff.numel() // 1000)
 
 
+def n_sm(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "dot"])
 @pytest.mark.parametrize("Q,V,D,k", [
@@ -91,6 +96,12 @@ def assert_topk_agree(got, want, q, c, metric):
     (200, 4097, 128, 20),    # D = 128
     (130, 3000, 16, 5),
     (65, 300, 100, 32),      # the largest k
+    (300, 5000, 3, 20),      # D = 3: depths past D masked
+    (100, 2500, 57, 20),     # D neither a multiple of 4 nor of 8
+    (129, 2000, 8, 1),       # k = 1
+    (257, 3000, mips.MAX_D, 32),   # the largest D at the largest k
+    (40, 30, 100, 32),       # V < k = 32
+    (2, 0, 100, 20),
 ])
 def test_cuda_mips_matches_twin(cuda_device, metric, Q, V, D, k):
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -108,8 +119,26 @@ def test_cuda_mips_matches_twin(cuda_device, metric, Q, V, D, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("Q", [1, 64, 1000])
+@pytest.mark.parametrize("k", [1, 20, 32])
+def test_cuda_mips_split_matches_twin(cuda_device, metric, Q, k):
+    """Few query blocks: the corpus is split across blocks and merged."""
+    V, D = 100_003, 100
+    S, _ = mips.split_plan(Q, V, n_sm(cuda_device))
+    assert S > 1
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((Q, D), generator=g, device=cuda_device) * 0.3
+    c = torch.randn((V, D), generator=g, device=cuda_device) * 0.3
+    got = mips.mips_topk(q, c, k, metric)
+    torch.cuda.synchronize()
+    assert_topk_agree(got, mips.mips_topk_ref(q, c, k, metric), q, c, metric)
+
+
+@pytest.mark.cuda
 def test_cuda_mips_tie_lower_index_first(cuda_device):
-    """Identical rows 10, 700 and 1500, in three different 128-row tiles."""
+    """Identical rows 10, 700 and 1500, in three different 64-row tiles;
+    then identical rows in three different corpus splits."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     c = torch.randn((2000, 100), generator=g, device=cuda_device)
     c[700] = c[10]
@@ -119,6 +148,20 @@ def test_cuda_mips_tie_lower_index_first(cuda_device):
     torch.cuda.synchronize()
     assert i[:, :3].tolist() == [[10, 700, 1500]] * 2
     assert torch.equal(i, mips.mips_topk_ref(q, c, 5)[1])
+
+    V = 100_000
+    S, chunk = mips.split_plan(2, V, n_sm(cuda_device))
+    assert S >= 3
+    c = torch.randn((V, 100), generator=g, device=cuda_device)
+    rows = [chunk - 1, chunk, 2 * chunk + 5]   # either side of a boundary, and a third split
+    c[rows[1]] = c[rows[0]]
+    c[rows[2]] = c[rows[0]]
+    for metric in ("l2", "dot"):
+        q = c[rows[::-1]].clone()
+        s, i = mips.mips_topk(q, c, 5, metric)
+        torch.cuda.synchronize()
+        assert i[:, :3].tolist() == [rows] * 3
+        assert torch.equal(i, mips.mips_topk_ref(q, c, 5, metric)[1])
 
 
 @pytest.mark.cuda

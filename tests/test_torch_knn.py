@@ -143,6 +143,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         mips.mips_topk(q.double(), q.double(), 2)
     with pytest.raises(ValueError):
-        mips.mips_topk(torch.zeros((3, 300)), torch.zeros((3, 300)), 2)
+        D = mips.MAX_D + 1                # past the k8 steps the kernel is built for
+        mips.mips_topk(torch.zeros((3, D)), torch.zeros((3, D)), 2)
     with pytest.raises(ValueError):
         mips.mips_topk(q.to("meta"), q.to("meta"), 2)
