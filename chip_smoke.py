@@ -12,33 +12,42 @@ Phases, each printed before the last line:
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search)
    and K4 (table row gather) against their plain PyTorch twins on the card
    at the main paths' shapes, with CUDA event times of kernel and twin.
-4. Table build at production width: synthetic OTTO-shaped sessions (1.8M
-   aids, sessions up to 512 events, 40k sessions), two seeded word2vec
-   models (w2v-all, w2v-1-2: 100-d, every one of the 1.8M aids a word,
-   each aid's vector near those of the 63 other aids of its 64-id group),
-   and the port's build_retriever: kNN tables of k = 20 for the 600,000
-   most frequent words of each model against all 1.8M (K3), session
-   embeddings of every session (K4), k-means with 50 clusters. Checks that
-   K3 and K4 were launched on the way. Co-visitation and popularity
-   tables stay seeded (their builders are not ported yet).
-5. Serving at production width: the Retriever that phase 4 built (its kNN
-   tables, item embeddings and session -> (cluster, embedding) lookup),
-   seeded co-visitation / popularity tables (top-10/10/20/20/20, 50
-   clusters x 128 candidates) and three seeded GBDT rankers (150 trees,
-   depth 4, 64 bins). Runs the port's score_pass (retrieval -> scoring ->
-   top-20, batch 2048, 32 kept aids, 512 candidates) over ~10k test
-   sessions and submit_and_eval, and checks that K1 and K2 were launched
-   on the way. Each aid's seeded co-visitation neighbours lie within 64
-   ids of it, as its kNN neighbours do, so the sources overlap and the
-   groupbys merge duplicates; no deployment was measured for that. The
-   recall says nothing about model quality, and the sessions/s this phase
-   prints is a smoke reading of this one run, not a benchmark.
+4. Table build at production width from the generated events: synthetic
+   OTTO-shaped sessions (1.8M aids, sessions up to 512 events, 500k
+   sessions, ~11.5M events), two seeded word2vec models (w2v-all,
+   w2v-1-2: 100-d, every one of the 1.8M aids a word, each aid's vector
+   near those of the 63 other aids of its 64-id group), and the port's
+   build_retriever at otto_tpu's default settings: co-visitation counting
+   of train then test into five top-N tables (C7), kNN tables of k = 20
+   for the 600,000 most frequent words of each model against all 1.8M
+   (K3), session embeddings of every session (K4), k-means with 50
+   clusters, cluster popularity over 50 clusters and over one. Prints the
+   counter's work (microbatches, lanes, pairs, ladder merges, rows spilled
+   and pruned, the host merge that ran, unique pairs per type before and
+   after the global prune) and each stage's seconds; checks the five
+   tables (shape, rows, counts non-increasing along a row, -1 exactly
+   where the count is 0, count_rel 100 in column 0), the popularity
+   tables (shapes, ranks in [1, 999]) and that K3 and K4 were launched.
+5. Serving at production width from what phase 4 built (co-visitation,
+   kNN and popularity tables, item embeddings, session -> (cluster,
+   embedding) lookup), with three seeded GBDT rankers (150 trees, depth 4,
+   64 bins): the port's score_pass (retrieval -> scoring -> top-20, batch
+   2048, 32 kept aids, 512 candidates) over every test session (~121k)
+   and submit_and_eval, checking that K1 and K2 were launched on the way;
+   then the heuristic baseline (engine/baseline.py) over the same
+   sessions on the built co-visitation tables. The recalls say nothing
+   about model quality (seeded models and trees, synthetic data), and the
+   sessions/s this phase prints are smoke readings of this one run, not a
+   benchmark.
 6. Cross-check, small cases run on the card (kernels) and on the CPU
-   (twins): one 256-session retrieval batch (candidates and integer
-   features bit-equal, float features within a stated tolerance); K3
-   through knn_search; session embeddings (within one float16 ulp);
-   k-means from the same start (labels equal but at near-ties, inertia
-   within a stated relative tolerance).
+   (twins): one 256-session retrieval batch on seeded tables (candidates
+   and integer features bit-equal, float features within a stated
+   tolerance); K3 through knn_search; session embeddings (within one
+   float16 ulp); k-means from the same start (labels equal but at
+   near-ties, inertia within a stated relative tolerance); co-visitation
+   tables of ~3k generated sessions in spill mode with the spill-time
+   prune running and with spill off, both popularity tables, and the
+   baseline's top-20 on those tables (all bit-equal).
 
 Then one JSON line with the kernels' results and, last, the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -58,7 +67,7 @@ import torch
 SEED = 1234
 N_AIDS = 1_800_000
 BATCH = 2048
-N_SESSIONS = 40_000
+N_SESSIONS = 500_000
 EMB_D = 100
 KNN_K = 20
 KNN_QUERIES = 600_000      # knn_first_n_aids
@@ -70,6 +79,12 @@ N_CLUSTERS = 50
 # twin's only where the kernel's pick, rescored in float64, lies within this
 # tolerance of the twin's entry (a near-tie)
 MIPS_TOL = 1e-4
+
+# the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): the
+# kernels' bounds are bytes over HBM3's rate or operations over the peak
+# of the units that run them
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS = 495e12
 
 
 def require(cond, msg):
@@ -171,22 +186,41 @@ def phase_build():
             print(f"#   {ln}")
 
 
+def bound(n_bytes, n_tf32_ops=0.0):
+    """(bound_ms, bound_by): the least time of the work on this card, the
+    larger of its bytes over HBM's rate and its TF32 tensor-core
+    operations over their peak."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_tf32_ops / TF32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def phase_kernels(dev, smi):
     """Each kernel against its twin at main-path shapes. Returns
-    {kernel: {max_abs_err, ms, plain_ms}} at the first (headline) shape."""
+    {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}
+    at the first (headline) shape; max_abs_err is the worst over shapes."""
     from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
 
-    def report(name, shape, err, ms, plain_ms):
+    def report(name, shape, err, ms, plain_ms, headline=None):
+        """headline: (bound_ms, bound_by, library_ms) at the first shape."""
+        extra = ""
+        if headline is not None:
+            b_ms, b_by, lib_ms = headline
+            lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+            extra = (f", bound {b_ms:.3f} ms by {b_by} ({100 * b_ms / ms:.0f}% of it), "
+                     f"library call {lib}")
         print(f"# {name} {shape}: max_abs_err {err:.3g}, kernel {ms:.3f} ms, "
-              f"twin {plain_ms:.3f} ms ({smi})")
-        if name.split()[0] not in out:
-            out[name.split()[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              f"twin {plain_ms:.3f} ms{extra} ({smi})")
+        key = name.split()[0]
+        if key not in out:
+            b_ms, b_by, lib_ms = headline
+            out[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         else:
-            o = out[name.split()[0]]
-            o["max_abs_err"] = max(o["max_abs_err"], err)
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
 
     # K1: transport-sort shape (stacked columns moved through a row
     # permutation, W = P) and the GBDT tree-walk shape (W = T = 150 > P = F)
@@ -210,7 +244,14 @@ def phase_kernels(dev, smi):
             require(torch.equal(got, want), f"K1 {dtype} {(B, S, P, W)} bit-equal")
             ms = cuda_ms(lambda: gather.gather_rows(v, idx))
             plain = cuda_ms(lambda: gather.gather_rows_ref(v, idx))
-            report(f"gather_rows {dtype}", (B, S, P, W), 0.0, ms, plain)
+            head = None
+            if "gather_rows" not in out:
+                # library: one torch.gather on the stack, index prepared
+                ix = idx.long().unsqueeze(0).expand(B, -1, -1)
+                lib = cuda_ms(lambda: torch.gather(v, 2, ix))
+                head = (*bound(4 * (B * S * P + S * W + B * S * W)), lib)
+                del ix
+            report(f"gather_rows {dtype}", (B, S, P, W), 0.0, ms, plain, head)
             del v, got, want
         del idx
 
@@ -242,7 +283,9 @@ def phase_kernels(dev, smi):
                 require(torch.equal(got, want), f"K2 {dtype} {red} bit-equal")
             ms = cuda_ms(lambda: segscan.segmented_scan(v, first, red))
             plain = cuda_ms(lambda: segscan.segmented_scan_ref(v, first, red), reps=3)
-            report(f"segmented_scan {dtype} {red}", (B, S, P), err, ms, plain)
+            # no one PyTorch call scans segments
+            head = (*bound(4 * 2 * B * S * P + S * P), None)
+            report(f"segmented_scan {dtype} {red}", (B, S, P), err, ms, plain, head)
             del got, want
         del v
     del keys, first
@@ -261,7 +304,10 @@ def phase_kernels(dev, smi):
         err, n_diff = topk_max_err(got, want, q, c, metric)
         ms = cuda_ms(lambda: mips.mips_topk(q, c, KNN_K, metric), reps=3)
         tflops = 2 * Q * V * EMB_D / (ms * 1e-3) / 1e12
-        report(f"mips_topk {metric}", (Q, V, EMB_D, KNN_K), err, ms, plain)
+        # 3xTF32: three TF32 products per float32 product on the tensor
+        # cores; no one PyTorch call gives a top-k of a product
+        head = (*bound(4 * (Q + V) * EMB_D + 8 * Q * KNN_K, 3 * 2 * Q * V * EMB_D), None)
+        report(f"mips_topk {metric}", (Q, V, EMB_D, KNN_K), err, ms, plain, head)
         print(f"#   {tflops:.2f} TFLOP/s, split S = {mips.split_plan(Q, V, n_sm)[0]}, "
               f"{n_diff} near-tie index swaps, twin timed once")
         del q, c, got, want
@@ -282,7 +328,12 @@ def phase_kernels(dev, smi):
         require(torch.equal(got, want), f"K4 {dtype} bit-equal")
         ms = cuda_ms(lambda: dma_gather.gather_rows_hbm(table, ids))
         plain = cuda_ms(lambda: dma_gather.gather_rows_hbm_ref(table, ids))
-        report(f"gather_rows_hbm {dtype}", (N_AIDS, EMB_D, n), 0.0, ms, plain)
+        # library: one index_select, the ids clipped beforehand (the
+        # kernel clips them itself)
+        ids64 = ids.clamp(0, N_AIDS - 1).long()
+        lib = cuda_ms(lambda: torch.index_select(table, 0, ids64))
+        head = (*bound(4 * n + 2 * 4 * n * EMB_D), lib)
+        report(f"gather_rows_hbm {dtype}", (N_AIDS, EMB_D, n), 0.0, ms, plain, head)
         gbs = 2 * n * EMB_D * 4 / (ms * 1e-3) / 1e9
         print(f"#   {gbs:.1f} GB/s (row bytes read + written)")
         del table, got, want
@@ -290,13 +341,14 @@ def phase_kernels(dev, smi):
 
 
 # --------------------------------------------------------------------------
-# seeded tables, models and rankers (stand-ins for the stages not ported)
+# seeded models and rankers (stand-ins for the training not ported), and
+# the seeded tables of phase 6's retrieval cross-check
 # --------------------------------------------------------------------------
 def seeded_context(n_aids, device, seed, emb_dim=EMB_D):
-    """A RetrievalContext at production shape, made on `device` from a
-    seed: per-aid neighbour lists near the aid (so sources overlap and the
-    groupbys have real duplicates to merge), descending counts, partly
-    empty rows."""
+    """A RetrievalContext of every table at its production width for
+    `n_aids` aids, made on `device` from a seed: per-aid neighbour lists
+    near the aid (so sources overlap and the groupbys have real duplicates
+    to merge), descending counts, partly empty rows."""
     from otto_tpu_torch.config import COVIS_FIRST_N
     from otto_tpu_torch.engine.covis import CoVisTables
     from otto_tpu_torch.engine.retrieval import RetrievalContext
@@ -405,11 +457,10 @@ def session_lookup(test, seed, emb_dim=EMB_D):
 # phase 4: the table build
 # --------------------------------------------------------------------------
 def phase_table_build(dev, smi):
-    from otto_tpu_torch.config import RetrievalConfig
+    from otto_tpu_torch.config import COVIS_FIRST_N, RetrievalConfig
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.data.split import split_events
     from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
-    from otto_tpu_torch.engine.popularity import PopularityTables
     from otto_tpu_torch.pipeline.runner import build_retriever
 
     t0 = time.perf_counter()
@@ -420,29 +471,23 @@ def phase_table_build(dev, smi):
     buckets = {p.max_len: p.n_sessions
                for p in pack_sessions(sp.test, cfg.session_len_buckets)}
     n_test = int(np.unique(sp.test.session).size)
-    print(f"# data: {len(sp.train)} train events, {n_test} test sessions, "
-          f"buckets {buckets}, {time.perf_counter() - t0:.1f} s")
+    print(f"# data: {len(sp.train)} train and {len(sp.test)} test events, "
+          f"{n_test} test sessions, buckets {buckets}, "
+          f"{time.perf_counter() - t0:.1f} s")
     require(set(buckets) == set(cfg.session_len_buckets), "all four buckets run")
 
     t0 = time.perf_counter()
-    seeded = seeded_context(N_AIDS, dev, SEED)
-    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
-    pop50 = PopularityTables(seeded.pop_cl50_cand, seeded.pop_cl50_ranks, empty)
-    pop1 = PopularityTables(empty, empty, seeded.pop_cl1_rank)
-    covis = seeded.covis
-    del seeded
     models = seeded_models(sp.train.concat(sp.test), N_AIDS, dev, SEED)
     torch.cuda.synchronize()
-    print(f"# seeded co-visitation / popularity tables and word2vec models: "
-          f"{time.perf_counter() - t0:.1f} s; vocab sizes "
+    print(f"# seeded word2vec models: {time.perf_counter() - t0:.1f} s; vocab sizes "
           f"{ {n: m.vocab.size for n, m in models.items()} }")
     require(all(m.vocab.size == N_AIDS for m in models.values()), "every aid a word")
 
     zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    retriever, rep = build_retriever(
-        sp.train, sp.test, covis, models, pop50, pop1, N_AIDS, dev, retrieval=cfg)
+    retriever, rep = build_retriever(sp.train, sp.test, models, N_AIDS, dev,
+                                     retrieval=cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
@@ -456,6 +501,16 @@ def phase_table_build(dev, smi):
             extra = (f" ({q} queries x {N_AIDS} x {EMB_D}: "
                      f"{2 * q * N_AIDS * EMB_D / s / 1e12:.2f} TFLOP/s)")
         print(f"#   {stage}: {s:.3f} s{extra}")
+    cv = rep.covis
+    print(f"# covis: {cv['host_seconds']:.3f} s of host dedup and packing, "
+          f"{cv['microbatches']} microbatches, {cv['lanes']} grid lanes, "
+          f"{cv['pairs']} pairs emitted, {cv['ladder_merges']} ladder merges, "
+          f"{cv['rows_spilled']} rows spilled, {cv['rows_pruned']} pruned at spill, "
+          f"host merge {cv['host_merge']}")
+    for name, (before, after) in cv["unique_pairs"].items():
+        print(f"#   {name}: {before} unique pairs, {after} after the global prune, "
+              f"{cv['rows_with_neighbours'][name]} aids with a neighbour")
+    print(f"# popularity: {json.dumps(rep.popularity)}")
     km = rep.kmeans
     print(f"# kmeans: inertia {km['inertia']:.1f}, {km['n_iter']} iterations, "
           f"{km['n_nonempty']} of {N_CLUSTERS} clusters non-empty, "
@@ -465,6 +520,25 @@ def phase_table_build(dev, smi):
             f"K3 and K4 launched by the table build: {launches}")
 
     ctx = retriever.ctx
+    for (name, first_n), t in zip(COVIS_FIRST_N.items(), ctx.covis):
+        for f in t:
+            require(f.shape == (N_AIDS, first_n) and f.device.type == "cuda",
+                    f"{name} table shape and device")
+        present = t.count > 0
+        require(int(present[:, 0].sum()) > 0, f"{name} has rows")
+        require(bool((t.count[:, 1:] <= t.count[:, :-1]).all()),
+                f"{name} counts non-increasing along a row")
+        require(bool(((t.neighbor == -1) == ~present).all()),
+                f"{name} neighbour -1 exactly where the count is 0")
+        require(bool((t.count_rel[present[:, 0], 0] == 100).all()),
+                f"{name} count_rel 100 in column 0")
+    require(ctx.pop_cl50_cand.shape == (N_CLUSTERS, 128)
+            and ctx.pop_cl50_ranks.shape == (N_CLUSTERS, 128, 6)
+            and ctx.pop_cl1_rank.shape == (N_AIDS, 6), "popularity table shapes")
+    for r in (ctx.pop_cl50_ranks, ctx.pop_cl1_rank):
+        require(bool(((r >= 1) & (r <= 999)).all()), "popularity ranks in [1, 999]")
+    require(rep.popularity["cl50"]["candidates_total"] > 0, "popularity candidates")
+
     for name, (nbr, dist) in zip(models, (ctx.knn_all, ctx.knn_1_2)):
         require(nbr.shape == (N_AIDS, KNN_K) and dist.shape == (N_AIDS, KNN_K),
                 f"{name} kNN table shape")
@@ -498,7 +572,8 @@ def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
     n_test = int(np.unique(sp.test.session).size)
     table_bytes = sum(t.nbytes for t in retriever.ctx.tensors())
     print(f"# serving tables: {table_bytes / 1e9:.2f} GB on the card "
-          f"(kNN tables, item embeddings and session lookup from the build)")
+          f"(co-visitation, kNN and popularity tables, item embeddings and "
+          f"session lookup, all from the build)")
 
     # warm-up batch: fits the rankers' bin edges to real features and pays
     # the one-time CUDA costs outside the timed pass
@@ -531,7 +606,32 @@ def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
         require((a[:, 0] >= 0).mean() > 0.99, f"{t} sessions get predictions")
     require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in recall.values()),
             "recall values in [0, 1]")
+    phase_baseline(smi, sp, retriever, n_test)
     return launches
+
+
+def phase_baseline(smi, sp, retriever, n_test):
+    """The heuristic baseline over every test session on the built
+    co-visitation tables."""
+    from otto_tpu_torch.config import COVIS_FIRST_N, TYPES
+    from otto_tpu_torch.engine import baseline
+    from otto_tpu_torch.eval.recall import evaluate_topk
+
+    tables = dict(zip(COVIS_FIRST_N, retriever.ctx.covis))
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sessions, aids = baseline.recommend(sp.test, tables)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    recall = evaluate_topk({t: (sessions, aids) for t in TYPES}, sp.labels)
+    print(f"# baseline: {n_test} sessions in {dt:.2f} s = {n_test / dt:.1f} "
+          f"sessions/s, launches {launches}, recall@20 {json.dumps(recall)} ({smi})")
+    require(sessions.shape == (n_test,) and aids.shape == (n_test, 20), "baseline shapes")
+    require(((aids >= -1) & (aids < N_AIDS)).all(), "baseline aids in range")
+    require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
+            f"K1 and K2 launched by the baseline: {launches}")
+    require(0.0 < recall["total"] <= 1.0, "baseline recall in (0, 1]")
 
 
 # --------------------------------------------------------------------------
@@ -596,8 +696,12 @@ def phase_cross_check(dev):
     for name, j in FEATURE_INDEX.items():
         a, b = f_cpu[..., j], f_dev[..., j]
         if name in FLOAT_FEATURES:
-            require(torch.allclose(a, b, rtol=FLOAT_TOL, atol=FLOAT_TOL),
-                    f"cross-check {name} within {FLOAT_TOL}")
+            bad = ~torch.isclose(a, b, rtol=FLOAT_TOL, atol=FLOAT_TOL)
+            where = [(s, c, float(a[s, c]), float(b[s, c]), int(c_cpu[s, c]))
+                     for s, c in bad.nonzero()[:4].tolist()]
+            require(not bad.any(), f"cross-check {name} within {FLOAT_TOL}: "
+                    f"{int(bad.sum())} entries off, (session row, slot, CPU, card, "
+                    f"candidate) {where}")
             worst = max(worst, float((a - b).abs().max()))
         else:
             require(torch.equal(a, b), f"cross-check {name} bit-equal")
@@ -647,6 +751,75 @@ def phase_cross_check(dev):
     print(f"# cross-check k-means: 8192 x {EMB_D}, {N_CLUSTERS} clusters, "
           f"{len(swapped)} labels differ, inertia {in_d:.3f} vs {in_c:.3f} "
           f"(rel {rel:.3g}), iterations {it_d} vs {it_c}")
+    cross_check_counting(dev)
+
+
+def cross_check_counting(dev):
+    """Co-visitation tables, popularity tables and the baseline's top-20 of
+    ~3k generated sessions, built on the card and on the CPU: bit-equal.
+    A small pair budget and run size make the ladder merge, spill and
+    (with a low threshold) prune several times."""
+    from otto_tpu_torch.config import CoVisConfig, PopularityConfig
+    from otto_tpu_torch.data.split import split_events
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.engine import baseline
+    from otto_tpu_torch.engine.covis import CoVisCounter
+    from otto_tpu_torch.engine.popularity import compute_popularity
+
+    cpu = torch.device("cpu")
+    n_aids = 20_000
+    sp = split_events(generate(SyntheticSpec(
+        n_sessions=3000, n_aids=n_aids, max_len=128, mean_len=14, seed=SEED + 2),
+        cpu), test_days=7, seed=0)
+    cases = (("spill, pruned", dict(spill_prune_min_rows=2_000)),
+             ("spill=False", dict(host_spill=False, accumulator_capacity=1 << 15)))
+    cpu_tables = {}
+    for label, over in cases:
+        cfg = dataclasses.replace(CoVisConfig(), pair_budget=1 << 16,
+                                  max_run_rows=1 << 19, **over)
+        built = []
+        for device in (dev, cpu):
+            counter = CoVisCounter(cfg, device)
+            try:
+                counter.update(sp.train)
+                counter.update(sp.test)
+                tables = counter.retrieval_tables(n_aids)
+            finally:
+                counter.close()
+            built.append((tables, counter.ladder.rows_pruned,
+                          counter.ladder.rows_spilled, counter.unique_pairs))
+        (t_d, pruned, spilled, uniq), (t_c, *rest) = built
+        cpu_tables[label] = t_c
+        require([pruned, spilled, uniq] == rest, f"covis {label}: counter stats equal")
+        require(pruned > 0 or not cfg.host_spill, f"covis {label}: the prune ran")
+        for name in cfg.names:
+            for f, a, b in zip(t_d[name]._fields, t_d[name], t_c[name]):
+                require(torch.equal(a.cpu(), b), f"covis {label} {name}.{f} bit-equal")
+        n_rows = sum(int((t.neighbor[:, 0] >= 0).sum()) for t in t_c.values())
+        require(n_rows > 0, f"covis {label}: tables have rows")
+        print(f"# cross-check covis ({label}): {len(sp.train) + len(sp.test)} events, "
+              f"five tables bit-equal, {n_rows} rows with a neighbour, "
+              f"{spilled} rows spilled, {pruned} pruned")
+
+    full = sp.train.concat(sp.test)
+    rng = np.random.default_rng(SEED)
+    cl = rng.integers(0, N_CLUSTERS, int(full.session.max()) + 1).astype(np.int32)
+    for n_clusters, ev_cl in ((N_CLUSTERS, cl[full.session]),
+                              (1, np.zeros(len(full), np.int32))):
+        got, want = (compute_popularity(full, ev_cl, n_clusters, n_aids,
+                                        PopularityConfig(), device, event_budget=1 << 14)
+                     for device in (dev, cpu))
+        for f, a, b in zip(got._fields, got, want):
+            require(torch.equal(a.cpu(), b), f"popularity cl{n_clusters} {f} bit-equal")
+    print(f"# cross-check popularity: cl{N_CLUSTERS} and cl1 tables bit-equal")
+
+    t_c = cpu_tables["spill, pruned"]
+    tables_d = {n: type(t)(*(x.to(dev) for x in t)) for n, t in t_c.items()}
+    s_d, a_d = baseline.recommend(sp.test, tables_d, batch_sessions=512)
+    s_c, a_c = baseline.recommend(sp.test, t_c, batch_sessions=512)
+    require(np.array_equal(s_d, s_c) and np.array_equal(a_d, a_c),
+            "baseline top-20 bit-equal")
+    print(f"# cross-check baseline: {len(s_c)} sessions, top-20 bit-equal")
 
 
 def main():

@@ -13,14 +13,16 @@ Ported so far:
   top-20 selection, the submission file and recall@20 — on K1
   `ops/kernels/gather.py` (row gather) and K2 `ops/kernels/segscan.py`
   (segmented scan);
-- the embedding-table build (`pipeline.runner.build_retriever`): item
-  kNN tables on K3 `ops/kernels/mips.py` (exact top-k search), session
-  embeddings on K4 `ops/kernels/dma_gather.py` (table row gather) and
-  k-means session clusters.
+- the table build (`pipeline.runner.build_retriever`): co-visitation
+  counting (`engine/covis.py`, torch sorts and scans on the device, the
+  run merge on the host in C++ from `native/kmerge.cc`), item kNN tables
+  on K3 `ops/kernels/mips.py` (exact top-k search), session embeddings
+  on K4 `ops/kernels/dma_gather.py` (table row gather), k-means session
+  clusters and cluster popularity (`engine/popularity.py`);
+- the heuristic co-visitation baseline (`engine/baseline.py`).
 The four hand-written CUDA kernels are built from `csrc/` at first use.
-Co-visitation counting, popularity, SGNS training and ranker training
-are still otto_tpu's; their output crosses over through
-`otto_tpu_torch.convert`.
+SGNS training and ranker training are still otto_tpu's; their output
+crosses over through `otto_tpu_torch.convert`.
 """
 
 __version__ = "0.1.0"

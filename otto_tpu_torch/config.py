@@ -1,22 +1,28 @@
 """Configuration of the ported stages.
 
 Counterpart of the part of otto_tpu/config.py that the ported modules
-read: the event types and recall weights, the retrieval caps, the
-co-visitation top-N per table, the shape of a GBDT ranker's trees, and
-what the embedding-table build reads of the word2vec and k-means settings.
-Names and defaults are otto_tpu's; tests/test_torch_host.py holds them
-equal. The settings of the stages still to port (counting, SGNS
-training, ranker training) come with those stages.
+read: the event types and recall weights, the co-visitation counting and
+popularity settings, the retrieval caps, the shape of a GBDT ranker's
+trees, and what the embedding-table build reads of the word2vec and
+k-means settings. Names and defaults are otto_tpu's;
+tests/test_torch_host.py holds them equal. The settings of the stages
+still to port (SGNS training, ranker training) come with those stages.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 TYPES: Tuple[str, ...] = ("clicks", "carts", "orders")
 TYPE2ID: Dict[str, int] = {t: i for i, t in enumerate(TYPES)}
 # weighted recall@20 (the OTTO metric)
 TYPE_WEIGHTS: Dict[str, float] = {"clicks": 0.1, "carts": 0.3, "orders": 0.6}
+
+# submission cutoff
+KEEP_TOP_K = 20
+
+HOUR = 60 * 60
+DAY = 24 * HOUR
 
 # co-visitation neighbours read per session aid at retrieval time, by
 # table, in the tables' order (otto_tpu's CoVisConfig.retrieval_first_n)
@@ -27,6 +33,88 @@ COVIS_FIRST_N: Dict[str, int] = {
     "cart_to_buy": 20,
     "buy_to_buy": 20,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class CoVisConfig:
+    """Co-visitation counting: which event pairs count, how they are pruned
+    and how many neighbours each aid keeps. The counting-machinery defaults
+    (`host_spill`, `spill_prune_min_rows`, `pair_budget`, `max_run_rows`)
+    are otto_tpu's: the spill-time prune depends on which pairs share a
+    run, so other values give other tables."""
+
+    # pair window: min_time_to_next <= ts_next - ts_this <= max_time_to_next
+    min_time_to_next: int = -DAY
+    max_time_to_next: int = DAY
+    # per count type |dt| cap
+    max_time_to_next_by_type: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {
+            "click_to_click": 12 * HOUR,
+            "click_to_cart_or_buy": DAY,
+            "cart_to_cart": DAY,
+            "cart_to_buy": DAY,
+            "buy_to_buy": DAY,
+        }
+    )
+    # (type_this, types_next) per count type
+    count_types: Dict[str, Tuple[int, Tuple[int, ...]]] = dataclasses.field(
+        default_factory=lambda: {
+            "click_to_click": (0, (0,)),
+            "click_to_cart_or_buy": (0, (1, 2)),
+            "cart_to_cart": (1, (1,)),
+            "cart_to_buy": (1, (2,)),
+            "buy_to_buy": (2, (2,)),
+        }
+    )
+    # global min count for a pair to be kept
+    min_count_to_save: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {
+            "click_to_click": 10,
+            "click_to_cart_or_buy": 5,
+            "cart_to_cart": 2,
+            "cart_to_buy": 2,
+            "buy_to_buy": 2,
+        }
+    )
+    # min count applied to partial aggregates (spilled runs, overflowing
+    # bounded tables)
+    min_count_in_part: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"click_to_click": 2, "click_to_cart_or_buy": 2}
+    )
+    # cap on pairs kept per table
+    max_pairs_to_save: int = 300_000_000
+    # neighbours kept per aid in each retrieval table
+    retrieval_first_n: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict(COVIS_FIRST_N)
+    )
+    # per-type capacity of the device-only bounded table (host_spill=False)
+    accumulator_capacity: int = 1 << 23
+    # True: fully merged runs spill losslessly to host memory and the
+    # global merge and prune happen there; False: a bounded device table
+    # with per-type in-part pruning on overflow
+    host_spill: bool = True
+    # spilled runs of at least this many rows drop pairs below their type's
+    # min_count_in_part first; 0 disables
+    spill_prune_min_rows: int = 4_000_000
+    # pair-grid lanes per microbatch (the ladder's run size)
+    pair_budget: int = 1 << 22
+    # largest ladder run, in rows
+    max_run_rows: int = 1 << 26
+
+    @property
+    def names(self) -> List[str]:
+        return list(self.count_types.keys())
+
+
+@dataclasses.dataclass(frozen=True)
+class PopularityConfig:
+    """Cluster popularity: candidates are the aids whose best rank is at
+    most keep_top_k; ranks clip at rank_clip; `recent` is the last
+    recent_window seconds before the newest event."""
+
+    keep_top_k: int = KEEP_TOP_K
+    recent_window: int = 7 * DAY
+    rank_clip: int = 999
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its host library.
 
 Every `otto_tpu_torch/csrc/*.cu` file is compiled by its own `nvcc` for
 `sm_90a`, all at once, and the objects are linked into one shared library
 with a plain C interface, which is loaded with `ctypes` (no PyTorch
-headers, so a build takes seconds). The library lives in
-`otto_tpu_torch/build/` under a name keyed by a hash of the sources and
-flags: the first use after a source change builds it, later uses load it.
-Nothing is fetched; only the package's own sources are compiled.
+headers, so a build takes seconds). `build_host` compiles one C++ source
+for the host CPU the same way (the co-visitation counter's run merge,
+`native/kmerge.cc`). Libraries live in `otto_tpu_torch/build/` under
+names keyed by a hash of the sources and flags: the first use after a
+source change builds one, later uses load it. Nothing is fetched; only
+the repository's own sources are compiled.
 """
 from __future__ import annotations
 
@@ -90,6 +92,34 @@ def build() -> Path:
             raise RuntimeError("nvcc failed:\n" + "".join(
                 " ".join(c) + "\n" + o for c, o in failed))
         os.replace(os.path.join(tmp, "lib.so"), lib)
+    return lib
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+
+
+def build_host(src: Path) -> Path:
+    """Compile one C++ source with the host compiler (`$CXX`, else g++ or
+    c++) into a shared library in BUILD_DIR, unless a library for this
+    source and these flags exists. Raises RuntimeError when no compiler is
+    found or the compile fails."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    lib = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError(f"no host C++ compiler to build {src.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", out, str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{cxx} failed on {src.name}:\n{proc.stdout}")
+        os.replace(out, lib)
     return lib
 
 

@@ -1,19 +1,35 @@
-"""Row-wise (per-session) segment primitives over padded [S, C] tensors.
+"""Sort-based segment (groupby) primitives.
 
-Counterpart of the row-wise half of otto_tpu/ops/segment.py: every per-
-session groupby, window rank and dedup of retrieval is a stable sort along
-the last axis plus a segmented scan. Invalid lanes carry the SENTINEL key
-(int32 max) and so sort last; ties keep their input order (every sort is
-`torch.sort(..., stable=True)`). Public functions keep the int32 layout of
-the reference; indices are cast to int64 only where `torch.gather` needs it.
+Counterpart of otto_tpu/ops/segment.py, in two halves:
+
+- flat (1-D) groupbys over composite int32 keys, for co-visitation and
+  popularity counting: `sort_compress*`, `sort_by_keys`,
+  `segment_starts`, `ordinal_rank_*`, `build_topn_tables`;
+- row-wise (per-session) primitives over padded [S, C] tensors: every
+  per-session groupby, window rank and dedup of retrieval is a stable
+  sort along the last axis plus a segmented scan.
+
+Invalid lanes carry the SENTINEL key (int32 max) and so sort last; ties
+keep their input order wherever otto_tpu's sort is stable. Public
+functions keep the int32 layout of the reference; indices are cast to
+int64 only where torch's indexing needs it.
+
+`torch.sort` takes one key: a lexicographic (k1, k2) sort of int32 keys
+sorts one int64 key `k1 * 2^32 + (k2 + 2^31)`, exact for every int32
+pair. The flat segmented sums are int64 cumsums minus the prefix at each
+segment start, cast back to int32: the sum mod 2^32, as otto_tpu's
+wrapping int32 scan network gives it. Segment ends are compacted to the
+front by their rank among the ends (a scatter to unique slots), not by a
+second sort: the ends already lie in key order.
 
 The column moves of `rowwise_transport_sort` go through kernel K1
 (ops/kernels/gather.py) and the scans of `rowwise_groupby_scan` through
-kernel K2 (ops/kernels/segscan.py).
+kernel K2 (ops/kernels/segscan.py). The flat half runs no kernel of its
+own: otto_tpu runs those scans as an XLA network, not a Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +60,190 @@ def _argsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
         _, p = torch.sort(kk, dim=-1, stable=True)
         perm = p if perm is None else torch.gather(perm, -1, p)
     return perm
+
+
+# ---------------------------------------------------------------------------
+# Flat (1-D) groupby over composite int32 keys
+# ---------------------------------------------------------------------------
+_LO = 2**31
+
+
+def _key64(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+    """One int64 key that orders int32 (k1, k2) pairs lexicographically."""
+    return k1.to(torch.int64) * (1 << 32) + (k2.to(torch.int64) + _LO)
+
+
+# _key64 of (NEG_SENTINEL, NEG_SENTINEL): the "previous key" of row 0
+_NEG_KEY = NEG_SENTINEL * (1 << 32) + (NEG_SENTINEL + _LO)
+
+
+def _split64(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (key >> 32).to(torch.int32), ((key & 0xFFFFFFFF) - _LO).to(torch.int32)
+
+
+def _sort_pairs(k1, k2):
+    """(k1 sorted, k2 sorted, first-of-segment flags, int64 permutation);
+    the order of equal keys is unspecified (lax.sort without is_stable)."""
+    key, perm = torch.sort(_key64(k1, k2))
+    k1s, k2s = _split64(key)
+    return k1s, k2s, key != _prev(key, _NEG_KEY), perm
+
+
+def _segment_start_index(first: torch.Tensor) -> torch.Tensor:
+    """For each row, the index (int64) where its segment starts: the last
+    row at or before it with `first` set, 0 when there is none (otto_tpu's
+    cummax of where(first, pos, 0)). Computed as the k-th start's position,
+    k the count of starts so far: a cumsum, a scatter and a gather, not
+    torch.cummax, whose CUDA scan with indices is ~100x slower."""
+    n = first.shape[0]
+    k = torch.cumsum(first, 0)
+    start_of = torch.zeros(n + 2, dtype=torch.int64, device=first.device)
+    start_of.scatter_(0, torch.where(first, k, n + 1),
+                      torch.arange(n, device=first.device))
+    return start_of[k]
+
+
+def _segment_sums(first: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sum of int32 v: the last row of every segment
+    holds the segment's total, mod 2^32."""
+    if v.dtype != torch.int32:
+        raise TypeError(f"flat segmented sums are int32, got {v.dtype}")
+    cs = torch.cumsum(v.to(torch.int64), 0)
+    excl = cs - v
+    return (cs - excl[_segment_start_index(first)]).to(torch.int32)
+
+
+def _compact(is_end: torch.Tensor, cols, fills) -> List[torch.Tensor]:
+    """The rows where is_end holds, moved to the front in order; the other
+    rows carry `fill`. Slot n takes every other row and is dropped."""
+    n = is_end.shape[0]
+    dest = torch.where(is_end, torch.cumsum(is_end, 0) - 1, n)
+    out = []
+    for c, fill in zip(cols, fills):
+        o = torch.full((n + 1,), fill, dtype=c.dtype, device=c.device)
+        o.scatter_(0, dest, c)
+        out.append(o[:n])
+    return out
+
+
+def _mask_invalid(k1, k2, values, valid):
+    if valid is None:
+        return k1, k2, values
+    return (torch.where(valid, k1, SENTINEL), torch.where(valid, k2, SENTINEL),
+            tuple(torch.where(valid, v, 0) for v in values))
+
+
+def sort_compress(
+    k1: torch.Tensor,
+    k2: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Groupby (k1, k2) -> sum(v), all int32 [N].
+
+    Returns (uk1, uk2, uv, n_unique): unique keys packed at the front in
+    ascending (k1, k2) order; padding rows carry SENTINEL keys and uv 0;
+    n_unique is a 0-d int32 tensor on the keys' device."""
+    uk1, uk2, (uv,), n = sort_compress_multi(k1, k2, (v,), valid)
+    return uk1, uk2, uv, n
+
+
+def sort_compress_ends(
+    k1: torch.Tensor, k2: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """sort_compress without the front compaction: unique keys stay at
+    their segment-END rows of the sorted order (other rows SENTINEL / 0)."""
+    k1s, k2s, first, perm = _sort_pairs(k1, k2)
+    a = _segment_sums(first, v[perm])
+    is_end = _next(first, True) & (k1s != SENTINEL)
+    return (torch.where(is_end, k1s, SENTINEL), torch.where(is_end, k2s, SENTINEL),
+            torch.where(is_end, a, 0), is_end.sum(dtype=torch.int32))
+
+
+def sort_compress_multi(
+    k1: torch.Tensor,
+    k2: torch.Tensor,
+    values: Sequence[torch.Tensor],
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Groupby (k1, k2) -> sum of each int32 value column."""
+    k1, k2, values = _mask_invalid(k1, k2, tuple(values), valid)
+    k1s, k2s, first, perm = _sort_pairs(k1, k2)
+    sums = [_segment_sums(first, v[perm]) for v in values]
+    is_end = _next(first, True) & (k1s != SENTINEL)
+    uk1, uk2, *uvs = _compact(is_end, [k1s, k2s, *sums],
+                              [SENTINEL, SENTINEL] + [0] * len(sums))
+    return uk1, uk2, tuple(uvs), is_end.sum(dtype=torch.int32)
+
+
+def sort_by_keys(
+    keys: Sequence[torch.Tensor], values: Sequence[torch.Tensor]
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Stable lexicographic sort of `values` by `keys` (ascending)."""
+    return rowwise_sort(keys, values)
+
+
+def segment_starts(seg_sorted: torch.Tensor) -> torch.Tensor:
+    """For each element of a sorted segment-id array, the index (int32)
+    where its segment starts."""
+    first = seg_sorted != _prev(seg_sorted, NEG_SENTINEL)
+    return _segment_start_index(first).to(torch.int32)
+
+
+def ordinal_rank_desc(
+    group: torch.Tensor,
+    value: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """1-based ordinal rank of `value` (descending) within each `group`,
+    ties broken by original order; invalid lanes get rank SENTINEL."""
+    n = group.shape[0]
+    if valid is not None:
+        group = torch.where(valid, group, SENTINEL)
+    _, perm = torch.sort(_key64(group, -value.to(torch.int32)), stable=True)
+    pos = torch.arange(n, dtype=torch.int32, device=group.device)
+    rank_sorted = pos - segment_starts(group[perm]) + 1
+    rank = torch.empty_like(rank_sorted).scatter_(0, perm, rank_sorted)
+    if valid is not None:
+        rank = torch.where(valid, rank, SENTINEL)
+    return rank
+
+
+def ordinal_rank_asc(
+    group: torch.Tensor,
+    value: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """1-based ascending ordinal rank within group."""
+    return ordinal_rank_desc(group, -value.to(torch.int32), valid)
+
+
+def build_topn_tables(
+    key: torch.Tensor,
+    neighbor: torch.Tensor,
+    values: Sequence[torch.Tensor],
+    n_keys: int,
+    n_top: int,
+    order_by: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Scatter a sparse (key, neighbor, *values) relation into dense
+    [n_keys, n_top] tables ordered by `order_by` desc (default values[0]);
+    rows past n_top and SENTINEL or out-of-range keys are dropped.
+    -> (neighbor table int32 (-1 pad), value tables (0 pad))."""
+    order = order_by if order_by is not None else values[0]
+    valid = key != SENTINEL
+    slot = ordinal_rank_desc(key, order, valid) - 1
+    keep = valid & (key >= 0) & (key < n_keys) & (slot < n_top)
+    size = n_keys * n_top
+    # (key, slot) pairs are unique: every kept row has a slot of its own
+    flat = torch.where(keep, key.to(torch.int64) * n_top + slot, size)
+
+    def table(v, fill):
+        t = torch.full((size + 1,), fill, dtype=v.dtype, device=v.device)
+        t.index_put_((flat,), v)
+        return t[:size].view(n_keys, n_top)
+
+    return table(neighbor, -1), tuple(table(v, 0) for v in values)
 
 
 def rowwise_sort(
@@ -135,6 +335,29 @@ def rowwise_groupby(
         ident = _reduce_identity(columns[n][0].dtype, columns[n][1])
         out[n] = torch.where(is_pad_slot, ident, comp[i])
     return uk, out, n_unique
+
+
+def rowwise_unique_sum(
+    key: torch.Tensor, values: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Per row: groupby key -> sum(values). Keys carry SENTINEL on invalid
+    lanes. -> (unique keys [S, C] SENTINEL back-padded, sums, n_unique)."""
+    return rowwise_segment_reduce(key, values, ("sum",) * len(values))
+
+
+def rowwise_segment_reduce(
+    key: torch.Tensor,
+    values: Sequence[torch.Tensor],
+    reducers: Sequence[str],
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Per-row groupby with mixed reducers ('sum' | 'max' | 'min' |
+    'count', the last a sum of the given column)."""
+    if len(values) != len(reducers):
+        raise ValueError("rowwise_segment_reduce: one reducer per column")
+    cols = {f"v{i}": (v, "sum" if r == "count" else r)
+            for i, (v, r) in enumerate(zip(values, reducers))}
+    uk, out, n_unique = rowwise_groupby(key, cols)
+    return uk, tuple(out[f"v{i}"] for i in range(len(values))), n_unique
 
 
 def rowwise_rank_desc(value: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

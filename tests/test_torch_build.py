@@ -1,19 +1,23 @@
-"""The embedding-table build slice against otto_tpu: kNN tables (C9),
-session embeddings (C10), k-means clusters (C11), then serving from them.
+"""The table build slice against otto_tpu: co-visitation counting (C7),
+kNN tables (C9), session embeddings (C10), k-means clusters (C11) and
+cluster popularity (C12), then serving from them.
 
-The reference side calls otto_tpu's C9-C11 functions in the order of its
-Pipeline.build_retriever (runner.py:727-813) on tiny synthetic data,
-two seeded word2vec models and the co-visitation / popularity tables of
-test_torch_retrieval.py's world; the port runs its build_retriever on the
-CPU with the same inputs. k-means starts from otto_tpu's k-means++
-centroids on both sides (test_torch_kmeans.py says why).
+The reference side calls otto_tpu's C7 and C9-C12 functions in the order
+of its Pipeline.build_retriever (runner.py:678-836) on the tiny synthetic
+data of test_torch_retrieval.py's world and two seeded word2vec models;
+the port runs its build_retriever on the CPU with the same inputs. The
+counting config is otto_tpu's but for a small pair budget and run size
+and a low spill-prune threshold, so the ladder merges, spills and prunes.
+k-means starts from otto_tpu's k-means++ centroids on both sides
+(test_torch_kmeans.py says why).
 
 Tolerances: kNN distances within 1e-5 relative + 1e-4 absolute and
 session embeddings within one float16 ulp (test_torch_session_embed.py
-says why); neighbours, session ids, cluster labels and the served top-20
-are equal (the seeded rankers split only on integer-valued features, see
-test_torch_slice.py).
+says why); the co-visitation and popularity tables, neighbours, session
+ids, cluster labels and the served top-20 are equal (the seeded rankers
+split only on integer-valued features, see test_torch_slice.py).
 """
+import dataclasses
 import functools
 
 import jax
@@ -23,9 +27,13 @@ import pytest
 import torch
 
 from otto_tpu.config import TYPES
+from otto_tpu.config import CoVisConfig as RefCoVisConfig
+from otto_tpu.config import PopularityConfig as RefPopularityConfig
 from otto_tpu.config import Word2VecConfig as RefW2VConfig
 from otto_tpu.data.batching import pack_sessions as ref_pack_sessions
 from otto_tpu.engine import retrieval as ref_retrieval
+from otto_tpu.engine.covis import CoVisCounter as RefCoVisCounter
+from otto_tpu.engine.popularity import compute_popularity as ref_popularity
 from otto_tpu.engine.retrieval import FEATURE_INDEX
 from otto_tpu.engine import session_embed as ref_se
 from otto_tpu.eval.diagnostics import w2vec_covis_overlap as ref_overlap
@@ -34,8 +42,9 @@ from otto_tpu.models.word2vec import Word2Vec as RefWord2Vec
 from otto_tpu.models.word2vec import build_vocab as ref_build_vocab
 from otto_tpu.ops import kmeans as ref_kmeans
 from otto_tpu_torch import convert
+from otto_tpu_torch.config import CoVisConfig
 from otto_tpu_torch.data.schema import Events
-from otto_tpu_torch.engine.popularity import PopularityTables
+from otto_tpu_torch.engine.covis import CoVisTables
 from otto_tpu_torch.ops import kmeans as port_kmeans
 from otto_tpu_torch.pipeline import runner as port_runner
 from test_torch_retrieval import BATCH, CFG, N_AIDS, PORT_CFG, build_world
@@ -44,6 +53,7 @@ from test_torch_slice import _ref_pipeline, seeded_rankers
 
 N_CLUSTERS = 50
 FIRST_N = 200     # kNN queries: fewer than the vocabulary, so some rows stay -1
+COUNTING = dict(pair_budget=1 << 12, max_run_rows=1 << 14, spill_prune_min_rows=64)
 
 
 def _ref_models(full):
@@ -61,13 +71,17 @@ def _ref_models(full):
 def build_both(tmp_root):
     w = build_world()
     sp = w["split"]
-    ref_ctx = w["ref"].ctx
     full = sp.train.concat(sp.test)
     models = _ref_models(full)
 
     # ---- otto_tpu, in runner.py's order ------------------------------------
+    counter = RefCoVisCounter(dataclasses.replace(RefCoVisConfig(), **COUNTING))
+    counter.update(sp.train)
+    counter.update(sp.test)
+    covis = counter.retrieval_tables(N_AIDS)
+    covis = tuple(covis[n] for n in RefCoVisConfig().names)
     knns = {n: ref_se.build_knn_tables(m, N_AIDS) for n, m in models.items()}
-    co_nbr = np.asarray(ref_ctx.covis[0].neighbor)
+    co_nbr = np.asarray(covis[0].neighbor)
     ref_stats = {n: ref_overlap(knns[n].neighbor, co_nbr) for n in models}
     aid_emb = models["w2v-all"].embedding_by_aid(N_AIDS)
     sess_ids, sess_emb = ref_se.compute_session_embeddings(ref_pack_sessions(full), aid_emb)
@@ -77,10 +91,19 @@ def build_both(tmp_root):
     _, kinit = jax.random.split(jax.random.PRNGKey(42))
     init = np.array(ref_kmeans._kmeanspp_init_device(jnp.asarray(sess_emb), N_CLUSTERS, kinit))
     _, labels, _, _ = ref_kmeans.kmeans_fit(sess_emb, N_CLUSTERS, max_iter=100, tol=1e-3, seed=42)
+    pos = np.clip(np.searchsorted(sess_ids, full.session), 0, len(sess_ids) - 1)
+    ev_cluster = np.where(sess_ids[pos] == full.session, labels[pos], 0).astype(np.int32)
+    pop50 = ref_popularity(full, ev_cluster, N_CLUSTERS, N_AIDS, RefPopularityConfig())
+    pop1 = ref_popularity(full, np.zeros(len(full), np.int32), 1, N_AIDS,
+                          RefPopularityConfig())
     ref = ref_retrieval.Retriever(
-        ctx=ref_ctx._replace(
+        ctx=w["ref"].ctx._replace(
+            covis=covis,
             knn_all=tuple(jnp.asarray(a) for a in knns["w2v-all"]),
             knn_1_2=tuple(jnp.asarray(a) for a in knns["w2v-1-2"]),
+            pop_cl50_cand=jnp.asarray(pop50.candidate),
+            pop_cl50_ranks=jnp.asarray(pop50.ranks),
+            pop_cl1_rank=jnp.asarray(pop1.aid_rank),
             aid_emb=jnp.asarray(aid_emb)),
         cfg=CFG,
         sessions=ref_retrieval.SessionLookup.build(sess_ids, labels, sess_emb),
@@ -94,24 +117,19 @@ def build_both(tmp_root):
     def ev(e):
         return Events(e.session, e.aid, e.ts, e.type)
 
-    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32)  # noqa: E731
     report_dir = tmp_root / "build"
     report_dir.mkdir()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_kmeans, "init_centroids", reference_init)
         port, report = port_runner.build_retriever(
             ev(sp.train), ev(sp.test),
-            covis=convert.covis_from_numpy(
-                [tuple(np.asarray(a) for a in t) for t in ref_ctx.covis], "cpu"),
             models={n: convert.word2vec_from_numpy(m) for n, m in models.items()},
-            pop_cl50=PopularityTables(i32(ref_ctx.pop_cl50_cand),
-                                      i32(ref_ctx.pop_cl50_ranks), i32(np.zeros((0, 6)))),
-            pop_cl1=PopularityTables(i32(np.zeros((1, 0))), i32(np.zeros((1, 0, 6))),
-                                     i32(ref_ctx.pop_cl1_rank)),
-            n_aids=N_AIDS, device="cpu", retrieval=PORT_CFG,
-            report_dir=str(report_dir),
+            n_aids=N_AIDS, device="cpu",
+            covis=dataclasses.replace(CoVisConfig(), **COUNTING),
+            retrieval=PORT_CFG, report_dir=str(report_dir),
         )
-    return {"w": w, "knns": knns, "ref_stats": ref_stats, "sess_ids": sess_ids,
+    return {"w": w, "covis": covis, "counter": counter, "pop50": pop50, "pop1": pop1,
+            "knns": knns, "ref_stats": ref_stats, "sess_ids": sess_ids,
             "sess_emb": sess_emb, "labels": labels, "ref": ref, "port": port,
             "report": report, "report_dir": report_dir, "models": models}
 
@@ -119,6 +137,37 @@ def build_both(tmp_root):
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     return build_both(tmp_path_factory.getbasetemp())
+
+
+def test_covis_tables_equal(both):
+    """All five fields of the five tables, counted from train then test."""
+    for name, got, want in zip(RefCoVisConfig().names, both["port"].ctx.covis,
+                               both["covis"]):
+        assert isinstance(got, CoVisTables)
+        for f, g, w in zip(CoVisTables._fields, got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{name}.{f}")
+    assert int((both["port"].ctx.covis[0].neighbor[:, 0] >= 0).sum()) > 0
+
+
+def test_covis_report_matches_counter(both):
+    rep, ref = both["report"].covis, both["counter"]
+    assert rep["rows_spilled"] == ref._store.rows_spilled > 0
+    assert rep["rows_pruned"] == ref._ladder.rows_pruned > 0
+    assert rep["host_merge"] == "c++"
+    assert rep["microbatches"] > 0 and rep["pairs"] > 0 and rep["host_seconds"] > 0
+    for name, t in zip(RefCoVisConfig().names, both["covis"]):
+        assert rep["rows_with_neighbours"][name] == int((np.asarray(t.neighbor)[:, 0] >= 0).sum())
+        assert rep["unique_pairs"][name][0] >= rep["unique_pairs"][name][1]
+
+
+def test_popularity_tables_equal(both):
+    ctx = both["port"].ctx
+    np.testing.assert_array_equal(ctx.pop_cl50_cand.numpy(), both["pop50"].candidate)
+    np.testing.assert_array_equal(ctx.pop_cl50_ranks.numpy(), both["pop50"].ranks)
+    np.testing.assert_array_equal(ctx.pop_cl1_rank.numpy(), both["pop1"].aid_rank)
+    pop = both["report"].popularity
+    assert pop["cl50"]["clusters"] == N_CLUSTERS and pop["cl1"]["clusters"] == 1
+    assert pop["cl50"]["candidates_total"] == int((both["pop50"].candidate >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("name,field", [("w2v-all", "knn_all"), ("w2v-1-2", "knn_1_2")])
@@ -161,7 +210,8 @@ def test_overlap_report_equal(both, tmp_path):
         got = (both["report_dir"] / f"stats_w2vec_x_co_click-{name}.csv").read_text()
         assert got == (tmp_path / name).read_text()
     assert set(both["report"].seconds) == {
-        "knn w2v-all", "knn w2v-1-2", "overlap", "session_emb", "kmeans", "context"}
+        "covis count", "covis tables", "knn w2v-all", "knn w2v-1-2", "overlap", "session_emb", "kmeans",
+        "popularity", "context"}
 
 
 def test_top20_from_built_tables_equal(both, tmp_path):

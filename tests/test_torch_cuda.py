@@ -198,3 +198,76 @@ def test_cuda_gather_hbm_unaligned_table(cuda_device):
     got = dma_gather.gather_rows_hbm(table, ids)
     torch.cuda.synchronize()
     assert torch.equal(got, dma_gather.gather_rows_hbm_ref(table, ids))
+
+
+# ---------------------------------------------------------------------------
+# co-visitation counting and popularity: the card's torch ops against the CPU
+# ---------------------------------------------------------------------------
+def _flat_keys(g, n):
+    k1 = torch.randint(-8, 8, (n,), generator=g, dtype=torch.int32)
+    k2 = torch.randint(-8, 8, (n,), generator=g, dtype=torch.int32)
+    m = min(n, 3)
+    k1[:m] = torch.tensor([-2**31, 2**31 - 2, 2**31 - 1], dtype=torch.int32)[:m]
+    k2[:m] = torch.tensor([2**31 - 2, -2**31, 2**31 - 1], dtype=torch.int32)[:m]
+    v = torch.randint(-2**30, 2**30, (n,), generator=g, dtype=torch.int32)
+    return k1, k2, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_cuda_flat_groupbys_match_cpu(cuda_device, n):
+    """Composite-key sorts, wrapping int32 segment sums, compaction, ranks
+    and the dense top-N scatter: bit-equal to the same ops on the CPU."""
+    from otto_tpu_torch.ops import segment as seg
+
+    g = torch.Generator().manual_seed(n)
+    k1, k2, v = _flat_keys(g, n)
+    want = seg.sort_compress(k1, k2, v)
+    got = seg.sort_compress(k1.to(cuda_device), k2.to(cuda_device), v.to(cuda_device))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    rank = seg.ordinal_rank_desc(k1, k2, v > 0)
+    assert torch.equal(seg.ordinal_rank_desc(
+        k1.to(cuda_device), k2.to(cuda_device), (v > 0).to(cuda_device)).cpu(), rank)
+    key = torch.where(v > 0, k1.abs() % 50, seg.SENTINEL)
+    want_t = seg.build_topn_tables(key, k2, (v,), 50, 4)
+    got_t = seg.build_topn_tables(key.to(cuda_device), k2.to(cuda_device),
+                                  (v.to(cuda_device),), 50, 4)
+    assert torch.equal(got_t[0].cpu(), want_t[0]) and torch.equal(got_t[1][0].cpu(), want_t[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill,prune", [(True, 1_000), (True, 0), (False, 0)])
+def test_cuda_covis_and_popularity_match_cpu(cuda_device, spill, prune):
+    import dataclasses
+
+    import numpy as np
+
+    from otto_tpu_torch.config import CoVisConfig, PopularityConfig
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.engine import baseline
+    from otto_tpu_torch.engine.covis import CoVisCounter
+    from otto_tpu_torch.engine.popularity import compute_popularity
+
+    ev = generate(SyntheticSpec(n_sessions=800, n_aids=3000, max_len=64, seed=3))
+    cfg = dataclasses.replace(CoVisConfig(), pair_budget=1 << 14, max_run_rows=1 << 17,
+                              host_spill=spill, spill_prune_min_rows=prune,
+                              accumulator_capacity=1 << 13)
+    out = []
+    for device in (cuda_device, torch.device("cpu")):
+        counter = CoVisCounter(cfg, device)
+        counter.update(ev)
+        tables = counter.retrieval_tables(3000)
+        counter.close()
+        pop = compute_popularity(ev, (ev.session % 7).astype(np.int32), 7, 3000,
+                                 PopularityConfig(), device, event_budget=1 << 12)
+        rec = baseline.recommend(ev, tables, batch_sessions=128)
+        out.append((tables, pop, rec, counter.ladder.rows_pruned))
+    (t_d, p_d, r_d, pr_d), (t_c, p_c, r_c, pr_c) = out
+    assert pr_d == pr_c and (pr_c > 0) == (spill and prune > 0)
+    for name in cfg.names:
+        for a, b in zip(t_d[name], t_c[name]):
+            assert torch.equal(a.cpu(), b), name
+    for a, b in zip(p_d, p_c):
+        assert torch.equal(a.cpu(), b)
+    assert np.array_equal(r_d[0], r_c[0]) and np.array_equal(r_d[1], r_c[1])

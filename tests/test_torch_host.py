@@ -47,6 +47,70 @@ def test_config_matches_reference():
     assert config.GBDTConfig.from_dict(default) == config.GBDTConfig()
 
 
+@pytest.mark.parametrize("name", ["CoVisConfig", "PopularityConfig"])
+def test_counting_config_matches_reference(name):
+    """Every field, and so the counting machinery's defaults (host_spill,
+    spill_prune_min_rows, pair_budget, max_run_rows) that the spill-time
+    prune depends on."""
+    got, want = getattr(config, name)(), getattr(ref_config, name)()
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (config.HOUR, config.DAY, config.KEEP_TOP_K) == \
+        (ref_config.HOUR, ref_config.DAY, ref_config.KEEP_TOP_K)
+    if name == "CoVisConfig":
+        assert got.names == want.names
+
+
+@pytest.mark.parametrize("buckets", [(32, 512), (8, 16, 24, 32, 48, 64), (8,)])
+def test_pack_sessions_filled_matches_reference(events, buckets):
+    ref_ev, ev = events
+    want = ref_batching.pack_sessions_filled(ref_ev, buckets)
+    got = batching.pack_sessions_filled(ev, buckets)
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        for name in batching.FilledSessions._fields:
+            np.testing.assert_array_equal(getattr(g, name), getattr(w, name), name)
+            assert getattr(g, name).dtype == getattr(w, name).dtype, name
+
+
+@pytest.mark.parametrize("batch", [3, 50, 5000])
+def test_filled_microbatches_match_reference(events, batch):
+    ref_ev, ev = events
+    for g_p, w_p in zip(batching.pack_sessions_filled(ev, (16, 64)),
+                        ref_batching.pack_sessions_filled(ref_ev, (16, 64))):
+        got = list(batching.iter_filled_microbatches(g_p, batch))
+        want = list(ref_batching.iter_filled_microbatches(w_p, batch))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.n_rows == batch
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+                assert a.dtype == b.dtype
+    with pytest.raises(ValueError):
+        batching.pad_filled(got[0], batch - 1)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_dedup_events_matches_reference(events, packed):
+    """Duplicated rows appended; `packed=False` takes the four-key lexsort
+    (a negative aid rules out the packed int64 key)."""
+    ref_ev, _ = events
+    rng = np.random.default_rng(4)
+    dup = rng.integers(0, len(ref_ev), 200)
+    rows = np.concatenate([np.arange(len(ref_ev)), dup])
+    ref_ev = ref_ev.select(rows)
+    if not packed:
+        ref_ev.aid[5] = -3
+    ev = Events(ref_ev.session, ref_ev.aid, ref_ev.ts, ref_ev.type)
+    want = ref_batching.dedup_events(ref_ev)
+    got = batching.dedup_events(ev)
+    assert len(got) < len(ev)
+    for col in ("session", "aid", "ts", "type"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+        assert getattr(got, col).dtype == getattr(want, col).dtype
+
+
 @pytest.mark.parametrize("buckets", [(8, 32, 128, 512), (16, 4), (8,)])
 def test_pack_sessions_matches_reference(events, buckets):
     ref_ev, ev = events

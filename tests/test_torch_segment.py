@@ -160,3 +160,150 @@ def test_compute_session_aids(keep_aids):
     assert got._fields == want._fields
     for name, g, w in zip(got._fields, got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the flat (1-D) half: composite int32 keys, int32 sums, stable ranks
+# ---------------------------------------------------------------------------
+N = 1000
+
+
+def _flat(seed, lo=-8, hi=8, sent_frac=0.15):
+    """(k1, k2, v, valid): negative keys, many duplicates, SENTINEL rows and
+    the int32 extremes among the keys, sums that wrap int32."""
+    rng = np.random.default_rng(seed)
+    k1 = rng.integers(lo, hi, N).astype(np.int32)
+    k2 = rng.integers(lo, hi, N).astype(np.int32)
+    k1[:3] = (-2**31, 2**31 - 2, ref_seg.NEG_SENTINEL)
+    k2[:3] = (2**31 - 2, -2**31, 5)
+    sent = rng.random(N) < sent_frac
+    k1[sent] = ref_seg.SENTINEL
+    k2[sent] = ref_seg.SENTINEL
+    v = rng.integers(-2**30, 2**30, N).astype(np.int32)
+    valid = rng.random(N) < 0.9
+    return k1, k2, v, valid
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sort_compress(seed, with_valid):
+    k1, k2, v, valid = _flat(seed)
+    j = [jnp.asarray(x) for x in (k1, k2, v)]
+    t = [torch.from_numpy(x) for x in (k1, k2, v)]
+    want = ref_seg.sort_compress(*j, jnp.asarray(valid) if with_valid else None)
+    got = port_seg.sort_compress(*t, torch.from_numpy(valid) if with_valid else None)
+    for g, w in zip(got, want):
+        _eq(g, w)
+        assert g.dtype == torch.int32
+
+
+def test_sort_compress_ends():
+    k1, k2, v, _ = _flat(2)
+    want = ref_seg.sort_compress_ends(*(jnp.asarray(x) for x in (k1, k2, v)))
+    got = port_seg.sort_compress_ends(*(torch.from_numpy(x) for x in (k1, k2, v)))
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+def test_sort_compress_multi():
+    k1, k2, v, valid = _flat(3)
+    v2 = np.random.default_rng(4).integers(0, 9, N).astype(np.int32)
+    wk1, wk2, wv, wn = ref_seg.sort_compress_multi(
+        jnp.asarray(k1), jnp.asarray(k2), (jnp.asarray(v), jnp.asarray(v2)),
+        jnp.asarray(valid))
+    gk1, gk2, gv, gn = port_seg.sort_compress_multi(
+        torch.from_numpy(k1), torch.from_numpy(k2),
+        (torch.from_numpy(v), torch.from_numpy(v2)), torch.from_numpy(valid))
+    for g, w in zip((gk1, gk2, *gv, gn), (wk1, wk2, *wv, wn)):
+        _eq(g, w)
+    with pytest.raises(TypeError):
+        port_seg.sort_compress(torch.from_numpy(k1), torch.from_numpy(k2),
+                               torch.from_numpy(v).float())
+
+
+def test_sort_compress_all_invalid():
+    k1, k2, v, _ = _flat(5)
+    none = np.zeros(N, bool)
+    uk1, uk2, uv, n = port_seg.sort_compress(
+        *(torch.from_numpy(x) for x in (k1, k2, v)), torch.from_numpy(none))
+    assert int(n) == 0 and bool((uk1 == port_seg.SENTINEL).all())
+    assert bool((uv == 0).all())
+
+
+@pytest.mark.parametrize("n_keys", [1, 2, 3])
+def test_sort_by_keys(n_keys):
+    rng = np.random.default_rng(20 + n_keys)
+    keys = [rng.integers(-3, 3, N).astype(np.int32) for _ in range(n_keys)]
+    vals = [np.arange(N, dtype=np.int32), rng.normal(size=N).astype(np.float32)]
+    wk, wv = ref_seg.sort_by_keys(tuple(map(jnp.asarray, keys)),
+                                  tuple(map(jnp.asarray, vals)))
+    gk, gv = port_seg.sort_by_keys([torch.from_numpy(k) for k in keys],
+                                   [torch.from_numpy(x) for x in vals])
+    for g, w in zip(gk + gv, list(wk) + list(wv)):
+        _eq(g, w)
+
+
+def test_segment_starts():
+    seg_sorted = np.sort(np.random.default_rng(7).integers(-4, 9, N)).astype(np.int32)
+    _eq(port_seg.segment_starts(torch.from_numpy(seg_sorted)),
+        ref_seg.segment_starts(jnp.asarray(seg_sorted)))
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("fn", ["ordinal_rank_desc", "ordinal_rank_asc"])
+def test_ordinal_rank(fn, with_valid):
+    rng = np.random.default_rng(8)
+    group = rng.integers(-3, 4, N).astype(np.int32)
+    value = rng.integers(-5, 5, N).astype(np.int32)     # many ties
+    valid = rng.random(N) < 0.8
+    want = getattr(ref_seg, fn)(jnp.asarray(group), jnp.asarray(value),
+                                jnp.asarray(valid) if with_valid else None)
+    got = getattr(port_seg, fn)(torch.from_numpy(group), torch.from_numpy(value),
+                                torch.from_numpy(valid) if with_valid else None)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("order_by", [False, True])
+def test_build_topn_tables(order_by):
+    rng = np.random.default_rng(9)
+    key = rng.integers(0, 40, N).astype(np.int32)        # 0..39 of 30 keys
+    key[rng.random(N) < 0.1] = ref_seg.SENTINEL
+    nbr = rng.integers(0, 99, N).astype(np.int32)
+    v1 = rng.integers(0, 50, N).astype(np.int32)
+    v2 = rng.normal(size=N).astype(np.float32)
+    order = rng.integers(0, 7, N).astype(np.int32)
+    wn, wv = ref_seg.build_topn_tables(
+        jnp.asarray(key), jnp.asarray(nbr), (jnp.asarray(v1), jnp.asarray(v2)), 30, 5,
+        order_by=jnp.asarray(order) if order_by else None)
+    gn, gv = port_seg.build_topn_tables(
+        torch.from_numpy(key), torch.from_numpy(nbr),
+        (torch.from_numpy(v1), torch.from_numpy(v2)), 30, 5,
+        order_by=torch.from_numpy(order) if order_by else None)
+    _eq(gn, wn)
+    for g, w in zip(gv, wv):
+        _eq(g, w)
+        assert g.numpy().dtype == np.asarray(w).dtype
+
+
+def test_rowwise_unique_sum():
+    key = _keys(30, 0, 12)
+    vals = [np.random.default_rng(31).integers(-9, 9, (S, C)).astype(np.int32),
+            np.random.default_rng(32).integers(0, 4, (S, C)).astype(np.float32)]
+    wk, wv, wn = ref_seg.rowwise_unique_sum(jnp.asarray(key), tuple(map(jnp.asarray, vals)))
+    gk, gv, gn = port_seg.rowwise_unique_sum(torch.from_numpy(key),
+                                             [torch.from_numpy(v) for v in vals])
+    for g, w in zip((gk, *gv, gn), (wk, *wv, wn)):
+        _eq(g, w)
+
+
+def test_rowwise_segment_reduce():
+    key = _keys(33, 0, 12)
+    rng = np.random.default_rng(34)
+    vals = [rng.integers(-9, 9, (S, C)).astype(np.int32) for _ in range(4)]
+    reducers = ("max", "min", "sum", "count")
+    wk, wv, wn = ref_seg.rowwise_segment_reduce(
+        jnp.asarray(key), tuple(map(jnp.asarray, vals)), reducers)
+    gk, gv, gn = port_seg.rowwise_segment_reduce(
+        torch.from_numpy(key), [torch.from_numpy(v) for v in vals], reducers)
+    for g, w in zip((gk, *gv, gn), (wk, *wv, wn)):
+        _eq(g, w)
