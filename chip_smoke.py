@@ -11,7 +11,9 @@ Phases, each printed before the last line:
    nvcc per source, all at once) for sm_90a; print the build seconds.
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search)
    and K4 (table row gather) against their plain PyTorch twins on the card
-   at the main paths' shapes, with CUDA event times of kernel and twin.
+   at the main paths' shapes (K1 at the transport sort's and at the GBDT
+   tree walk's), with CUDA event times of kernel, twin and library call
+   and each kernel's bound.
 4. Table build at production width from the generated events: synthetic
    OTTO-shaped sessions (1.8M aids, sessions up to 512 events, 500k
    sessions, ~11.5M events), two seeded word2vec models (w2v-all,
@@ -22,37 +24,44 @@ Phases, each printed before the last line:
    for the 600,000 most frequent words of each model against all 1.8M
    (K3), session embeddings of every session (K4), k-means with 50
    clusters, cluster popularity over 50 clusters and over one. Prints the
-   counter's work (microbatches, lanes, pairs, ladder merges, rows spilled
-   and pruned, the host merge that ran, unique pairs per type before and
-   after the global prune) and each stage's seconds; checks the five
-   tables (shape, rows, counts non-increasing along a row, -1 exactly
-   where the count is 0, count_rel 100 in column 0), the popularity
-   tables (shapes, ranks in [1, 999]) and that K3 and K4 were launched.
-5. Serving at production width from what phase 4 built (co-visitation,
-   kNN and popularity tables, item embeddings, session -> (cluster,
-   embedding) lookup), with three seeded GBDT rankers (150 trees, depth 4,
-   64 bins): the port's score_pass (retrieval -> scoring -> top-20, batch
-   2048, 32 kept aids, 512 candidates) over every test session (~121k)
-   and submit_and_eval, checking that K1 and K2 were launched on the way;
-   then the heuristic baseline (engine/baseline.py) over the same
-   sessions on the built co-visitation tables. The recalls say nothing
-   about model quality (seeded models and trees, synthetic data), and the
-   sessions/s this phase prints are smoke readings of this one run, not a
-   benchmark.
+   counter's work and each stage's seconds; checks the five tables, the
+   popularity tables and that K3 and K4 were launched.
+4b. Training from what phase 4 built: the port's pass_a over every test
+   session (~121k) with the split's labels (the label join, the
+   per-source eval, negative downsampling; prints sessions/s, rows kept
+   and sessions with a positive per target, the ceiling recall and
+   candidates per session), then three GBDT rankers at GBDTConfig()
+   defaults (104 features, 150 trees, depth 4, 64 bins) from its rows,
+   each with its seconds, trees/s, peak memory and valid ndcg@20 every 25
+   trees, which must beat label-blind orders of the same valid groups.
+   Checks that K1 and K2 ran in pass A and K1 in training.
+5. Serving at production width from the built tables and the trained
+   rankers: the port's score_pass (retrieval -> scoring -> top-20, batch
+   2048, 32 kept aids, 512 candidates) over every test session and
+   submit_and_eval, checking that K1 and K2 were launched; then the
+   heuristic baseline over the same sessions on the built co-visitation
+   tables; recall@20 per type beside the ceiling and the baseline's. The
+   data and the word2vec models are synthetic, so the recalls show that
+   the rankers rank, not what real data would score; the sessions/s are
+   smoke readings of this one run, not a benchmark.
 6. Cross-check, small cases run on the card (kernels) and on the CPU
    (twins): one 256-session retrieval batch on seeded tables (candidates
    and integer features bit-equal, float features within a stated
-   tolerance); K3 through knn_search; session embeddings (within one
-   float16 ulp); k-means from the same start (labels equal but at
-   near-ties, inertia within a stated relative tolerance); co-visitation
-   tables of ~3k generated sessions in spill mode with the spill-time
-   prune running and with spill off, both popularity tables, and the
-   baseline's top-20 on those tables (all bit-equal).
+   tolerance) and pass A's programs on it (packed meta, label bits,
+   per-source counters, downsampled float16 rows: bit-equal); K3 through
+   knn_search; session embeddings (within one float16 ulp); k-means from
+   the same start; co-visitation tables in spill mode with the spill-time
+   prune and with spill off, both popularity tables, and the baseline's
+   top-20 (all bit-equal); GBDT histograms (bit-equal), a few trees from
+   one set of draws on both devices (equal splits but at near ties,
+   leaves within a stated tolerance) and two card trainings
+   (bit-identical).
 
 Then one JSON line with the kernels' results and, last, the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and the result line is not printed.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -119,6 +128,11 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+# K1 at the GBDT tree walk's shape (phase 3), and the walk's K1 launches
+# on the paths that run it (phases 4b and 5)
+WALK = {}
+
+
 def zero_launch_counts():
     from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
@@ -131,6 +145,30 @@ def launch_counts():
 
     return {"gather_rows": gather.launches, "segmented_scan": segscan.launches,
             "mips_topk": mips.launches, "gather_rows_hbm": dma_gather.launches}
+
+
+@contextlib.contextmanager
+def walk_launches(path):
+    """Count into WALK["launches"][path] the K1 launches made inside the
+    GBDT tree walk (models/gbdt.py::_predict_binned_program) meanwhile."""
+    from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops.kernels import gather
+
+    inner = gbdt._predict_binned_program
+    counts = WALK.setdefault("launches", {})
+    counts[path] = 0
+
+    def counted(*args):
+        before = gather.launches
+        out = inner(*args)
+        counts[path] += gather.launches - before
+        return out
+
+    gbdt._predict_binned_program = counted
+    try:
+        yield
+    finally:
+        gbdt._predict_binned_program = inner
 
 
 def topk_max_err(got, want, q, c, metric):
@@ -205,7 +243,8 @@ def phase_kernels(dev, smi):
     out = {}
 
     def report(name, shape, err, ms, plain_ms, headline=None):
-        """headline: (bound_ms, bound_by, library_ms) at the first shape."""
+        """headline: (bound_ms, bound_by, library_ms) of this shape; the
+        first shape's go into the kernels line."""
         extra = ""
         if headline is not None:
             b_ms, b_by, lib_ms = headline
@@ -223,7 +262,9 @@ def phase_kernels(dev, smi):
             out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
 
     # K1: transport-sort shape (stacked columns moved through a row
-    # permutation, W = P) and the GBDT tree-walk shape (W = T = 150 > P = F)
+    # permutation, W = P) and the GBDT tree-walk shape (W = T = 150 > P = F,
+    # one level of one ranker on a 2048-session batch), each with its bound
+    # and one torch.gather
     for B, S, P, W, perm in ((40, 2048, 4096, 4096, True),
                              (1, 2048 * 512, 104, 150, False)):
         if perm:
@@ -245,12 +286,15 @@ def phase_kernels(dev, smi):
             ms = cuda_ms(lambda: gather.gather_rows(v, idx))
             plain = cuda_ms(lambda: gather.gather_rows_ref(v, idx))
             head = None
-            if "gather_rows" not in out:
+            if dtype == torch.int32:
                 # library: one torch.gather on the stack, index prepared
                 ix = idx.long().unsqueeze(0).expand(B, -1, -1)
                 lib = cuda_ms(lambda: torch.gather(v, 2, ix))
                 head = (*bound(4 * (B * S * P + S * W + B * S * W)), lib)
                 del ix
+                if not perm:   # the walk's int32 bins
+                    WALK.update(shape=(B, S, P, W), ms=ms, plain_ms=plain,
+                                bound_ms=head[0], bound_by=head[1], library_ms=lib)
             report(f"gather_rows {dtype}", (B, S, P, W), 0.0, ms, plain, head)
             del v, got, want
         del idx
@@ -341,7 +385,7 @@ def phase_kernels(dev, smi):
 
 
 # --------------------------------------------------------------------------
-# seeded models and rankers (stand-ins for the training not ported), and
+# seeded word2vec models (stand-ins for the SGNS training not ported), and
 # the seeded tables of phase 6's retrieval cross-check
 # --------------------------------------------------------------------------
 def seeded_context(n_aids, device, seed, emb_dim=EMB_D):
@@ -415,31 +459,6 @@ def seeded_models(events, n_aids, device, seed):
             (vocab.size, cfg.vector_size), generator=g, device=device)
         out[name] = Word2Vec(cfg, vocab, emb.cpu().numpy())
     return out
-
-
-def seeded_rankers(feats, seed):
-    """Three rankers at the default GBDTConfig (150 trees, depth 4, 64
-    bins), seeded trees over bin edges fitted to retrieved features."""
-    from otto_tpu_torch.config import TYPES, GBDTConfig
-    from otto_tpu_torch.engine.retrieval import FEATURE_NAMES
-    from otto_tpu_torch.models.gbdt import GBDTRanker
-
-    cfg = GBDTConfig()
-    qs = torch.linspace(0, 1, cfg.n_bins + 1, device=feats.device)[1:-1]
-    edges = torch.quantile(feats, qs, dim=0).t().contiguous().cpu().numpy()
-    rng = np.random.default_rng(seed)
-    shape = (cfg.n_trees, cfg.max_depth, 2 ** (cfg.max_depth - 1))
-    return {
-        t: GBDTRanker(
-            cfg=cfg,
-            edges=edges.astype(np.float32),
-            gfeat=rng.integers(0, len(FEATURE_NAMES), shape).astype(np.int32),
-            thr=rng.integers(1, cfg.n_bins + 1, shape).astype(np.int32),
-            leaf=rng.normal(0, 0.1, (cfg.n_trees, 2 ** cfg.max_depth)).astype(np.float32),
-            feature_names=FEATURE_NAMES,
-        )
-        for t in TYPES
-    }
 
 
 def session_lookup(test, seed, emb_dim=EMB_D):
@@ -563,10 +582,111 @@ def phase_table_build(dev, smi):
 
 
 # --------------------------------------------------------------------------
-# phase 5: serving from the built tables
+# phase 4b: training from the built tables
 # --------------------------------------------------------------------------
-def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
+def valid_baselines(feats, y, sess, cfg):
+    """Valid ndcg@k of two label-blind orders on the valid groups the
+    trainer evaluates (train_ranker_cached's 75/25 session split, capped
+    and grouped as train_gbdt_ranker does): all-zero scores, random
+    scores, and the candidates' recency order (ts_order_aid, ties at
+    random). All-zero scores rank each group in slot order, and the groups
+    hold their positives first, so that ndcg is 1 by construction: it is
+    printed, and the check compares with the other two."""
     from otto_tpu_torch.engine.retrieval import FEATURE_INDEX
+    from otto_tpu_torch.models.gbdt import _cap_groups
+    from otto_tpu_torch.models.ranker import _group_pad, ndcg_at_k
+
+    u = np.unique(sess)
+    vmask = np.isin(sess, u[max(1, int(len(u) * 0.75)):])
+    vf, vy, vs = _cap_groups(feats[vmask], y[vmask], sess[vmask],
+                             cfg.max_valid_groups, cfg.seed, "valid")
+    fg, lg, mg = _group_pad(vf[:, [FEATURE_INDEX["ts_order_aid"]]], vy, vs, cfg.max_group)
+    jitter = np.random.default_rng(SEED).random(lg.shape) * 1e-3
+    return {"zero": ndcg_at_k(np.zeros(lg.shape), lg, mg, cfg.ndcg_at),
+            "random": ndcg_at_k(jitter, lg, mg, cfg.ndcg_at),
+            "recency": ndcg_at_k(-fg[..., 0].astype(np.float64) + jitter, lg, mg,
+                                 cfg.ndcg_at),
+            "groups": lg.shape[0]}
+
+
+def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
+    """Pass A over every test session with the split's labels, then the
+    three rankers at GBDTConfig() defaults from its rows. -> (rankers,
+    pass A launches, training launches, pass A metrics)."""
+    from otto_tpu_torch.config import TYPES, GBDTConfig, RankerConfig
+    from otto_tpu_torch.pipeline.runner import (
+        load_downsampled,
+        pass_a,
+        train_ranker_cached,
+    )
+
+    n_test = int(np.unique(sp.test.session).size)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, rep = pass_a(retriever, sp.test, sp.labels, RankerConfig(), work,
+                          batch_sessions=batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pa_launches = launch_counts()
+    print(f"# pass A: {rep.sessions} sessions in {rep.batches} batches, {dt:.2f} s = "
+          f"{rep.sessions / dt:.1f} sessions/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"launches {pa_launches} ({smi})")
+    print(f"#   seconds by phase: {json.dumps({k: round(v, 3) for k, v in rep.phases.items()})}")
+    for t in TYPES:
+        print(f"#   {t}: {rep.rows[t]} rows kept, {rep.positive_sessions[t]} sessions "
+              f"with a positive")
+    print(f"#   ceiling recall: {json.dumps({k: metrics[k] for k in metrics if k.startswith('ceiling')})}")
+    print(f"#   candidates/session: mean {metrics['cand_per_session_mean']:.1f} "
+          f"min {metrics['cand_per_session_min']} max {metrics['cand_per_session_max']}")
+    require(rep.sessions == n_test, "pass A covers every test session")
+    require(pa_launches["gather_rows"] > 0 and pa_launches["segmented_scan"] > 0,
+            f"K1 and K2 launched in pass A: {pa_launches}")
+    require(all(rep.rows[t] > 0 and rep.positive_sessions[t] > 0 for t in TYPES),
+            "every target has rows")
+    require(0.0 < metrics["ceiling_total"] < 1.0, "ceiling recall in (0, 1)")
+
+    cfg = GBDTConfig()
+    rankers = {}
+    zero_launch_counts()
+    with walk_launches("training"):
+        for t in TYPES:
+            feats, y, sess = load_downsampled(work, t)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = train_ranker_cached(work, t, lambda: (feats, y, sess), cfg, dev,
+                                    use_cache=False)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            base = valid_baselines(feats, y, sess, cfg)
+            n_groups = int(np.unique(sess).size)
+            print(f"# ranker {t}: {len(y)} rows, {n_groups} groups ({base['groups']} "
+                  f"valid), {dt:.2f} s = {cfg.n_trees / dt:.2f} trees/s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated ({smi})")
+            print(f"#   valid ndcg@{cfg.ndcg_at} by trees: "
+                  f"{json.dumps([[n, round(v, 5)] for n, v in r.eval_history])}; "
+                  f"all-zero {base['zero']:.5f}, random {base['random']:.5f}, "
+                  f"recency order {base['recency']:.5f}")
+            final = r.eval_history[-1][1]
+            require(len(r.leaf) == cfg.n_trees and r.gfeat.shape[1:] == (4, 8),
+                    f"{t}: {cfg.n_trees} trees of depth 4")
+            require(final > max(base["random"], base["recency"]),
+                    f"{t}: final valid ndcg {final:.5f} beats the label-blind orders")
+            rankers[t] = r
+    tr_launches = launch_counts()
+    print(f"# training launches {tr_launches}, of them the tree walk's "
+          f"{WALK['launches']['training']} ({smi})")
+    require(tr_launches["gather_rows"] > 0, f"K1 launched in training: {tr_launches}")
+    return rankers, pa_launches, tr_launches, metrics
+
+
+# --------------------------------------------------------------------------
+# phase 5: serving from the built tables and the trained rankers
+# --------------------------------------------------------------------------
+def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
     from otto_tpu_torch.pipeline.runner import score_pass, submit_and_eval
 
     n_test = int(np.unique(sp.test.session).size)
@@ -575,19 +695,17 @@ def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
           f"(co-visitation, kNN and popularity tables, item embeddings and "
           f"session lookup, all from the build)")
 
-    # warm-up batch: fits the rankers' bin edges to real features and pays
-    # the one-time CUDA costs outside the timed pass
+    # warm-up batch: pays the one-time CUDA costs outside the timed pass
     b = next(retriever.iter_run(sp.test, batch_sessions=batch))
-    valid = b.feats[..., FEATURE_INDEX["src_any"]] > 0
-    sample = b.feats[valid][:100_000]
-    rankers = seeded_rankers(sample, SEED)
-    del b, valid, sample
+    rankers["clicks"].predict_scores_device(b.feats)
+    del b
 
     zero_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    preds = score_pass(retriever, sp.test, rankers, batch)
+    with walk_launches("serving"):
+        preds = score_pass(retriever, sp.test, rankers, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
@@ -596,8 +714,8 @@ def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
         recall = submit_and_eval(work, preds, sp.labels)
     print(f"# main path: {n_test} sessions in {dt:.2f} s = "
           f"{n_test / dt:.1f} sessions/s, peak {peak / 2**30:.2f} GiB allocated, "
-          f"launches {launches} ({smi})")
-    print(f"# recall@20 (seeded rankers): {json.dumps(recall)}")
+          f"launches {launches}, of them the tree walk's "
+          f"{WALK['launches']['serving']} ({smi})")
     require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
             f"K1 and K2 launched on the serving path: {launches}")
     for t, (s, a) in preds.items():
@@ -606,13 +724,18 @@ def phase_main_path(dev, smi, sp, retriever, batch=BATCH):
         require((a[:, 0] >= 0).mean() > 0.99, f"{t} sessions get predictions")
     require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in recall.values()),
             "recall values in [0, 1]")
-    phase_baseline(smi, sp, retriever, n_test)
+    base = phase_baseline(smi, sp, retriever, n_test)
+    print("# recall@20, trained rankers / retrieval ceiling / baseline:")
+    for k in ("clicks", "carts", "orders", "total"):
+        print(f"#   {k}: {recall[k]:.5f} / {ceiling['ceiling_' + k]:.5f} / {base[k]:.5f}")
+    require(all(recall[k] <= ceiling["ceiling_" + k] + 1e-12 for k in recall),
+            "recall@20 within the retrieval ceiling")
     return launches
 
 
 def phase_baseline(smi, sp, retriever, n_test):
     """The heuristic baseline over every test session on the built
-    co-visitation tables."""
+    co-visitation tables. -> its recall@20."""
     from otto_tpu_torch.config import COVIS_FIRST_N, TYPES
     from otto_tpu_torch.engine import baseline
     from otto_tpu_torch.eval.recall import evaluate_topk
@@ -632,6 +755,7 @@ def phase_baseline(smi, sp, retriever, n_test):
     require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
             f"K1 and K2 launched by the baseline: {launches}")
     require(0.0 < recall["total"] <= 1.0, "baseline recall in (0, 1]")
+    return recall
 
 
 # --------------------------------------------------------------------------
@@ -646,6 +770,13 @@ FLOAT_TOL = 1e-4
 # k-means: the per-cluster sums and distances are float32 matmuls summed in
 # other orders on the two devices; the inertia is a float32 sum of ~8k terms
 KMEANS_RTOL = 1e-4
+# GBDT card vs CPU from the same draws: the exact histograms agree bit for
+# bit, but the gradients' exp and log differ by an ulp between the two
+# devices' libraries; a gradient an ulp apart may round to another
+# bfloat16 (a 2^-8 step of one row's term), which moves a leaf in the
+# fourth digit, and a split choice only where two gains lie that close
+LEAF_TOL = 2e-4
+GAIN_RTOL = 1e-4
 
 
 def f16_ulp(x):
@@ -654,24 +785,25 @@ def f16_ulp(x):
     return torch.exp2(e - 10)
 
 
-def phase_cross_check(dev):
+def cross_check_retrieval(dev, seed, quiet=False):
+    """One 256-session retrieval batch on tables seeded with `seed`, on the
+    card and on the CPU: candidates, ts_order and integer features
+    bit-equal, float features within FLOAT_TOL. -> (sessions, ctx_cpu,
+    events, card outputs (cand, feats, ts_order) on the CPU)."""
     from otto_tpu_torch.config import RetrievalConfig
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
     from otto_tpu_torch.engine.retrieval import FEATURE_INDEX, retrieve_batch
-    from otto_tpu_torch.engine.session_embed import compute_session_embeddings
-    from otto_tpu_torch.ops import kmeans
-    from otto_tpu_torch.ops.knn import knn_search
 
     cpu = torch.device("cpu")
     n_aids, S = 1 << 16, 256
     ev = generate(SyntheticSpec(n_sessions=2000, n_aids=n_aids, max_len=32,
-                                mean_len=14, seed=SEED + 1), dev)
+                                mean_len=14, seed=seed), dev)
     p = pack_sessions(ev, (32,))[0]
     cfg = RetrievalConfig()
-    ctx_cpu = seeded_context(n_aids, cpu, SEED + 1)
+    ctx_cpu = seeded_context(n_aids, cpu, seed)
     ctx_dev = ctx_cpu.to(dev)
-    lookup = session_lookup(ev, SEED + 1)
+    lookup = session_lookup(ev, seed)
     cluster, semb = lookup.lookup(p.session[:S])
     trim = [cfg.trim_max_at_order_1, cfg.trim_min,
             (cfg.trim_max_at_order_1 - cfg.trim_min) / (cfg.trim_min_at_order - 1)]
@@ -705,9 +837,23 @@ def phase_cross_check(dev):
             worst = max(worst, float((a - b).abs().max()))
         else:
             require(torch.equal(a, b), f"cross-check {name} bit-equal")
-    print(f"# cross-check: {S} sessions, {n_cand} candidates bit-equal, "
-          f"integer features bit-equal, float features max |diff| {worst:.3g} "
-          f"(tolerance {FLOAT_TOL})")
+    if not quiet:
+        print(f"# cross-check: {S} sessions, {n_cand} candidates bit-equal, "
+              f"integer features bit-equal, float features max |diff| {worst:.3g} "
+              f"(tolerance {FLOAT_TOL})")
+    return p.session[:S], ctx_cpu, ev, (c_dev, f_dev, t_dev)
+
+
+def phase_cross_check(dev):
+    from otto_tpu_torch.data.batching import pack_sessions
+    from otto_tpu_torch.engine.session_embed import compute_session_embeddings
+    from otto_tpu_torch.ops import kmeans
+    from otto_tpu_torch.ops.knn import knn_search
+
+    cpu = torch.device("cpu")
+    sessions, ctx_cpu, ev, (cand, feats, _) = cross_check_retrieval(dev, SEED + 1)
+    ctx_dev = ctx_cpu.to(dev)
+    cross_check_pass_a(dev, sessions, cand, feats)
 
     # K3 through knn_search, two query blocks
     emb = ctx_cpu.aid_emb[: 1 << 15]
@@ -752,6 +898,161 @@ def phase_cross_check(dev):
           f"{len(swapped)} labels differ, inertia {in_d:.3f} vs {in_c:.3f} "
           f"(rel {rel:.3g}), iterations {it_d} vs {it_c}")
     cross_check_counting(dev)
+    cross_check_gbdt(dev)
+
+
+def cross_check_pass_a(dev, sessions, cand, feats):
+    """Pass A's programs on the card and on the CPU, from the same batch
+    (the retrieval cross-check's card outputs) and seeded labels: packed
+    meta, label bits, the per-source eval's counters and report, the
+    downsampled rows and their float16 bytes, all bit-equal; the card's
+    keep bits hold their semantics."""
+    from otto_tpu_torch.config import TYPES, RankerConfig
+    from otto_tpu_torch.data.schema import Labels
+    from otto_tpu_torch.engine import rank
+    from otto_tpu_torch.engine.retrieval import RetrievedBatch, label_keys_device
+    from otto_tpu_torch.eval.per_source import DeviceSourceEval
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    c = cand.numpy()
+    ls, lt, la = [], [], []
+    for i, s in enumerate(sessions):
+        real = c[i][c[i] >= 0]
+        for t in range(3):
+            for a in real[rng.random(len(real)) < 0.02 * (t + 1)]:
+                ls.append(s), lt.append(t), la.append(a)
+            if rng.random() < 0.3:
+                ls.append(s), lt.append(t), la.append(N_AIDS + i)
+    labels = Labels(np.array(ls), np.array(lt), np.array(la))
+    cfg = RankerConfig()
+    out = []
+    for device in (dev, cpu):
+        b = RetrievedBatch(session=sessions, cand=cand.to(device), feats=feats.to(device),
+                           ts_order=cand.to(device))
+        meta, bits = b.pack_meta_labels(label_keys_device(labels, device))
+        ev = DeviceSourceEval(cand.shape[1], device)
+        ev.update(meta, bits)
+        b.unpack_meta(meta)
+        tb = bits.cpu().numpy()
+        tgt = np.stack([(tb >> t) & 1 for t in range(3)], -1).astype(np.float32)
+        sel = [rank.downsample_select(b, tgt, t, cfg, np.random.default_rng(42))
+               for t in range(3)]
+        si = np.concatenate([x[0] for x in sel if x is not None])
+        ci = np.concatenate([x[1] for x in sel if x is not None])
+        rows, _ = b.feats_rows_async(si, ci)
+        out.append((meta.cpu(), bits.cpu(), ev.hits.cpu(), ev.hist.cpu(),
+                    ev.finalize(labels), sel, rows))
+    (m_d, b_d, h_d, hist_d, rep_d, sel_d, rows_d), (m_c, b_c, h_c, hist_c, rep_c, sel_c,
+                                                    rows_c) = out
+    require(torch.equal(m_d, m_c) and torch.equal(b_d, b_c), "pack meta and label bits bit-equal")
+    require(int((b_c & 7).count_nonzero()) > 0, "the labels hit candidates")
+    require(torch.equal(h_d, h_c) and torch.equal(hist_d, hist_c) and rep_d == rep_c,
+            "per-source eval counters and report bit-equal")
+    for t, (x, y) in enumerate(zip(sel_d, sel_c)):
+        require((x is None) == (y is None)
+                and (x is None or all(np.array_equal(u, v) for u, v in zip(x, y))),
+                f"downsample selection type {t} equal")
+    require(rows_d.tobytes() == rows_c.tobytes(), "downsampled float16 rows bit-equal")
+
+    # the card's keep bits (its own generator): their semantics
+    b = RetrievedBatch(session=sessions, cand=cand.to(dev), feats=feats.to(dev),
+                       ts_order=cand.to(dev))
+    _, kb = b.pack_meta_labels_select(label_keys_device(labels, dev),
+                                      torch.Generator(device=dev).manual_seed(SEED),
+                                      cfg.neg_to_pos_ratio, cfg.max_neg_per_session)
+    kb = kb.cpu().numpy()
+    valid = c >= 0
+    require(np.array_equal(kb & 7, b_c.numpy()), "keep program's label bits")
+    for t in range(3):
+        y, keep = (kb >> t) & 1, (kb >> (3 + t)) & 1
+        n_pos = ((y == 1) & valid).sum(1)
+        want = np.minimum(np.minimum(cfg.neg_to_pos_ratio * n_pos, cfg.max_neg_per_session),
+                          (valid & (y == 0)).sum(1)) * (n_pos > 0)
+        require(np.array_equal(((keep == 1) & (y == 0)).sum(1), want)
+                and np.array_equal((keep == 1) & (y == 1), (y == 1) & valid & (n_pos > 0)[:, None]),
+                f"card keep bits of type {t} keep the positives and min(ratio n_pos, cap) negatives")
+    n_rows = len(rows_c)
+    print(f"# cross-check pass A: {len(labels)} labels, meta, label bits, per-source "
+          f"counters and report, {n_rows} downsampled rows (float16 bytes) bit-equal; "
+          f"card keep bits hold their counts ({', '.join(TYPES)})")
+
+
+def gbdt_case(seed, n_groups=1500, width=104):
+    """Seeded ranking rows at the rankers' width: relevance from a few
+    features and their interaction, 1-3 positives per group."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(20, 101, n_groups)
+    sess = np.repeat(np.arange(n_groups), sizes)
+    x = rng.normal(size=(len(sess), width)).astype(np.float16)
+    x[:, 10:20] = rng.integers(0, 6, (len(sess), 10))
+    logit = x[:, 0].astype(np.float32) + (x[:, 1] > 0.5) * x[:, 12] + rng.normal(size=len(sess))
+    y = np.zeros(len(sess), np.int8)
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    for g, (a, n) in enumerate(zip(start, sizes)):
+        y[a + np.argsort(-logit[a: a + n])[: 1 + g % 3]] = 1
+    return x, y, sess
+
+
+def cross_check_gbdt(dev):
+    """GBDT training on the card against the CPU: histograms of the same
+    (row bins, nodes, gradients) bit-equal; a few trees grown from one set
+    of draws (made on the CPU, copied to both) with equal split features
+    and bins up to the first split whose choice differs, which must be a
+    near tie (GAIN_RTOL, printed), and leaves within LEAF_TOL; and the same
+    training twice on the card, bit-identical."""
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models import gbdt
+
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(SEED)
+    n, fs = 200_000, 26
+    bins = torch.randint(0, 64, (n, fs), generator=g, dtype=torch.uint8)
+    bins[:, 0] = bins[:, 0] % 3                       # hot bins
+    node = torch.randint(0, 8, (n,), generator=g)
+    gh = torch.randn((n, 3), generator=g) * torch.exp(torch.randn((n, 1), generator=g) * 3)
+    h_c = gbdt._histograms(bins, node, gh, 8, 64)
+    h_d = gbdt._histograms(bins.to(dev), node.to(dev), gh.to(dev), 8, 64).cpu()
+    require(torch.equal(h_c, h_d), "GBDT histograms bit-equal")
+
+    x, y, sess = gbdt_case(SEED)
+    names = tuple(f"f{i}" for i in range(x.shape[1]))
+    cfg = GBDTConfig(n_trees=8, eval_every=4, group_chunk=256)
+    u = np.unique(sess)
+    vm = np.isin(sess, u[int(len(u) * 0.75):])
+    n_rows = len(gbdt._group_slots(y[~vm], sess[~vm], cfg.max_group)[0])
+    n_pad = -(-len(np.unique(sess[~vm])) // cfg.group_chunk) * cfg.group_chunk * cfg.max_group
+    cpu_draws = gbdt.tree_draws(cfg, x.shape[1], n_pad, cpu)
+
+    def train(device):
+        return gbdt.train_gbdt_ranker(
+            x[~vm], y[~vm], sess[~vm], names, cfg, valid=(x[vm], y[vm], sess[vm]),
+            device=device, draws=lambda t: tuple(a.to(device) for a in cpu_draws(t)))
+
+    m_c, m_d, m_d2 = train(cpu), train(dev), train(dev)
+    require(all(np.array_equal(getattr(m_d, k), getattr(m_d2, k))
+                for k in ("gfeat", "thr", "leaf", "gains")),
+            "two card trainings bit-identical")
+    split_c = np.stack([m_c.gfeat, m_c.thr], -1).reshape(cfg.n_trees, -1, 2)
+    split_d = np.stack([m_d.gfeat, m_d.thr], -1).reshape(cfg.n_trees, -1, 2)
+    same = (split_c == split_d).all(-1).all(-1)
+    n_same = cfg.n_trees if same.all() else int(np.argmin(same))
+    if n_same < cfg.n_trees:
+        gc, gd = m_c.gains[n_same].reshape(-1), m_d.gains[n_same].reshape(-1)
+        k = int(np.nonzero((split_c[n_same] != split_d[n_same]).any(-1))[0][0])
+        rel = abs(gc[k] - gd[k]) / max(abs(gc[k]), 1e-30)
+        print(f"#   tree {n_same} node {k}: card splits on {tuple(split_d[n_same, k])} "
+              f"(gain {gd[k]:.7g}), CPU on {tuple(split_c[n_same, k])} (gain {gc[k]:.7g}): "
+              f"relative margin {rel:.3g}")
+        require(rel <= GAIN_RTOL, f"a differing split is a near tie ({rel:.3g})")
+    err = float(np.abs(m_c.leaf[:n_same] - m_d.leaf[:n_same]).max()) if n_same else 0.0
+    require(err <= LEAF_TOL, f"GBDT leaves within {LEAF_TOL}: {err:.3g}")
+    ndcg = [round(v, 5) for _, v in m_d.eval_history]
+    print(f"# cross-check GBDT: histograms of {n} rows x {fs} features bit-equal; "
+          f"{cfg.n_trees} trees on {n_rows} rows from the CPU's draws: {n_same} with "
+          f"equal splits, leaves max |diff| {err:.3g} (tolerance {LEAF_TOL}), valid ndcg "
+          f"card {ndcg} CPU {[round(v, 5) for _, v in m_c.eval_history]}; two card "
+          f"trainings bit-identical")
 
 
 def cross_check_counting(dev):
@@ -838,26 +1139,40 @@ def main():
     torch.cuda.empty_cache()
     sp, retriever, build_launches = phase_table_build(dev, smi)
     torch.cuda.empty_cache()
-    serve_launches = phase_main_path(dev, smi, sp, retriever)
+    with tempfile.TemporaryDirectory() as work:
+        rankers, pa_launches, tr_launches, pa_metrics = phase_training(
+            dev, smi, sp, retriever, work)
+    torch.cuda.empty_cache()
+    serve_launches = phase_main_path(dev, smi, sp, retriever, rankers, pa_metrics)
     del retriever
     torch.cuda.empty_cache()
     phase_cross_check(dev)
 
+    w = WALK
+    print(f"# K1 at the tree walk's shape {w['shape']}: {w['ms']:.3f} ms, bound "
+          f"{w['bound_ms']:.3f} ms by {w['bound_by']} ({100 * w['bound_ms'] / w['ms']:.0f}% "
+          f"of it), twin {w['plain_ms']:.3f} ms, torch.gather {w['library_ms']:.3f} ms; "
+          f"launches in the walk: serving {w['launches']['serving']}, training "
+          f"{w['launches']['training']} ({smi})")
+    # launches on the paths this script drives: the build (K3, K4), pass A,
+    # training and serving (K1, K2)
+    paths = {k: build_launches[k] + pa_launches[k] + tr_launches[k] + serve_launches[k]
+             for k in build_launches}
     sources = {
-        # name: (source, TPU kernel it replaces, the path whose run counts)
+        # name: (source, TPU kernel it replaces)
         "gather_rows": ("otto_tpu_torch/csrc/gather_rows.cu",
-                        "otto_tpu/ops/pallas/gather.py:54", serve_launches),
+                        "otto_tpu/ops/pallas/gather.py:54"),
         "segmented_scan": ("otto_tpu_torch/csrc/segscan.cu",
-                           "otto_tpu/ops/pallas/segscan.py:90", serve_launches),
+                           "otto_tpu/ops/pallas/segscan.py:90"),
         "mips_topk": ("otto_tpu_torch/csrc/mips_topk.cu",
-                      "otto_tpu/ops/pallas/mips.py:87", build_launches),
+                      "otto_tpu/ops/pallas/mips.py:87"),
         "gather_rows_hbm": ("otto_tpu_torch/csrc/gather_rows_hbm.cu",
-                            "otto_tpu/ops/pallas/dma_gather.py:43", build_launches),
+                            "otto_tpu/ops/pallas/dma_gather.py:43"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **kernels[name]}
-        for name, (src, rep, launches) in sources.items()
+         "launches": paths[name], **kernels[name]}
+        for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

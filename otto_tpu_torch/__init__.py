@@ -19,10 +19,14 @@ Ported so far:
   on K3 `ops/kernels/mips.py` (exact top-k search), session embeddings
   on K4 `ops/kernels/dma_gather.py` (table row gather), k-means session
   clusters and cluster popularity (`engine/popularity.py`);
-- the heuristic co-visitation baseline (`engine/baseline.py`).
+- the heuristic co-visitation baseline (`engine/baseline.py`);
+- the training path (`pipeline.runner.pass_a`, `train_ranker_cached`,
+  `run_streaming`): the label join, per-source retrieval eval and
+  negative downsampling of pass A, and GBDT LambdaRank training of the
+  three rankers (`models/gbdt.py`).
 The four hand-written CUDA kernels are built from `csrc/` at first use.
-SGNS training and ranker training are still otto_tpu's; their output
-crosses over through `otto_tpu_torch.convert`.
+SGNS training is still otto_tpu's; its models cross over through
+`otto_tpu_torch.convert`.
 """
 
 __version__ = "0.1.0"

@@ -2,11 +2,11 @@
 
 Counterpart of the part of otto_tpu/config.py that the ported modules
 read: the event types and recall weights, the co-visitation counting and
-popularity settings, the retrieval caps, the shape of a GBDT ranker's
-trees, and what the embedding-table build reads of the word2vec and
-k-means settings. Names and defaults are otto_tpu's;
+popularity settings, the retrieval caps, negative downsampling, the GBDT
+ranker's trees and training, and what the embedding-table build reads of
+the word2vec and k-means settings. Names and defaults are otto_tpu's;
 tests/test_torch_host.py holds them equal. The settings of the stages
-still to port (SGNS training, ranker training) come with those stages.
+still to port (SGNS training, the MLP ranker) come with those stages.
 """
 from __future__ import annotations
 
@@ -132,19 +132,59 @@ class RetrievalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RankerConfig:
+    """What pass A reads of the ranker settings: negative downsampling.
+    The MLP tower's settings come with the MLP backend."""
+
+    neg_to_pos_ratio: int = 40
+    max_neg_per_session: int = 100
+    # compute the downsample keep bits on the device beside the label join
+    # (random draws from a torch.Generator, so other rows than the host
+    # selection's numpy stream; off by default)
+    device_select: bool = False
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
 class GBDTConfig:
-    """The shape of a GBDT ranker: what scoring needs of its config. A
-    saved ranker's training settings are not read."""
+    """Histogram-GBDT lambdarank: the trees' shape (what scoring reads) and
+    the training settings, with otto_tpu's names and defaults: 150 trees,
+    depth 4, lr 0.25, colsample 0.25, subsample 0.5, min_child_samples 20,
+    ndcg@20."""
 
     n_trees: int = 150
     max_depth: int = 4
     n_bins: int = 64
+    learning_rate: float = 0.25
+    colsample: float = 0.25          # feature fraction per tree
+    subsample: float = 0.5           # row (bagging) fraction per tree
+    min_child_samples: int = 20
+    min_child_hessian: float = 1e-3
+    lambda_l2: float = 0.0
+    sigma: float = 1.0               # lambdarank logistic scale
+    ndcg_at: int = 20                # truncation of the |dNDCG| pair weights
+    lambda_norm: bool = True         # per-query lambda normalisation
+    max_group: int = 128             # padded candidates per session group
+    seed: int = 42
+    # valid ndcg@ndcg_at every eval_every trees (0: once, at the end)
+    eval_every: int = 25
+    # stop when valid ndcg has not improved for this many trees; the best
+    # iteration's trees are kept (0: off)
+    early_stopping_rounds: int = 0
+    # seeded caps on the session groups trained on / evaluated (0: none)
+    max_train_groups: int = 1 << 18
+    max_valid_groups: int = 1 << 16
+    row_chunk: int = 1 << 14         # read by otto_tpu's histograms only
+    group_chunk: int = 1 << 10       # groups per lambda chunk; groups pad to it
 
     @staticmethod
     def from_dict(d: dict) -> "GBDTConfig":
-        """From a saved ranker's full config dict (extra keys ignored)."""
-        return GBDTConfig(**{f.name: int(d[f.name])
-                             for f in dataclasses.fields(GBDTConfig)})
+        """From a saved ranker's config dict, otto_tpu's or the port's: each
+        field cast to its declared type; keys this config lacks are ignored
+        and fields the dict lacks keep their defaults."""
+        cast = {"int": int, "float": float, "bool": bool}
+        return GBDTConfig(**{f.name: cast[f.type](d[f.name])
+                             for f in dataclasses.fields(GBDTConfig) if f.name in d})
 
 
 @dataclasses.dataclass(frozen=True)

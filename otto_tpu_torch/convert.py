@@ -1,8 +1,9 @@
 """Carry otto_tpu's tables and models across to the port.
 
-Until the remaining table-building stages and training are ported, the
-port uses what otto_tpu built: its numpy (or jax) arrays become tensors on
-an explicit device, or the port's host containers. Arrays are read with
+The port can take what otto_tpu built or trained (its word2vec models
+until SGNS training is ported; tables and rankers for tests): otto_tpu's
+numpy (or jax) arrays become tensors on an explicit device, or the port's
+host containers. Arrays are read with
 `np.asarray`, so jax arrays work too, and the port never imports jax
 itself.
 """

@@ -39,9 +39,10 @@ class SyntheticSpec:
     seed: int = 0
 
 
-def generate(spec: SyntheticSpec, device="cpu") -> Events:
-    """(session, ts)-sorted events of `spec.n_sessions` sessions; session
-    ids are 0..n_sessions-1, item ids are popularity ranks."""
+def generate(spec: SyntheticSpec, device) -> Events:
+    """(session, ts)-sorted events of `spec.n_sessions` sessions, drawn on
+    `device` (named by the caller: there is no default); session ids are
+    0..n_sessions-1, item ids are popularity ranks."""
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(spec.seed)
     S, L, A = spec.n_sessions, spec.max_len, spec.n_aids

@@ -1,19 +1,96 @@
-"""Scoring, top-k selection and the submission file.
+"""Negative downsampling, scoring, top-k selection and the submission file.
 
-Counterpart of the serving half of otto_tpu/engine/rank.py: score every
-retrieved candidate with the target's ranker on the device, keep the top-k
-per session, write / read the Kaggle submission CSV. The CSV functions are
-plain Python copies of otto_tpu's (whose module imports jax); a test pins
-their bytes to the reference's.
+Counterpart of otto_tpu/engine/rank.py. Downsampling, per target type:
+drop the sessions without a positive and keep at most
+min(neg_to_pos_ratio * n_pos, max_neg_per_session) negatives per session,
+chosen by a seeded numpy shuffle. Scoring: score every retrieved candidate
+with the target's ranker on the device and keep the top-k per session.
+The downsampler and the CSV functions are plain numpy / Python copies of
+otto_tpu's (whose module imports jax); tests pin them to the reference's.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from otto_tpu_torch.config import RankerConfig
 from otto_tpu_torch.engine.retrieval import RetrievedBatch
+
+
+def downsample_select(
+    b: RetrievedBatch,
+    tgt: np.ndarray,                # [S, C, 3]
+    type_id: int,
+    cfg: RankerConfig,
+    rng: np.random.Generator,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The rows (si, ci) to keep for one type and their labels, or None
+    when no session of the batch has a positive. Draws from rng only in
+    the positive case, so one rng per type fed the batches in order gives
+    the same rows as `downsample` over all of them."""
+    S, C = b.cand.shape
+    valid = b.cand >= 0
+    y = tgt[:, :, type_id]
+    n_pos = (y * valid).sum(axis=1)
+    keep_sessions = n_pos > 0
+    if not keep_sessions.any():
+        return None
+    max_neg = np.minimum(n_pos * cfg.neg_to_pos_ratio, cfg.max_neg_per_session)
+    # random priority per negative; keep the max_neg smallest
+    prio = rng.random((S, C))
+    neg_mask = valid & (y == 0)
+    order = np.argsort(np.where(neg_mask, prio, 2.0), axis=1, kind="stable")
+    rank = np.empty_like(order)
+    np.put_along_axis(rank, order, np.arange(C)[None, :].repeat(S, 0), axis=1)
+    keep_neg = neg_mask & (rank < max_neg[:, None])
+    keep = (valid & (y > 0)) | keep_neg
+    keep &= keep_sessions[:, None]
+    si, ci = np.nonzero(keep)
+    return si, ci, y[si, ci]
+
+
+def downsample_batch(
+    b: RetrievedBatch,
+    tgt: np.ndarray,
+    type_id: int,
+    cfg: RankerConfig,
+    rng: np.random.Generator,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """One batch of the downsampler -> (feats [n, F] f32, labels [n],
+    sessions [n]); the rows are gathered on the device (feats_rows)."""
+    got = downsample_select(b, tgt, type_id, cfg, rng)
+    if got is None:
+        return None
+    si, ci, y = got
+    return b.feats_rows(si, ci), y, b.session[si]
+
+
+def downsample(
+    batches: List[RetrievedBatch],
+    targets: List[np.ndarray],      # [S, C, 3] aligned with batches
+    type_id: int,
+    cfg: RankerConfig,
+    seed: int = 42,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """-> (feats [N, F], labels [N], sessions [N]) flat rows, session-sorted."""
+    rng = np.random.default_rng(seed)
+    feats_out, lab_out, sess_out = [], [], []
+    for b, tgt in zip(batches, targets):
+        got = downsample_batch(b, tgt, type_id, cfg, rng)
+        if got is None:
+            continue
+        feats_out.append(got[0])
+        lab_out.append(got[1])
+        sess_out.append(got[2])
+    if not feats_out:
+        raise ValueError(f"no positive sessions for type {type_id}")
+    feats = np.concatenate(feats_out)
+    labels = np.concatenate(lab_out)
+    sessions = np.concatenate(sess_out)
+    order = np.argsort(sessions, kind="stable")
+    return feats[order], labels[order], sessions[order]
 
 
 def _topk_program(scores: torch.Tensor, cand: torch.Tensor, k: int):

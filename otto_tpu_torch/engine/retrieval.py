@@ -109,12 +109,85 @@ FEATURE_NAMES: Tuple[str, ...] = (
 )
 FEATURE_INDEX = {n: i for i, n in enumerate(FEATURE_NAMES)}
 
-# candidate-source flag columns, in bit order
+# candidate-source flag columns, in bit order for the packed meta
+# (eval.per_source.SOURCES is this tuple)
 SOURCE_FLAGS: Tuple[str, ...] = (
     "src_any", "src_self", "src_click_to_click", "src_click_to_cart_or_buy",
     "src_cart_to_cart", "src_cart_to_buy", "src_buy_to_buy", "src_w2vec_all",
     "src_w2vec_1_2", "src_pop_cl50",
 )
+F16_MAX = 65504.0
+
+
+# ---------------------------------------------------------------------------
+# pass A: packed meta, the label join and the downsample keep bits
+# ---------------------------------------------------------------------------
+def _pack_meta_program(cand: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """[S, C] int32 of ((cand + 1) << n_src) | source-flag bits (bit k =
+    SOURCE_FLAGS[k] > 0): pass A's per-batch host needs in one pull (aids
+    below 2^21 leave room for the 10 flags in 31 bits)."""
+    idx = torch.tensor([FEATURE_INDEX[s] for s in SOURCE_FLAGS], device=feats.device)
+    bits = (feats[:, :, idx] > 0).to(I32)
+    w = (1 << torch.arange(len(SOURCE_FLAGS), dtype=I32, device=feats.device))
+    flags = (bits * w).sum(dim=-1, dtype=I32)
+    return ((cand + 1) << len(SOURCE_FLAGS)) | flags
+
+
+def _label_bits_program(cand, session, lab0, lab1, lab2) -> torch.Tensor:
+    """The label join on the device: bit t of the [S, C] uint8 result says
+    the candidate is a type-t label of its session. lab0..2 are sorted
+    int64 keys (session << AID_BITS) | aid (label_keys_device); the keys
+    take 45 bits, so they are int64 throughout."""
+    key = (session.to(torch.int64)[:, None] << AID_BITS) | cand.clamp(min=0).to(torch.int64)
+    bits = torch.zeros(cand.shape, dtype=torch.uint8, device=cand.device)
+    for t, lab in enumerate((lab0, lab1, lab2)):
+        n = lab.shape[0]
+        pos = torch.searchsorted(lab, key)
+        hit = (pos < n) & (lab[pos.clamp(max=n - 1)] == key) & (cand >= 0)
+        bits |= hit.to(torch.uint8) << t
+    return bits
+
+
+def _label_keep_bits_program(cand, session, lab0, lab1, lab2, generator,
+                             neg_ratio: int, neg_cap: int) -> torch.Tensor:
+    """_label_bits_program (bits 0-2) plus the downsample keep bits (bits
+    3-5): per type, every positive and min(neg_ratio * n_pos, neg_cap)
+    negatives of each session with a positive, the negatives of smallest
+    uniform priority (drawn from `generator`, one [S, C] draw per type)."""
+    bits = _label_bits_program(cand, session, lab0, lab1, lab2)
+    valid = cand >= 0
+    S, C = cand.shape
+    out = bits.clone()
+    for t in range(3):
+        y = ((bits >> t) & 1) > 0
+        pos = y & valid
+        n_pos = pos.sum(dim=1)
+        max_neg = (n_pos * neg_ratio).clamp(max=neg_cap)
+        prio = torch.rand((S, C), generator=generator, device=cand.device)
+        neg = valid & ~y
+        masked = torch.where(neg, prio, 2.0)   # non-negatives sort past 1.0
+        srt = torch.sort(masked, dim=1).values
+        # the max_neg-th smallest negative priority; with fewer negatives
+        # than max_neg it lands on a 2.0 slot and every negative keeps
+        thr = srt.gather(1, (max_neg - 1).clamp(0, C - 1)[:, None])
+        keep_neg = neg & (masked <= thr) & (max_neg > 0)[:, None]
+        keep = (pos | keep_neg) & (n_pos > 0)[:, None]
+        out |= keep.to(torch.uint8) << (3 + t)
+    return out
+
+
+def label_keys_device(labels, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sorted per-type (session << AID_BITS | aid) int64 key tables on
+    `device` for _label_bits_program; a type without labels gets the one
+    key -1, which matches nothing."""
+    out = []
+    for tid in (0, 1, 2):
+        lab = labels.for_type(tid)
+        key = np.sort((lab.session.astype(np.int64) << AID_BITS) | lab.aid.astype(np.int64))
+        if len(key) == 0:
+            key = np.array([-1], np.int64)
+        out.append(torch.from_numpy(key).to(device))
+    return tuple(out)
 
 
 class RetrievalContext(NamedTuple):
@@ -189,6 +262,54 @@ class RetrievedBatch:
     @property
     def ts_order(self) -> np.ndarray:
         return self._pull("ts_order", self._ts_order)
+
+    def _session_device(self) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(self.session)).to(self.feats.device)
+
+    def pack_meta(self) -> torch.Tensor:
+        """[n_keep, C] int32 packed (cand, source flags) on the device
+        (_pack_meta_program); unpack_meta pulls it."""
+        return _pack_meta_program(self.cand_device(), self.feats)
+
+    def pack_meta_labels(self, label_keys):
+        """(pack_meta(), [n_keep, C] uint8 label bits) on the device;
+        label_keys from label_keys_device."""
+        cand = self.cand_device()
+        return (_pack_meta_program(cand, self.feats),
+                _label_bits_program(cand, self._session_device(), *label_keys))
+
+    def pack_meta_labels_select(self, label_keys, generator, neg_ratio, neg_cap):
+        """pack_meta_labels with the downsample keep bits in bits 3-5 of
+        the label bits (RankerConfig.device_select)."""
+        cand = self.cand_device()
+        return (_pack_meta_program(cand, self.feats),
+                _label_keep_bits_program(cand, self._session_device(), *label_keys,
+                                         generator, int(neg_ratio), int(neg_cap)))
+
+    def unpack_meta(self, meta: torch.Tensor) -> np.ndarray:
+        """Pull a pack_meta() result: caches the keep-filtered candidates
+        as this batch's `cand` and returns the [n_keep, C] uint16 source-
+        flag bits (bit k = SOURCE_FLAGS[k])."""
+        m = meta.cpu().numpy()
+        self._host["cand"] = ((m >> len(SOURCE_FLAGS)) - 1).astype(np.int32)
+        return (m & ((1 << len(SOURCE_FLAGS)) - 1)).astype(np.uint16)
+
+    def _rows_f16(self, si: np.ndarray, ci: np.ndarray) -> torch.Tensor:
+        dev = self.feats.device
+        rows = self.feats[torch.from_numpy(np.asarray(si, np.int64)).to(dev),
+                          torch.from_numpy(np.asarray(ci, np.int64)).to(dev)]
+        return rows.clamp(-F16_MAX, F16_MAX).to(torch.float16)
+
+    def feats_rows(self, si: np.ndarray, ci: np.ndarray) -> np.ndarray:
+        """The [n, F] candidate rows (si, ci), gathered on the device,
+        clipped to +-65504 and rounded to float16 there; returned as
+        float32."""
+        return self._rows_f16(si, ci).cpu().numpy().astype(np.float32)
+
+    def feats_rows_async(self, si: np.ndarray, ci: np.ndarray):
+        """(rows, n): the [n, F] float16 rows of feats_rows, pulled (the
+        plain pull: on one local card the copy has nothing to overlap)."""
+        return self._rows_f16(si, ci).cpu().numpy(), len(si)
 
 
 def _null_to(x, ident, repl):

@@ -1,15 +1,21 @@
 """The ported functions of the pipeline.
 
-Counterpart of otto_tpu/pipeline/runner.py's table build and its serving
-pass and tail:
+Counterpart of otto_tpu/pipeline/runner.py's streaming runner
+(`Pipeline.run_streaming`) and the stages it runs:
 
 - `build_retriever`: co-visitation counting (C7), the item kNN tables
   (C9), the session embeddings (C10), the session clusters (C11) and
   cluster popularity (C12) on the device, and the Retriever that serves
   from them;
+- `pass_a`: retrieve the test sessions with labels: the label join, the
+  per-source retrieval eval (C14) and negative downsampling (C15), whose
+  rows are persisted per target before any training;
+- `train_ranker_cached`: one target's GBDT ranker (C16) from those rows;
 - `score_pass`: re-retrieve the test sessions, score every batch with the
   three target rankers on the device, keep the top-20 per target;
-- `submit_and_eval`: write the submission file and evaluate recall@20.
+- `submit_and_eval`: write the submission file and evaluate recall@20;
+- `run_streaming`: all of them in that order, with otto_tpu's
+  crash-resume fast path.
 
 Plain loops: the batches run one after the other on the device's stream.
 """
@@ -20,16 +26,19 @@ import json
 import logging
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from otto_tpu_torch.config import (
+    TYPE2ID,
     TYPES,
     CoVisConfig,
+    GBDTConfig,
     KMeansConfig,
     PopularityConfig,
+    RankerConfig,
     RetrievalConfig,
 )
 from otto_tpu_torch.data.batching import pack_sessions
@@ -38,17 +47,20 @@ from otto_tpu_torch.engine import rank as rank_engine
 from otto_tpu_torch.engine.covis import CoVisCounter
 from otto_tpu_torch.engine.popularity import compute_popularity
 from otto_tpu_torch.engine.retrieval import (
+    FEATURE_NAMES,
     RetrievalContext,
     Retriever,
     SessionLookup,
+    label_keys_device,
 )
 from otto_tpu_torch.engine.session_embed import (
     build_knn_tables,
     compute_session_embeddings,
 )
 from otto_tpu_torch.eval.diagnostics import w2vec_covis_overlap, write_overlap_report
+from otto_tpu_torch.eval.per_source import DeviceSourceEval, format_report
 from otto_tpu_torch.eval.recall import evaluate_topk
-from otto_tpu_torch.models.gbdt import GBDTRanker
+from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec
 from otto_tpu_torch.ops import counts as counts_ops
 from otto_tpu_torch.ops.kmeans import kmeans_fit
@@ -232,6 +244,15 @@ def build_retriever(
     return retriever, BuildReport(seconds, covis_rep, overlap, km, pop_rep)
 
 
+def check_serving_features(tname: str, ranker: GBDTRanker) -> None:
+    """A ranker scores retrieval's [S, C, F] features only if it was trained
+    on FEATURE_NAMES, in that order."""
+    if tuple(ranker.feature_names) != FEATURE_NAMES:
+        raise ValueError(
+            f"ranker '{tname}' was trained on {len(ranker.feature_names)} other "
+            f"features, not retrieval's {len(FEATURE_NAMES)} FEATURE_NAMES")
+
+
 def score_pass(
     retriever: Retriever, test: Events, rankers: Dict[str, object],
     batch_sessions: int,
@@ -239,6 +260,8 @@ def score_pass(
     """One scoring pass: retrieve, score all three targets per batch on the
     device, pull one stacked [3, S, 20] aid array per batch.
     -> {type name: (sessions [N] sorted, top-20 aids [N, 20])}."""
+    for tname in TYPES:
+        check_serving_features(tname, rankers[tname])
     pieces = {t: ([], []) for t in TYPES}
     ranker_list = [rankers[t] for t in TYPES]
     for b in retriever.iter_run(test, batch_sessions=batch_sessions):
@@ -288,15 +311,274 @@ def submit_and_eval(
 
 
 def load_rankers(work_dir: str) -> Dict[str, GBDTRanker]:
-    """Read the three `ranker-gbdt-{clicks,carts,orders}.npz` files that the
-    otto_tpu pipeline writes into its work dir."""
+    """Read the three `ranker-gbdt-{clicks,carts,orders}.npz` files that a
+    training run of either package wrote into its work dir; each must be
+    a ranker over retrieval's FEATURE_NAMES."""
     rankers = {}
     for tname in TYPES:
         path = os.path.join(work_dir, f"ranker-gbdt-{tname}.npz")
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"no trained gbdt ranker for '{tname}' at {path}; "
-                "train the rankers with the otto_tpu pipeline first"
+                "run the pipeline with labels first to train rankers"
             )
         rankers[tname] = GBDTRanker.load(path)
+        check_serving_features(tname, rankers[tname])
     return rankers
+
+
+# ---------------------------------------------------------------------------
+# training: pass A, the rankers, the streaming runner
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class PassAReport:
+    """What `pass_a` measured: wall seconds (ended by a device sync), test
+    sessions and batches, seconds per phase (retrieval + device programs;
+    host pulls, selection and row gathers; eval and persisting), and per
+    target the downsampled rows and the sessions with a positive."""
+
+    seconds: float
+    sessions: int
+    batches: int
+    phases: Dict[str, float]
+    rows: Dict[str, int]
+    positive_sessions: Dict[str, int]
+
+
+def _ranker_path(work_dir: str, tname: str) -> str:
+    return os.path.join(work_dir, f"ranker-gbdt-{tname}.npz")
+
+
+def _rows_path(work_dir: str, tname: str) -> str:
+    return os.path.join(work_dir, f"downsampled-{tname}.npz")
+
+
+def pass_a(
+    retriever: Retriever,
+    test: Events,
+    labels: Labels,
+    ranker_cfg: RankerConfig,
+    work_dir: str,
+    batch_sessions: int = 512,
+    skip_targets: Sequence[str] = (),
+) -> Tuple[Dict[str, float], PassAReport]:
+    """Training pass A over the test sessions, batch by batch on the
+    retriever's device: the packed meta and the label bits (the label join
+    on 45-bit keys), the per-source eval's counters, then on the host the
+    downsample selection of every target (one numpy rng per type, seeded
+    42, drawn only for batches with a positive; with
+    ranker_cfg.device_select the keep bits come from the device instead)
+    and one float16 row gather of the selected rows.
+
+    Writes into work_dir `eval_retrieved.json` (the ceiling recall),
+    `eval_retrieved_sources.json` (the per-source report),
+    `passA-metrics.json`, and for each target not in skip_targets its rows
+    as `downsampled-{t}.npz` (feats f16, y int8, session; session-sorted).
+    -> (metrics: ceiling_{type,total}, cand_per_session_{mean,min,max};
+    PassAReport)."""
+    dev = retriever.ctx.aid_emb.device
+    t0 = time.perf_counter()
+    phases = {"retrieve + device programs": 0.0, "pulls + select + rows": 0.0,
+              "eval + persist": 0.0}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    lab_keys = label_keys_device(labels, dev)
+    rngs = {t: np.random.default_rng(42) for t in TYPES}
+    rows = {t: [] for t in TYPES}
+    dev_eval = None
+    n_sessions = n_batches = 0
+    t = sync()
+    for b in retriever.iter_run(test, batch_sessions=batch_sessions):
+        if ranker_cfg.device_select:
+            gen = torch.Generator(device=dev).manual_seed(
+                ranker_cfg.seed * 1_000_003 + n_batches)
+            meta, tbits_d = b.pack_meta_labels_select(
+                lab_keys, gen, ranker_cfg.neg_to_pos_ratio,
+                ranker_cfg.max_neg_per_session)
+        else:
+            meta, tbits_d = b.pack_meta_labels(lab_keys)
+        if dev_eval is None:
+            dev_eval = DeviceSourceEval(b.feats.shape[1], dev)
+        dev_eval.update(meta, tbits_d)
+        n_sessions += len(b.session)
+        n_batches += 1
+        now = sync()
+        phases["retrieve + device programs"] += now - t
+        t = now
+
+        b.unpack_meta(meta)
+        tbits = tbits_d.cpu().numpy()
+        sels = {}
+        if ranker_cfg.device_select:
+            for tname in TYPES:
+                tid = TYPE2ID[tname]
+                si, ci = np.nonzero((tbits >> (3 + tid)) & 1)
+                if len(si):
+                    sels[tname] = (si, ci, ((tbits[si, ci] >> tid) & 1).astype(np.float32))
+        else:
+            tgt = np.stack([(tbits >> ti) & 1 for ti in range(3)], axis=-1).astype(np.float32)
+            for tname in TYPES:
+                got = rank_engine.downsample_select(
+                    b, tgt, TYPE2ID[tname], ranker_cfg, rngs[tname])
+                if got is not None:
+                    sels[tname] = got
+        if sels:
+            feats, _ = b.feats_rows_async(
+                np.concatenate([s[0] for s in sels.values()]),
+                np.concatenate([s[1] for s in sels.values()]))
+            off = 0
+            for tname, (si, _, y) in sels.items():
+                rows[tname].append((feats[off: off + len(si)], y, b.session[si]))
+                off += len(si)
+        now = sync()
+        phases["pulls + select + rows"] += now - t
+        t = now
+    if dev_eval is None:
+        raise ValueError("pass A: no test sessions")
+
+    report = dev_eval.finalize(labels)
+    ceiling = report.pop("_ceiling")
+    with open(os.path.join(work_dir, "eval_retrieved.json"), "w") as fh:
+        json.dump(ceiling, fh, indent=2)
+    with open(os.path.join(work_dir, "eval_retrieved_sources.json"), "w") as fh:
+        json.dump(report, fh, indent=2)
+    log.info("per-source recall:\n%s", format_report(report))
+    metrics: Dict[str, float] = {
+        f"ceiling_{k}": ceiling[k]["topall"] for k in ("clicks", "carts", "orders", "total")}
+    anyc = report["_counts"]["src_any"]
+    metrics["cand_per_session_mean"] = anyc["mean"]
+    metrics["cand_per_session_min"] = anyc["min"]
+    metrics["cand_per_session_max"] = anyc["max"]
+    with open(os.path.join(work_dir, "passA-metrics.json"), "w") as fh:
+        json.dump(metrics, fh, indent=2)
+
+    # every target's rows persisted before any training: a crash in
+    # training resumes from them
+    n_rows, n_pos_sessions = {}, {}
+    for tname in TYPES:
+        parts, rows[tname] = rows[tname], None
+        if tname in skip_targets:
+            continue
+        if not parts:
+            raise ValueError(f"no positive sessions for {tname}")
+        feats = np.concatenate([r[0] for r in parts])
+        y = np.concatenate([r[1] for r in parts])
+        sess = np.concatenate([r[2] for r in parts])
+        order = np.argsort(sess, kind="stable")
+        np.savez(_rows_path(work_dir, tname), feats=feats[order],
+                 y=y[order].astype(np.int8), session=sess[order])
+        n_rows[tname] = len(y)
+        n_pos_sessions[tname] = int(np.unique(sess).size)
+    phases["eval + persist"] = time.perf_counter() - t
+    rep = PassAReport(time.perf_counter() - t0, n_sessions, n_batches, phases,
+                      n_rows, n_pos_sessions)
+    log.info("pass A: %s", rep)
+    return metrics, rep
+
+
+def train_ranker_cached(
+    work_dir: str,
+    tname: str,
+    rows_fn: Callable[[], Tuple[np.ndarray, np.ndarray, np.ndarray]],
+    gbdt_cfg: GBDTConfig,
+    device,
+    use_cache: bool = True,
+) -> GBDTRanker:
+    """One target's ranker: `ranker-gbdt-{t}.npz` from work_dir when cached;
+    else rows_fn() -> (feats, y, sessions), the sessions split 75/25 in
+    ascending id order into train / valid (no valid set with fewer than 8
+    valid sessions), train_gbdt_ranker on `device`, then the ranker and its
+    gain importance (`feat-importance-{t}.csv`) written to work_dir."""
+    path = _ranker_path(work_dir, tname)
+    if use_cache and os.path.exists(path):
+        return GBDTRanker.load(path)
+    feats, y, sess = rows_fn()
+    u_sess = np.unique(sess)
+    n_train = max(1, int(len(u_sess) * 0.75))
+    valid = None
+    if len(u_sess) - n_train >= 8:
+        vmask = np.isin(sess, u_sess[n_train:])
+        valid = (feats[vmask], y[vmask], sess[vmask])
+        feats, y, sess = feats[~vmask], y[~vmask], sess[~vmask]
+    ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, gbdt_cfg,
+                               valid=valid, device=device)
+    ranker.save(path)
+    imp = ranker.feature_importance("gain")
+    with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
+        fh.write("feature,gain_importance\n")
+        for i in np.argsort(-imp):
+            fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
+    log.info("ranker %s: %d rows, valid ndcg %s", tname, len(y), ranker.eval_history)
+    return ranker
+
+
+def load_downsampled(work_dir: str, tname: str):
+    """A target's persisted pass-A rows -> (feats f16, y int8, sessions)."""
+    z = np.load(_rows_path(work_dir, tname))
+    return z["feats"], z["y"], z["session"]
+
+
+def run_streaming(
+    train: Events,
+    test: Events,
+    labels: Optional[Labels],
+    models: Dict[str, Word2Vec],
+    n_aids: int,
+    work_dir: str,
+    device,
+    covis: CoVisConfig = CoVisConfig(),
+    popularity: PopularityConfig = PopularityConfig(),
+    retrieval: RetrievalConfig = RetrievalConfig(),
+    kmeans: KMeansConfig = KMeansConfig(),
+    ranker: RankerConfig = RankerConfig(),
+    gbdt: GBDTConfig = GBDTConfig(),
+    ranker_backend: str = "gbdt",
+    batch_sessions: int = 512,
+    use_cache: bool = True,
+) -> Dict[str, float]:
+    """The pipeline from events to recall@20 on `device`, as otto_tpu's
+    Pipeline.run_streaming: build_retriever (with the two word2vec models
+    the port does not train yet), then with labels pass_a, the three
+    rankers (train_ranker_cached) and pass B (score_pass) ->
+    submit_and_eval; without labels, the rankers in work_dir score pass B.
+
+    Crash-resume: with use_cache, when `passA-metrics.json` and, for every
+    target, its ranker or its persisted rows are in work_dir, pass A is
+    skipped and the missing rankers train from the rows.
+    -> metrics: pass A's and recall@20 per type and total ({} without
+    labels)."""
+    if ranker_backend != "gbdt":
+        raise NotImplementedError(
+            f"ranker backend {ranker_backend!r}: the MLP ranker is not ported yet "
+            "(ROADMAP Queue 1 item 10); use 'gbdt'")
+    retriever, _ = build_retriever(
+        train, test, models, n_aids, device, covis, popularity, retrieval,
+        kmeans, report_dir=work_dir)
+    if labels is None:
+        preds = score_pass(retriever, test, load_rankers(work_dir), batch_sessions)
+        submit_and_eval(work_dir, preds, None)
+        return {}
+
+    pm_path = os.path.join(work_dir, "passA-metrics.json")
+    have_ranker = {t: use_cache and os.path.exists(_ranker_path(work_dir, t))
+                   for t in TYPES}
+    if use_cache and os.path.exists(pm_path) and all(
+            have_ranker[t] or os.path.exists(_rows_path(work_dir, t)) for t in TYPES):
+        with open(pm_path) as fh:
+            metrics = json.load(fh)
+        log.info("pass A cached in %s", work_dir)
+    else:
+        metrics, _ = pass_a(retriever, test, labels, ranker, work_dir, batch_sessions,
+                            skip_targets=[t for t in TYPES if have_ranker[t]])
+    rankers = {
+        t: train_ranker_cached(work_dir, t, lambda t=t: load_downsampled(work_dir, t),
+                               gbdt, device, use_cache)
+        for t in TYPES
+    }
+    preds = score_pass(retriever, test, rankers, batch_sessions)
+    metrics.update(submit_and_eval(work_dir, preds, labels))
+    return metrics

@@ -249,7 +249,7 @@ def test_cuda_covis_and_popularity_match_cpu(cuda_device, spill, prune):
     from otto_tpu_torch.engine.covis import CoVisCounter
     from otto_tpu_torch.engine.popularity import compute_popularity
 
-    ev = generate(SyntheticSpec(n_sessions=800, n_aids=3000, max_len=64, seed=3))
+    ev = generate(SyntheticSpec(n_sessions=800, n_aids=3000, max_len=64, seed=3), cuda_device)
     cfg = dataclasses.replace(CoVisConfig(), pair_budget=1 << 14, max_run_rows=1 << 17,
                               host_spill=spill, spill_prune_min_rows=prune,
                               accumulator_capacity=1 << 13)
@@ -271,3 +271,81 @@ def test_cuda_covis_and_popularity_match_cpu(cuda_device, spill, prune):
     for a, b in zip(p_d, p_c):
         assert torch.equal(a.cpu(), b)
     assert np.array_equal(r_d[0], r_c[0]) and np.array_equal(r_d[1], r_c[1])
+
+
+# ---------------------------------------------------------------------------
+# the training path: pass A's programs and GBDT training, card against CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_histograms_match_cpu(cuda_device):
+    """Exact fixed-point sums: bit-equal on both devices, in any row order."""
+    from otto_tpu_torch.models import gbdt
+
+    g = torch.Generator().manual_seed(6)
+    n = 300_000
+    bins = torch.randint(0, 64, (n, 7), generator=g, dtype=torch.uint8)
+    bins[:, 0] = 0                                   # one hot cell
+    node = torch.randint(0, 8, (n,), generator=g)
+    gh = torch.randn((n, 3), generator=g) * torch.exp(torch.randn((n, 1), generator=g) * 4)
+    want = gbdt._histograms(bins, node, gh, 8, 64)
+    perm = torch.randperm(n, generator=g)
+    for rows in (torch.arange(n), perm):
+        got = gbdt._histograms(bins[rows].to(cuda_device), node[rows].to(cuda_device),
+                               gh[rows].to(cuda_device), 8, 64)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_pass_a_programs_match_cpu(cuda_device):
+    import numpy as np
+
+    from otto_tpu_torch.data.schema import Labels
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.eval.per_source import DeviceSourceEval
+
+    rng = np.random.default_rng(7)
+    S, C = 3000, 64
+    cand = rng.integers(-1, 5000, (S, C)).astype(np.int32)
+    session = (np.arange(S) * 7 + 4000).astype(np.int32)
+    feats = rng.normal(size=(S, C, len(retrieval.FEATURE_NAMES))).astype(np.float32) * 1e5
+    hit = rng.random((S, C)) < 0.05
+    si, ci = np.nonzero(hit & (cand >= 0))
+    labels = Labels(session[si], rng.integers(0, 3, len(si)), cand[si, ci])
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b = retrieval.RetrievedBatch(session, torch.from_numpy(cand).to(dev),
+                                     torch.from_numpy(feats).to(dev), torch.from_numpy(cand).to(dev))
+        meta, bits = b.pack_meta_labels(retrieval.label_keys_device(labels, dev))
+        ev = DeviceSourceEval(C, dev)
+        ev.update(meta, bits)
+        rows, _ = b.feats_rows_async(si, ci)
+        out.append((meta.cpu(), bits.cpu(), ev.hits.cpu(), ev.hist.cpu(), rows))
+    for a, c in zip(*out):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, c)
+        else:
+            assert a.tobytes() == c.tobytes()
+    assert int(out[1][1].count_nonzero()) >= len(si) // 2
+
+
+@pytest.mark.cuda
+def test_cuda_gbdt_training_is_deterministic(cuda_device):
+    """Two trainings on the card from the same seed: identical trees."""
+    import numpy as np
+
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models import gbdt
+
+    rng = np.random.default_rng(8)
+    n_groups, g = 3000, 40
+    x = rng.normal(size=(n_groups * g, 30)).astype(np.float16)
+    logit = x[:, 0].astype(np.float32) + (x[:, 1] > 0) * x[:, 2]
+    y = (logit + rng.normal(size=len(x)) > 2.0).astype(np.int8)
+    sess = np.repeat(np.arange(n_groups), g)
+    cfg = GBDTConfig(n_trees=12, eval_every=4, group_chunk=256)
+    valid = (x[:4000], y[:4000], sess[:4000])
+    a, b = (gbdt.train_gbdt_ranker(x, y, sess, tuple(map(str, range(30))), cfg,
+                                   valid=valid, device=cuda_device) for _ in range(2))
+    for k in ("gfeat", "thr", "leaf", "gains"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    assert a.eval_history == b.eval_history and (a.thr < cfg.n_bins).any()

@@ -62,8 +62,9 @@ def test_load_reads_reference_npz(tmp_path):
 
 
 BAD_RANKERS = {
+    # fewer names than the arrays' features
     "feature_names": lambda r: setattr(
-        r, "feature_names", tuple(f"f{i}" for i in range(F))),
+        r, "feature_names", tuple(f"f{i}" for i in range(F - 1))),
     "gfeat_high": lambda r: r.gfeat.__setitem__((0, 0, 0), F),
     "gfeat_negative": lambda r: r.gfeat.__setitem__((1, 2, 3), -1),
     "thr_zero": lambda r: r.thr.__setitem__((0, 1, 0), 0),
@@ -75,9 +76,10 @@ BAD_RANKERS = {
 
 @pytest.mark.parametrize("fault", sorted(BAD_RANKERS))
 def test_load_rejects_a_bad_ranker(tmp_path, fault):
-    """A ranker saved for other features, or corrupt, is refused at load
-    (and when carried across) instead of reaching K1, which reads the
-    split features' bins without a bound check."""
+    """A ranker whose arrays disagree with its feature names or its config,
+    or are out of range, is refused at load (and when carried across)
+    instead of reaching K1, which reads the split features' bins without a
+    bound check."""
     ref = seeded_ranker(7)
     BAD_RANKERS[fault](ref)
     path = str(tmp_path / "bad.npz")
@@ -132,3 +134,24 @@ def test_submission_bytes_match_reference(tmp_path):
     port_rank.write_submission(str(got), preds)
     assert got.read_bytes() == want.read_bytes()
     assert port_rank.read_submission(str(got)) == ref_rank.read_submission(str(want))
+
+
+def test_serving_refuses_a_ranker_over_other_features(tmp_path):
+    """A well-formed ranker over another feature list loads (training makes
+    such rankers), but serving, which feeds it retrieval's FEATURE_NAMES
+    columns, refuses it."""
+    from otto_tpu_torch.pipeline import runner
+
+    other = tuple(f"f{i}" for i in range(F))
+    for i, tname in enumerate(("clicks", "carts", "orders")):
+        ref = seeded_ranker(20 + i)
+        if tname == "carts":
+            ref.feature_names = other
+        ref.save(str(tmp_path / f"ranker-gbdt-{tname}.npz"))
+    assert GBDTRanker.load(str(tmp_path / "ranker-gbdt-carts.npz")).feature_names == other
+    with pytest.raises(ValueError, match="carts"):
+        runner.load_rankers(str(tmp_path))
+    rankers = {t: GBDTRanker.load(str(tmp_path / f"ranker-gbdt-{t}.npz"))
+               for t in ("clicks", "carts", "orders")}
+    with pytest.raises(ValueError, match="FEATURE_NAMES"):
+        runner.score_pass(None, None, rankers, 64)

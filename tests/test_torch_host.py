@@ -47,6 +47,24 @@ def test_config_matches_reference():
     assert config.GBDTConfig.from_dict(default) == config.GBDTConfig()
 
 
+@pytest.mark.parametrize("name", ["GBDTConfig", "RankerConfig"])
+def test_training_config_defaults_match_reference(name):
+    """Every field the port has, by name, type and default; the port leaves
+    out otto_tpu's trees_per_dispatch (a dispatch-deadline workaround) and
+    the MLP tower's settings."""
+    got, want = getattr(config, name)(), dataclasses.asdict(getattr(ref_config, name)())
+    fields = [f.name for f in dataclasses.fields(got)]
+    assert set(fields) <= set(want)
+    for f in fields:
+        assert getattr(got, f) == want[f] and type(getattr(got, f)) is type(want[f]), f
+    left_out = set(want) - set(fields)
+    if name == "GBDTConfig":
+        assert left_out == {"trees_per_dispatch"}
+    else:
+        assert {"neg_to_pos_ratio", "max_neg_per_session", "device_select",
+                "seed"} == set(fields)
+
+
 @pytest.mark.parametrize("name", ["CoVisConfig", "PopularityConfig"])
 def test_counting_config_matches_reference(name):
     """Every field, and so the counting machinery's defaults (host_spill,
