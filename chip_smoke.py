@@ -16,16 +16,21 @@ Phases, each printed before the last line:
    and each kernel's bound.
 4. Table build at production width from the generated events: synthetic
    OTTO-shaped sessions (1.8M aids, sessions up to 512 events, 500k
-   sessions, ~11.5M events), two seeded word2vec models (w2v-all,
-   w2v-1-2: 100-d, every one of the 1.8M aids a word, each aid's vector
-   near those of the 63 other aids of its 64-id group), and the port's
-   build_retriever at otto_tpu's default settings: co-visitation counting
-   of train then test into five top-N tables (C7), kNN tables of k = 20
-   for the 600,000 most frequent words of each model against all 1.8M
-   (K3), session embeddings of every session (K4), k-means with 50
-   clusters, cluster popularity over 50 clusters and over one. Prints the
-   counter's work and each stage's seconds; checks the five tables, the
-   popularity tables and that K3 and K4 were launched.
+   sessions, ~11.5M events) and the port's build_retriever at otto_tpu's
+   default settings: co-visitation counting of train then test into five
+   top-N tables (C7); both word2vec models of W2VEC_MODELS trained by SGNS
+   on the card from those events (w2v-all on every event, w2v-1-2 on carts
+   and orders; 100-d, window 10, 8 negatives, 5 epochs; C8), each with its
+   vocabulary, step kind, steps, seconds, steps/s, pairs/s, first and last
+   epoch loss and peak memory; kNN tables of k = 20 for the min(600,000,
+   V) most frequent words of each model against all of its words (K3);
+   session embeddings of every session (K4), k-means with 50 clusters,
+   cluster popularity over 50 clusters and over one. Prints the counter's
+   work and each stage's seconds and peak memory; checks the five tables,
+   the losses (finite, falling), every kNN query its own nearest
+   neighbour, each model's overlap with the click-to-click neighbours (at
+   least 10x chance), the popularity tables and that K3 and K4 were
+   launched.
 4b. Training from what phase 4 built: the port's pass_a over every test
    session (~121k) with the split's labels (the label join, the
    per-source eval, negative downsampling; prints sessions/s, rows kept
@@ -34,16 +39,18 @@ Phases, each printed before the last line:
    defaults (104 features, 150 trees, depth 4, 64 bins) from its rows,
    each with its seconds, trees/s, peak memory and valid ndcg@20 every 25
    trees, which must beat label-blind orders of the same valid groups.
-   Checks that K1 and K2 ran in pass A and K1 in training.
+   Prints the recall of the two w2v retrieval sources beside their
+   figures on the seeded models of commit ba4da48. Checks that K1 and K2
+   ran in pass A and K1 in training.
 5. Serving at production width from the built tables and the trained
    rankers: the port's score_pass (retrieval -> scoring -> top-20, batch
    2048, 32 kept aids, 512 candidates) over every test session and
    submit_and_eval, checking that K1 and K2 were launched; then the
    heuristic baseline over the same sessions on the built co-visitation
    tables; recall@20 per type beside the ceiling and the baseline's. The
-   data and the word2vec models are synthetic, so the recalls show that
-   the rankers rank, not what real data would score; the sessions/s are
-   smoke readings of this one run, not a benchmark.
+   data are synthetic, so the recalls show that the rankers rank, not what
+   real data would score; the sessions/s are smoke readings of this one
+   run, not a benchmark.
 6. Cross-check, small cases run on the card (kernels) and on the CPU
    (twins): one 256-session retrieval batch on seeded tables (candidates
    and integer features bit-equal, float features within a stated
@@ -55,6 +62,9 @@ Phases, each printed before the last line:
    top-20 (all bit-equal); GBDT histograms (bit-equal), a few trees from
    one set of draws on both devices (equal splits but at near ties,
    leaves within a stated tolerance) and two card trainings
+   (bit-identical); SGNS: one block step and one pair step at production
+   width from the same draws (tables and accumulators within a stated
+   tolerance) and two card trainings of a small corpus in each step kind
    (bit-identical).
 
 Then one JSON line with the kernels' results and, last, the result line
@@ -127,6 +137,13 @@ def timed_once(fn):
     end.synchronize()
     return out, start.elapsed_time(end)
 
+
+# pass A's recall (total, all candidates) of the two w2v sources, and of
+# them without the session's own aids, on the seeded word2vec models that
+# stood in for SGNS training before it was ported:
+# chip_smoke.py at its commit ba4da48 with INFO logging on, on an NVIDIA
+# H100 80GB HBM3 at 700 W (same events and split as phase 4 here)
+SEEDED_W2V_RECALL = {"src_w2vec_all": (0.4054, 0.0164), "src_w2vec_1_2": (0.4222, 0.0231)}
 
 # K1 at the GBDT tree walk's shape (phase 3), and the walk's K1 launches
 # on the paths that run it (phases 4b and 5)
@@ -385,7 +402,6 @@ def phase_kernels(dev, smi):
 
 
 # --------------------------------------------------------------------------
-# seeded word2vec models (stand-ins for the SGNS training not ported), and
 # the seeded tables of phase 6's retrieval cross-check
 # --------------------------------------------------------------------------
 def seeded_context(n_aids, device, seed, emb_dim=EMB_D):
@@ -439,28 +455,6 @@ def seeded_context(n_aids, device, seed, emb_dim=EMB_D):
     )
 
 
-def seeded_models(events, n_aids, device, seed):
-    """The two word2vec models of W2VEC_MODELS at their width, vocabularies
-    from build_vocab with min_count = 0 (every aid a word). An aid's vector
-    is its 64-id group's centre plus noise: its kNN neighbours lie within
-    64 ids of it, as the seeded co-visitation neighbours do."""
-    from otto_tpu_torch.config import W2VEC_MODELS
-    from otto_tpu_torch.models.word2vec import Word2Vec, build_vocab
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    out = {}
-    for name, cfg in W2VEC_MODELS.items():
-        cfg = dataclasses.replace(cfg, min_count=0)
-        vocab = build_vocab(events, cfg.types, cfg.min_count, n_aids)
-        centre = torch.randn(((n_aids + 63) // 64, cfg.vector_size),
-                             generator=g, device=device)
-        group = torch.from_numpy(vocab.aid_of_word // 64).to(device)
-        emb = centre[group.long()] + 0.3 * torch.randn(
-            (vocab.size, cfg.vector_size), generator=g, device=device)
-        out[name] = Word2Vec(cfg, vocab, emb.cpu().numpy())
-    return out
-
-
 def session_lookup(test, seed, emb_dim=EMB_D):
     from otto_tpu_torch.engine.retrieval import SessionLookup
 
@@ -475,8 +469,37 @@ def session_lookup(test, seed, emb_dim=EMB_D):
 # --------------------------------------------------------------------------
 # phase 4: the table build
 # --------------------------------------------------------------------------
+def report_w2vec(rep, smi):
+    """Print what each word2vec training ran, and hold its losses (finite,
+    the last epoch's below the first's) and its kNN neighbours' overlap
+    with the click-to-click co-visitation neighbours (at least 10x what
+    k random words would share: k / V of a row's co-visitation
+    neighbours, k^2 / V of k)."""
+    for name, r in rep.w2vec.items():
+        s = rep.seconds[f"w2vec {name}"]
+        steps = r.steps_per_epoch * r.epochs
+        loss = r.epoch_loss
+        print(f"# w2vec {name}: V = {r.words} words, {r.positions} corpus positions, "
+              f"{r.mode} steps of {r.pairs_per_step} pairs, {r.steps_per_epoch} steps x "
+              f"{r.epochs} epochs in {s:.2f} s = {steps / s:.1f} steps/s, "
+              f"{steps * r.pairs_per_step / s / 1e6:.2f}M pairs/s, peak "
+              f"{rep.peak_bytes[f'w2vec {name}'] / 2**30:.2f} GiB; mean loss by epoch "
+              f"{[round(x, 4) for x in loss]} ({smi})")
+        require(all(np.isfinite(loss)) and loss[-1] < loss[0],
+                f"{name}: losses finite and falling: {loss}")
+        ov = rep.overlap[name]
+        chance = KNN_K / r.words
+        print(f"#   overlap with click-to-click neighbours: {ov['co_count_x_w2vec']:.4f} "
+              f"of a row's (chance {chance:.2e}, i.e. {KNN_K * chance:.4f} of k = "
+              f"{KNN_K}); w2vec backed by co-counts {ov['w2vec_x_co_count']:.4f}, "
+              f"{ov['n_aids_compared']} aids compared, {ov['coverage_both']:.4f} of "
+              f"the aids have both")
+        require(ov["co_count_x_w2vec"] >= 10 * chance,
+                f"{name}: overlap {ov['co_count_x_w2vec']} below 10x chance {chance}")
+
+
 def phase_table_build(dev, smi):
-    from otto_tpu_torch.config import COVIS_FIRST_N, RetrievalConfig
+    from otto_tpu_torch.config import COVIS_FIRST_N, W2VEC_MODELS, RetrievalConfig
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.data.split import split_events
     from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
@@ -495,31 +518,24 @@ def phase_table_build(dev, smi):
           f"{time.perf_counter() - t0:.1f} s")
     require(set(buckets) == set(cfg.session_len_buckets), "all four buckets run")
 
-    t0 = time.perf_counter()
-    models = seeded_models(sp.train.concat(sp.test), N_AIDS, dev, SEED)
-    torch.cuda.synchronize()
-    print(f"# seeded word2vec models: {time.perf_counter() - t0:.1f} s; vocab sizes "
-          f"{ {n: m.vocab.size for n, m in models.items()} }")
-    require(all(m.vocab.size == N_AIDS for m in models.values()), "every aid a word")
-
     zero_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    retriever, rep = build_retriever(sp.train, sp.test, models, N_AIDS, dev,
-                                     retrieval=cfg)
+    retriever, rep = build_retriever(sp.train, sp.test, N_AIDS, dev, retrieval=cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(rep.peak_bytes.values())
     print(f"# table build: {dt:.2f} s, peak {peak / 2**30:.2f} GiB allocated, "
           f"launches {launches} ({smi})")
     for stage, s in rep.seconds.items():
         extra = ""
         if stage.startswith("knn "):
-            q = min(models[stage[4:]].cfg.knn_first_n_aids, N_AIDS)
-            extra = (f" ({q} queries x {N_AIDS} x {EMB_D}: "
-                     f"{2 * q * N_AIDS * EMB_D / s / 1e12:.2f} TFLOP/s)")
-        print(f"#   {stage}: {s:.3f} s{extra}")
+            q = min(KNN_QUERIES, rep.w2vec[stage[4:]].words)
+            v = rep.w2vec[stage[4:]].words
+            extra = (f" ({q} queries x {v} x {EMB_D}: "
+                     f"{2 * q * v * EMB_D / s / 1e12:.2f} TFLOP/s)")
+        print(f"#   {stage}: {s:.3f} s, peak {rep.peak_bytes[stage] / 2**30:.2f} GiB{extra}")
+    report_w2vec(rep, smi)
     cv = rep.covis
     print(f"# covis: {cv['host_seconds']:.3f} s of host dedup and packing, "
           f"{cv['microbatches']} microbatches, {cv['lanes']} grid lanes, "
@@ -534,7 +550,6 @@ def phase_table_build(dev, smi):
     print(f"# kmeans: inertia {km['inertia']:.1f}, {km['n_iter']} iterations, "
           f"{km['n_nonempty']} of {N_CLUSTERS} clusters non-empty, "
           f"{km['n_points']} sessions")
-    print(f"# w2vec x co-visitation overlap: {json.dumps(rep.overlap)}")
     require(launches["mips_topk"] > 0 and launches["gather_rows_hbm"] > 0,
             f"K3 and K4 launched by the table build: {launches}")
 
@@ -558,19 +573,21 @@ def phase_table_build(dev, smi):
         require(bool(((r >= 1) & (r <= 999)).all()), "popularity ranks in [1, 999]")
     require(rep.popularity["cl50"]["candidates_total"] > 0, "popularity candidates")
 
-    for name, (nbr, dist) in zip(models, (ctx.knn_all, ctx.knn_1_2)):
+    for name, (nbr, dist) in zip(W2VEC_MODELS, (ctx.knn_all, ctx.knn_1_2)):
+        V = rep.w2vec[name].words
+        q = min(KNN_QUERIES, V)
         require(nbr.shape == (N_AIDS, KNN_K) and dist.shape == (N_AIDS, KNN_K),
                 f"{name} kNN table shape")
-        rows = torch.from_numpy(models[name].vocab.aid_of_word[:KNN_QUERIES]).to(dev).long()
-        require(int((nbr[:, 0] >= 0).sum()) == KNN_QUERIES, f"{name}: {KNN_QUERIES} rows")
+        rows = (nbr[:, 0] >= 0).nonzero()[:, 0]
+        require(len(rows) == q, f"{name}: {q} query rows, got {len(rows)}")
         self_hit = float((nbr[rows, 0] == rows).float().mean())
-        print(f"# {name}: self is the nearest neighbour for {self_hit:.4f} of the queries")
+        print(f"# {name}: self is the nearest neighbour for {self_hit:.4f} of the "
+              f"{q} queries")
         require(self_hit > 0.999, f"{name} self-neighbour share {self_hit}")
         d = dist[rows]
         require(bool(torch.isfinite(d).all()) and bool((d[:, 1:] >= d[:, :-1]).all()),
                 f"{name} distances finite and ascending")
-        same_group = float((nbr[rows] // 64 == rows[:, None] // 64).float().mean())
-        print(f"#   neighbours in the aid's 64-id group: {same_group:.4f}")
+        require(bool((nbr[rows] >= 0).all()), f"{name}: k neighbours per query")
     lookup = retriever.sessions
     n_sessions = int(np.unique(np.concatenate([sp.train.session, sp.test.session])).size)
     require(len(lookup.ids) == n_sessions, "every session embedded")
@@ -647,6 +664,13 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
     require(all(rep.rows[t] > 0 and rep.positive_sessions[t] > 0 for t in TYPES),
             "every target has rows")
     require(0.0 < metrics["ceiling_total"] < 1.0, "ceiling recall in (0, 1)")
+    with open(os.path.join(work, "eval_retrieved_sources.json")) as fh:
+        sources = json.load(fh)
+    for src, seeded in SEEDED_W2V_RECALL.items():
+        got = {f: sources[f]["total"]["topall"] for f in (src, f"{src} & not self")}
+        print(f"#   {src} recall (total, all candidates; & not self): "
+              f"{got[src]:.5f}, {got[src + ' & not self']:.5f}; on the seeded "
+              f"models {seeded[0]:.4f}, {seeded[1]:.4f}")
 
     cfg = GBDTConfig()
     rankers = {}
@@ -777,6 +801,11 @@ KMEANS_RTOL = 1e-4
 # fourth digit, and a split choice only where two gains lie that close
 LEAF_TOL = 2e-4
 GAIN_RTOL = 1e-4
+# SGNS card vs CPU from the same draws: both sum a row's updates exactly
+# (int64 fixed point), but the updates themselves come from cuBLAS vs the
+# CPU's bmm and the devices' exp and rsqrt, which differ by ulps
+SGNS_RTOL = 1e-5
+SGNS_ATOL = 1e-6
 
 
 def f16_ulp(x):
@@ -820,6 +849,17 @@ def cross_check_retrieval(dev, seed, quiet=False):
         return [o.cpu() for o in out]
 
     (c_cpu, f_cpu, t_cpu), (c_dev, f_dev, t_dev) = run(ctx_cpu, "cpu"), run(ctx_dev, dev)
+
+    def parts(s, c):
+        """The session's and the candidate's norms and their dot product,
+        recomputed on each device (CPU, card) for a failing entry."""
+        out = []
+        for ctx, device in ((ctx_cpu, "cpu"), (ctx_dev, dev)):
+            e = torch.from_numpy(np.ascontiguousarray(semb[s])).to(device)
+            a = ctx.aid_emb[int(c_cpu[s, c])]
+            out.append(tuple(round(float(x), 6) for x in (
+                torch.linalg.norm(e), torch.linalg.norm(a), (e * a).sum())))
+        return out
     require(torch.equal(c_cpu, c_dev), "cross-check candidates bit-equal")
     require(torch.equal(t_cpu, t_dev), "cross-check ts_order bit-equal")
     n_cand = int((c_cpu >= 0).sum())
@@ -829,11 +869,12 @@ def cross_check_retrieval(dev, seed, quiet=False):
         a, b = f_cpu[..., j], f_dev[..., j]
         if name in FLOAT_FEATURES:
             bad = ~torch.isclose(a, b, rtol=FLOAT_TOL, atol=FLOAT_TOL)
-            where = [(s, c, float(a[s, c]), float(b[s, c]), int(c_cpu[s, c]))
+            where = [(s, c, float(a[s, c]), float(b[s, c]), int(c_cpu[s, c]), parts(s, c))
                      for s, c in bad.nonzero()[:4].tolist()]
             require(not bad.any(), f"cross-check {name} within {FLOAT_TOL}: "
                     f"{int(bad.sum())} entries off, (session row, slot, CPU, card, "
-                    f"candidate) {where}")
+                    f"candidate, (|session|, |candidate|, dot) on the CPU and the card "
+                    f"recomputed) {where}")
             worst = max(worst, float((a - b).abs().max()))
         else:
             require(torch.equal(a, b), f"cross-check {name} bit-equal")
@@ -899,6 +940,7 @@ def phase_cross_check(dev):
           f"(rel {rel:.3g}), iterations {it_d} vs {it_c}")
     cross_check_counting(dev)
     cross_check_gbdt(dev)
+    cross_check_sgns(dev)
 
 
 def cross_check_pass_a(dev, sessions, cand, feats):
@@ -1053,6 +1095,72 @@ def cross_check_gbdt(dev):
           f"equal splits, leaves max |diff| {err:.3g} (tolerance {LEAF_TOL}), valid ndcg "
           f"card {ndcg} CPU {[round(v, 5) for _, v in m_c.eval_history]}; two card "
           f"trainings bit-identical")
+
+
+def cross_check_sgns(dev):
+    """SGNS on the card against the CPU from the same draws (made on the
+    CPU, copied to both) and the same seeded state: one block step (16384
+    centers x 4, 8 negatives, 100-d) and one pair step (65536 pairs) with
+    their tables and accumulators within SGNS_RTOL / SGNS_ATOL; then two
+    card trainings of a small corpus in each step kind, bit-identical."""
+    from otto_tpu_torch.config import Word2VecConfig
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.models import word2vec as w2v
+
+    cpu = torch.device("cpu")
+    n_aids = 50_000
+    ev = generate(SyntheticSpec(n_sessions=20_000, n_aids=n_aids, max_len=128,
+                                mean_len=14, seed=SEED + 3), cpu)
+    vocab = w2v.build_vocab(ev, (0, 1, 2), 2, n_aids)
+    words, cum = w2v.flat_corpus(ev, vocab, (0, 1, 2))
+    V, N = vocab.size, len(words)
+    prob, alias = w2v.make_alias(vocab.counts)
+    host = {"words": torch.from_numpy(words).long(), "cum": torch.from_numpy(cum).long(),
+            "pos_info": torch.from_numpy(w2v.pack_position_info(cum)).long(),
+            "prob": torch.from_numpy(prob), "alias": torch.from_numpy(alias).long(),
+            "cdf": torch.from_numpy(w2v.make_neg_cdf(vocab.counts)),
+            "keep": torch.from_numpy(w2v.keep_probs(vocab.counts, 1e-3))}
+    g = torch.Generator().manual_seed(SEED)
+    state = (torch.randn((V, EMB_D), generator=g) * 0.3,
+             torch.randn((V, EMB_D), generator=g) * 0.3,
+             torch.rand(V, generator=g) + 0.01, torch.rand(V, generator=g) + 0.01)
+    block = w2v.block_draws(g, 16384, 4, 10, N, V, 256 * 64)
+    pair = w2v.pair_draws(g, 65536, 10, (65536, 8))
+
+    def step(device, kind):
+        x = {k: v.to(device) for k, v in host.items()}
+        p = w2v.SGNSParams(*(t.to(device).clone() for t in state))
+        if kind == "block":
+            loss = w2v._block_step(p, x["words"], x["pos_info"], x["prob"], x["alias"],
+                                   x["keep"], 0.25, 4, 8,
+                                   {k: v.to(device) for k, v in block.items()})
+        else:
+            loss = w2v._pair_step(p, x["words"], x["cum"], x["cdf"], x["keep"], 0.25,
+                                  65536, 8, {k: v.to(device) for k, v in pair.items()},
+                                  "pair")
+        return [t.cpu() for t in p], float(loss)
+
+    for kind in ("block", "pair"):
+        (got, loss_d), (want, loss_c) = step(dev, kind), step(cpu, kind)
+        errs = []
+        for name, a, b, s0 in zip(w2v.SGNSParams._fields, got, want, state):
+            require(torch.allclose(a, b, rtol=SGNS_RTOL, atol=SGNS_ATOL),
+                    f"SGNS {kind} step {name} within {SGNS_RTOL} / {SGNS_ATOL}")
+            moved = int((b != s0).reshape(V, -1).any(1).sum())
+            errs.append(f"{name} {float((a - b).abs().max()):.3g} ({moved} rows moved)")
+        require(abs(loss_d - loss_c) <= SGNS_RTOL * abs(loss_c), f"SGNS {kind} loss")
+        print(f"# cross-check SGNS {kind} step: V = {V}, card vs CPU max |diff| "
+              f"{', '.join(errs)}; loss {loss_d:.6f} vs {loss_c:.6f} (tolerance "
+              f"{SGNS_RTOL} relative + {SGNS_ATOL})")
+
+    for sharing in ("chunk", "pair"):
+        cfg = Word2VecConfig(name="x", min_count=2, epochs=2, neg_sharing=sharing)
+        a, b = (w2v.train_word2vec_device(ev, cfg, n_aids, device=dev) for _ in range(2))
+        require(np.array_equal(a.emb, b.emb), f"two card SGNS trainings ({a.report.mode}) "
+                "bit-identical")
+        print(f"# cross-check SGNS: two card trainings of {V} words, {a.report.mode} steps, "
+              f"{a.report.steps_per_epoch} x {a.report.epochs}, bit-identical; losses "
+              f"{[round(x, 5) for x in a.report.epoch_loss]}")
 
 
 def cross_check_counting(dev):

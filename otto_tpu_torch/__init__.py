@@ -15,7 +15,8 @@ Ported so far:
   (segmented scan);
 - the table build (`pipeline.runner.build_retriever`): co-visitation
   counting (`engine/covis.py`, torch sorts and scans on the device, the
-  run merge on the host in C++ from `native/kmerge.cc`), item kNN tables
+  run merge on the host in C++ from `native/kmerge.cc`), SGNS word2vec
+  training (`models/word2vec.py`, sampled on the device), item kNN tables
   on K3 `ops/kernels/mips.py` (exact top-k search), session embeddings
   on K4 `ops/kernels/dma_gather.py` (table row gather), k-means session
   clusters and cluster popularity (`engine/popularity.py`);
@@ -25,7 +26,7 @@ Ported so far:
   negative downsampling of pass A, and GBDT LambdaRank training of the
   three rankers (`models/gbdt.py`).
 The four hand-written CUDA kernels are built from `csrc/` at first use.
-SGNS training is still otto_tpu's; its models cross over through
+otto_tpu's tables, models and rankers cross over through
 `otto_tpu_torch.convert`.
 """
 

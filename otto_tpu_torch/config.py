@@ -1,16 +1,18 @@
 """Configuration of the ported stages.
 
-Counterpart of the part of otto_tpu/config.py that the ported modules
-read: the event types and recall weights, the co-visitation counting and
+Counterpart of otto_tpu/config.py for what the ported modules read: the
+event types and recall weights, the co-visitation counting and
 popularity settings, the retrieval caps, negative downsampling, the GBDT
-ranker's trees and training, and what the embedding-table build reads of
-the word2vec and k-means settings. Names and defaults are otto_tpu's;
-tests/test_torch_host.py holds them equal. The settings of the stages
-still to port (SGNS training, the MLP ranker) come with those stages.
+ranker's trees and training, the word2vec models (SGNS training and
+their kNN tables), k-means, the data split, and the root Config with its
+JSON round trip. Names and defaults are otto_tpu's;
+tests/test_torch_host.py holds them equal. The MLP tower's settings come
+with the MLP ranker, the mesh with the multi-device paths.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Tuple
 
 TYPES: Tuple[str, ...] = ("clicks", "carts", "orders")
@@ -189,16 +191,51 @@ class GBDTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Word2VecConfig:
-    """An item-embedding model as the kNN tables read it: its vocabulary
-    filter and width, and the kNN search over its table. The SGNS
-    training settings come with the trainer."""
+    """An item-embedding model: its vocabulary filter and width, the SGNS
+    training settings and the kNN search over its table. Names and
+    defaults are otto_tpu's; the port leaves out its `sgd_alpha` /
+    `sgd_min_alpha` (plain SGD is refused, see below) and `padded_dim` (an
+    MXU tile width)."""
 
     name: str = "w2v-all"
     types: Tuple[int, ...] = (0, 1, 2)   # event types in the corpus
     vector_size: int = 100
+    window: int = 10
     min_count: int = 5
+    negatives: int = 8                    # SGNS negatives per positive
+    batch_size: int = 65536               # pairs per step
+    epochs: int = 5
+    learning_rate: float = 0.25           # Adagrad base lr (per-row adaptive)
+    min_learning_rate: float = 0.05       # host sampler's linear decay end
+    subsample_t: float = 1e-3             # frequent-word subsampling threshold
+    ns_exponent: float = 0.75             # unigram^0.75 negative table
+    seed: int = 42
+    # 'device': pairs sampled on the device from the flat corpus; 'host':
+    # numpy pairs per epoch (skipgram_pairs)
+    sampler: str = "device"
+    # negatives: 'pair' draws `negatives` per positive (dense whole-table
+    # gradients), 'chunk' shares a drawn pool within chunks of pairs;
+    # 'auto' takes 'chunk' at >= 100k words or >= 5M corpus positions
+    neg_sharing: str = "auto"
+    # contexts per sampled center in chunk mode (0 / 1: per-pair sampling)
+    block_k: int = 4
+    # only 'adagrad': otto_tpu's plain-SGD option diverges (below)
+    optimizer: str = "adagrad"
+    # an epoch runs ceil(steps / steps_per_dispatch) * steps_per_dispatch
+    # steps, as otto_tpu's fixed-size dispatches do; the port dispatches
+    # step by step, and keeps the field for that step count
+    steps_per_dispatch: int = 64
     knn_k: int = 20
     knn_first_n_aids: int = 600_000      # queries: the most frequent words
+
+    def __post_init__(self):
+        if self.optimizer != "adagrad":
+            raise ValueError(
+                f"word2vec optimizer {self.optimizer!r}: only 'adagrad' is ported. "
+                "otto_tpu's 'sgd' is a measured negative: a batch sums the "
+                "gradients of a word's duplicate occurrences, and without "
+                "Adagrad's per-row scale the summed step diverges (NaN on the "
+                "200-word topics fixture at alpha 0.05, otto_tpu/config.py:212-220)")
 
 
 # the two embedding models, in build order; the first is the main model
@@ -217,3 +254,96 @@ class KMeansConfig:
     max_iter: int = 100
     tol: float = 1e-3
     seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset / split settings."""
+
+    test_days: int = 7                    # the local split's test window
+    chunk_sessions: int = 100_000         # ingestion chunk
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The root configuration, with otto_tpu's section names. otto_tpu's
+    `mesh` section waits for the multi-device paths; its other TPU-only
+    fields are left out of their sections."""
+
+    work_dir: str = "artifacts"
+    covis: CoVisConfig = dataclasses.field(default_factory=CoVisConfig)
+    retrieval: RetrievalConfig = dataclasses.field(default_factory=RetrievalConfig)
+    w2vec: Dict[str, Word2VecConfig] = dataclasses.field(
+        default_factory=lambda: dict(W2VEC_MODELS))
+    kmeans: KMeansConfig = dataclasses.field(default_factory=KMeansConfig)
+    popularity: PopularityConfig = dataclasses.field(default_factory=PopularityConfig)
+    ranker: RankerConfig = dataclasses.field(default_factory=RankerConfig)
+    gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
+    ranker_backend: str = "gbdt"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+
+def config_to_json(cfg: Config, path: str) -> None:
+    with open(path, "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh, indent=2)
+
+
+def _tuples(obj):
+    """JSON turns tuples into lists; every sequence field is a Tuple."""
+    if isinstance(obj, list):
+        return tuple(_tuples(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _tuples(v) for k, v in obj.items()}
+    return obj
+
+
+def _section(cls, d: dict):
+    """cls from a stored section: fields it lacks keep their defaults, and
+    stored keys it does not have (otto_tpu's TPU-only fields) are ignored."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})
+
+
+def config_from_json(path: str) -> Config:
+    """A config.json of either package -> the port's Config."""
+    with open(path) as fh:
+        d = _tuples(json.load(fh))
+    return Config(
+        work_dir=d.get("work_dir", "artifacts"),
+        covis=_section(CoVisConfig, d["covis"]),
+        retrieval=_section(RetrievalConfig, d["retrieval"]),
+        w2vec={k: _section(Word2VecConfig, v) for k, v in d["w2vec"].items()},
+        kmeans=_section(KMeansConfig, d["kmeans"]),
+        popularity=_section(PopularityConfig, d["popularity"]),
+        ranker=_section(RankerConfig, d["ranker"]),
+        gbdt=_section(GBDTConfig, d["gbdt"]),
+        ranker_backend=d.get("ranker_backend", "gbdt"),
+        data=_section(DataConfig, d["data"]),
+    )
+
+
+def stale_sections(cfg: Config, stored: dict) -> List[str]:
+    """The sections of `cfg` (all but work_dir) that a stored config.json
+    (as loaded) does not hold: a field the port has must be stored with
+    the same value, and the w2vec models must be the same names in the
+    same order. Stored fields the port lacks are not compared."""
+    cur = json.loads(json.dumps(dataclasses.asdict(cfg)))   # as stored: lists
+    cur.pop("work_dir")
+
+    def same_fields(c, s):
+        return isinstance(s, dict) and all(k in s and s[k] == v for k, v in c.items())
+
+    stale = []
+    for name, c in cur.items():
+        s = stored.get(name)
+        if name == "w2vec":
+            same = (isinstance(s, dict) and list(s) == list(c)
+                    and all(same_fields(c[m], s[m]) for m in c))
+        elif isinstance(c, dict):
+            same = same_fields(c, s)
+        else:
+            same = s == c
+        if not same:
+            stale.append(name)
+    return stale

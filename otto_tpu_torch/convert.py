@@ -1,7 +1,7 @@
 """Carry otto_tpu's tables and models across to the port.
 
-The port can take what otto_tpu built or trained (its word2vec models
-until SGNS training is ported; tables and rankers for tests): otto_tpu's
+The port can take what otto_tpu built or trained (its word2vec models,
+tables and rankers, for tests): otto_tpu's
 numpy (or jax) arrays become tensors on an explicit device, or the port's
 host containers. Arrays are read with
 `np.asarray`, so jax arrays work too, and the port never imports jax

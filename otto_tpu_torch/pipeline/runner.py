@@ -3,10 +3,10 @@
 Counterpart of otto_tpu/pipeline/runner.py's streaming runner
 (`Pipeline.run_streaming`) and the stages it runs:
 
-- `build_retriever`: co-visitation counting (C7), the item kNN tables
-  (C9), the session embeddings (C10), the session clusters (C11) and
-  cluster popularity (C12) on the device, and the Retriever that serves
-  from them;
+- `build_retriever`: co-visitation counting (C7), word2vec training
+  (C8), the item kNN tables (C9), the session embeddings (C10), the
+  session clusters (C11) and cluster popularity (C12) on the device, and
+  the Retriever that serves from them;
 - `pass_a`: retrieve the test sessions with labels: the label join, the
   per-source retrieval eval (C14) and negative downsampling (C15), whose
   rows are persisted per target before any training;
@@ -14,8 +14,8 @@ Counterpart of otto_tpu/pipeline/runner.py's streaming runner
 - `score_pass`: re-retrieve the test sessions, score every batch with the
   three target rankers on the device, keep the top-20 per target;
 - `submit_and_eval`: write the submission file and evaluate recall@20;
-- `run_streaming`: all of them in that order, with otto_tpu's
-  crash-resume fast path.
+- `run_streaming`: all of them in that order, with otto_tpu's work-dir
+  guard (`check_work_dir`) and crash-resume fast path.
 
 Plain loops: the batches run one after the other on the device's stream.
 """
@@ -34,12 +34,17 @@ import torch
 from otto_tpu_torch.config import (
     TYPE2ID,
     TYPES,
+    W2VEC_MODELS,
+    Config,
     CoVisConfig,
     GBDTConfig,
     KMeansConfig,
     PopularityConfig,
     RankerConfig,
     RetrievalConfig,
+    Word2VecConfig,
+    config_to_json,
+    stale_sections,
 )
 from otto_tpu_torch.data.batching import pack_sessions
 from otto_tpu_torch.data.schema import Events, Labels
@@ -61,7 +66,7 @@ from otto_tpu_torch.eval.diagnostics import w2vec_covis_overlap, write_overlap_r
 from otto_tpu_torch.eval.per_source import DeviceSourceEval, format_report
 from otto_tpu_torch.eval.recall import evaluate_topk
 from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
-from otto_tpu_torch.models.word2vec import Word2Vec
+from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
 from otto_tpu_torch.ops.kmeans import kmeans_fit
 
@@ -72,17 +77,21 @@ log = logging.getLogger(__name__)
 class BuildReport:
     """What `build_retriever` measured: seconds per stage (ended by a device
     sync; "covis count" is both updates, "covis tables" the global merge,
-    prune and top-N tables), the co-visitation counter's work (`covis`:
-    seconds of host dedup and packing, microbatches, grid lanes, emitted
-    pairs, ladder merges, rows spilled and pruned, the host
-    merge that ran, unique pairs per type before / after the global prune,
-    rows with a neighbour per table), the w2vec x co-visitation overlap
-    per model, the k-means fit (inertia, n_iter, n_points, n_nonempty
-    clusters) and the popularity tables' fill (`popularity`: candidates
-    per cluster, aids ranked)."""
+    prune and top-N tables, "w2vec {name}" a model's training), on CUDA
+    the peak bytes allocated within each stage, the co-visitation
+    counter's work (`covis`: seconds of host dedup and packing,
+    microbatches, grid lanes, emitted pairs, ladder merges, rows spilled
+    and pruned, the host merge that ran, unique pairs per type before /
+    after the global prune, rows with a neighbour per table), what each
+    trained word2vec model ran (`w2vec`), the w2vec x co-visitation
+    overlap per model, the k-means fit (inertia, n_iter, n_points,
+    n_nonempty clusters) and the popularity tables' fill (`popularity`:
+    candidates per cluster, aids ranked)."""
 
     seconds: Dict[str, float]
+    peak_bytes: Dict[str, int]
     covis: Dict[str, object]
+    w2vec: Dict[str, object]
     overlap: Dict[str, Dict[str, float]]
     kmeans: Dict[str, float]
     popularity: Dict[str, object]
@@ -128,42 +137,55 @@ def _event_clusters(session: np.ndarray, sess_ids: np.ndarray,
 def build_retriever(
     train: Events,
     test: Events,
-    models: Dict[str, Word2Vec],
     n_aids: int,
     device,
+    w2vec: Dict[str, Word2VecConfig] = W2VEC_MODELS,
+    models: Optional[Dict[str, Word2Vec]] = None,
     covis: CoVisConfig = CoVisConfig(),
     popularity: PopularityConfig = PopularityConfig(),
     retrieval: RetrievalConfig = RetrievalConfig(),
     kmeans: KMeansConfig = KMeansConfig(),
     report_dir: Optional[str] = None,
 ) -> Tuple[Retriever, BuildReport]:
-    """Stages C7 and C9-C12 and the retrieval context, on `device`.
-
-    Takes what the port does not build yet: the two word2vec models by
-    name (in W2VEC_MODELS order; the first is the main model, whose table
-    becomes the item embeddings). Runs, as otto_tpu's
-    Pipeline.build_retriever does:
+    """Stages C7-C12 and the retrieval context, on `device`, as otto_tpu's
+    Pipeline.build_retriever runs them:
       C7  a CoVisCounter over train, then over test, and its retrieval
           tables (five, in `covis.names` order);
-      C9  `build_knn_tables` for each model (K3), then the w2vec x
-          click-to-click co-visitation overlap (logged; written as
-          `stats_w2vec_x_co_click-{name}.csv` into `report_dir` if given);
+      C8  the word2vec models of `w2vec` that `models` does not hold,
+          trained on train + test (`sampler` picks train_word2vec_device
+          or train_word2vec); a given model keeps its own cfg;
+      C9  `build_knn_tables` for each model (K3), then each model's overlap
+          with the click-to-click co-visitation neighbours (logged;
+          written as `stats_w2vec_x_co_click-{name}.csv` into `report_dir`
+          if given);
       C10 `compute_session_embeddings` over every session of train + test
           with the main model's table (K4);
       C11 `kmeans_fit` with `n_clusters_to_find[0]` clusters;
       C12 `compute_popularity` of train + test over those clusters and
           over one cluster.
-    Writes no artifact cache. -> (Retriever, BuildReport)."""
+    Models go by `w2vec`'s names, in its order: the first is the main model
+    (the item embeddings and knn_all), the second gives knn_1_2. Writes no
+    artifact cache. -> (Retriever, BuildReport)."""
     dev = torch.device(device)
-    if len(models) != 2:
-        raise ValueError(f"build_retriever: two w2vec models, got {list(models)}")
+    names = list(w2vec)
+    models = dict(models or {})
+    if len(names) < 2:
+        raise ValueError(f"build_retriever: two w2vec models, got {names}")
+    unknown = sorted(set(models) - set(names))
+    if unknown:
+        raise ValueError(f"build_retriever: models {unknown} are not in w2vec {names}")
     seconds: Dict[str, float] = {}
+    peak: Dict[str, int] = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
 
     def lap(stage):
         nonlocal t
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+            peak[stage] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         now = time.perf_counter()
         seconds[stage] = now - t
         t = now
@@ -182,15 +204,28 @@ def build_retriever(
     log.info("covis %s", covis_rep)
     lap("covis tables")
 
+    # ---- C8 word2vec -------------------------------------------------------
+    full = train.concat(test)
+    trained = {}
+    for name in names:
+        if name in models:
+            continue
+        wcfg = w2vec[name]
+        trainer = train_word2vec_device if wcfg.sampler == "device" else train_word2vec
+        models[name] = trainer(full, wcfg, n_aids, device=dev)
+        trained[name] = models[name].report
+        log.info("w2vec %s: %s", name, trained[name])
+        lap(f"w2vec {name}")
+
     # ---- C9 kNN -----------------------------------------------------------
     knns = {}
-    for name, model in models.items():
-        knns[name] = build_knn_tables(model, n_aids, dev)
+    for name in names:
+        knns[name] = build_knn_tables(models[name], n_aids, dev)
         lap(f"knn {name}")
-    co_nbr = covis_tables[0].neighbor.cpu().numpy()
+    co_nbr = tables["click_to_click"].neighbor.cpu().numpy()
     overlap = {}
-    for name, kt in knns.items():
-        overlap[name] = w2vec_covis_overlap(kt.neighbor.cpu().numpy(), co_nbr)
+    for name in names:
+        overlap[name] = w2vec_covis_overlap(knns[name].neighbor.cpu().numpy(), co_nbr)
         log.info("w2vec overlap %s: %s", name, overlap[name])
         if report_dir is not None:
             write_overlap_report(
@@ -199,9 +234,7 @@ def build_retriever(
     lap("overlap")
 
     # ---- C10 session embeddings --------------------------------------------
-    full = train.concat(test)
-    main_model = next(iter(models.values()))
-    aid_emb = torch.from_numpy(main_model.embedding_by_aid(n_aids)).to(dev)
+    aid_emb = torch.from_numpy(models[names[0]].embedding_by_aid(n_aids)).to(dev)
     sess_ids, sess_emb = compute_session_embeddings(pack_sessions(full), aid_emb)
     lap("session_emb")
 
@@ -226,7 +259,6 @@ def build_retriever(
     log.info("popularity %s", pop_rep)
     lap("popularity")
 
-    names = list(models)
     ctx = RetrievalContext(
         covis=covis_tables,
         knn_all=tuple(knns[names[0]]),
@@ -241,7 +273,7 @@ def build_retriever(
         sessions=SessionLookup.build(sess_ids, labels, sess_emb.cpu().numpy()),
     )
     lap("context")
-    return retriever, BuildReport(seconds, covis_rep, overlap, km, pop_rep)
+    return retriever, BuildReport(seconds, peak, covis_rep, trained, overlap, km, pop_rep)
 
 
 def check_serving_features(tname: str, ranker: GBDTRanker) -> None:
@@ -283,8 +315,8 @@ def submit_and_eval(
 ) -> Optional[Dict[str, float]]:
     """Write `submission.csv` into work_dir; with labels, evaluate recall@20
     (written to `eval_submission.json`) and cross-check it against an
-    independent re-parse of the CSV. -> the recall dict, or None without
-    labels."""
+    independent re-parse of the CSV, logging a warning when they differ.
+    -> the recall dict, or None without labels."""
     path = os.path.join(work_dir, "submission.csv")
     rank_engine.write_submission(path, preds)
     if labels is None:
@@ -304,9 +336,8 @@ def submit_and_eval(
         reparsed[tname] = (sessions, aids)
     res2 = evaluate_topk(reparsed, labels)
     if abs(res2["total"] - res["total"]) > 1e-9:
-        raise RuntimeError(
-            f"submission re-parse mismatch: {res2['total']} vs {res['total']}"
-        )
+        log.warning("submission re-parse mismatch: %s vs %s",
+                    res2["total"], res["total"])
     return res
 
 
@@ -522,42 +553,69 @@ def load_downsampled(work_dir: str, tname: str):
     return z["feats"], z["y"], z["session"]
 
 
+def check_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool) -> None:
+    """otto_tpu's guard against a stale work dir: with use_cache and a
+    `config.json` / `meta.json` already there, raise ValueError unless the
+    stored config holds cfg (every section but work_dir; stored fields the
+    port lacks, such as otto_tpu's TPU-only ones, are not compared) and
+    the stored n_aids is n_aids; otherwise write both files."""
+    os.makedirs(work_dir, exist_ok=True)
+    cpath = os.path.join(work_dir, "config.json")
+    if use_cache and os.path.exists(cpath):
+        with open(cpath) as fh:
+            stale = stale_sections(cfg, json.load(fh))
+        if stale:
+            raise ValueError(
+                f"work dir {work_dir!r} holds artifacts for a DIFFERENT config "
+                f"(mismatched sections: {stale}); use a fresh work dir or "
+                "use_cache=False")
+    else:
+        config_to_json(cfg, cpath)
+    mpath = os.path.join(work_dir, "meta.json")
+    if use_cache and os.path.exists(mpath):
+        with open(mpath) as fh:
+            stored = json.load(fh).get("n_aids")
+        if stored != n_aids:
+            raise ValueError(
+                f"work dir {work_dir!r} holds artifacts for n_aids={stored} "
+                f"(got {n_aids}); use a fresh work dir or use_cache=False")
+    else:
+        with open(mpath, "w") as fh:
+            json.dump({"n_aids": n_aids}, fh)
+
+
 def run_streaming(
     train: Events,
     test: Events,
     labels: Optional[Labels],
-    models: Dict[str, Word2Vec],
     n_aids: int,
     work_dir: str,
     device,
-    covis: CoVisConfig = CoVisConfig(),
-    popularity: PopularityConfig = PopularityConfig(),
-    retrieval: RetrievalConfig = RetrievalConfig(),
-    kmeans: KMeansConfig = KMeansConfig(),
-    ranker: RankerConfig = RankerConfig(),
-    gbdt: GBDTConfig = GBDTConfig(),
-    ranker_backend: str = "gbdt",
+    cfg: Config = Config(),
+    models: Optional[Dict[str, Word2Vec]] = None,
     batch_sessions: int = 512,
     use_cache: bool = True,
 ) -> Dict[str, float]:
     """The pipeline from events to recall@20 on `device`, as otto_tpu's
-    Pipeline.run_streaming: build_retriever (with the two word2vec models
-    the port does not train yet), then with labels pass_a, the three
-    rankers (train_ranker_cached) and pass B (score_pass) ->
-    submit_and_eval; without labels, the rankers in work_dir score pass B.
+    Pipeline.run_streaming: check_work_dir, build_retriever (training the
+    models of cfg.w2vec that `models` does not hold), then with labels
+    pass_a, the three rankers (train_ranker_cached) and pass B
+    (score_pass) -> submit_and_eval; without labels, the rankers in
+    work_dir score pass B.
 
     Crash-resume: with use_cache, when `passA-metrics.json` and, for every
     target, its ranker or its persisted rows are in work_dir, pass A is
     skipped and the missing rankers train from the rows.
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
-    if ranker_backend != "gbdt":
+    if cfg.ranker_backend != "gbdt":
         raise NotImplementedError(
-            f"ranker backend {ranker_backend!r}: the MLP ranker is not ported yet "
-            "(ROADMAP Queue 1 item 10); use 'gbdt'")
+            f"ranker backend {cfg.ranker_backend!r}: the MLP ranker is not ported yet "
+            "(ROADMAP Queue 1, \"The MLP ranker\"); use 'gbdt'")
+    check_work_dir(work_dir, cfg, n_aids, use_cache)
     retriever, _ = build_retriever(
-        train, test, models, n_aids, device, covis, popularity, retrieval,
-        kmeans, report_dir=work_dir)
+        train, test, n_aids, device, cfg.w2vec, models, cfg.covis, cfg.popularity,
+        cfg.retrieval, cfg.kmeans, report_dir=work_dir)
     if labels is None:
         preds = score_pass(retriever, test, load_rankers(work_dir), batch_sessions)
         submit_and_eval(work_dir, preds, None)
@@ -572,11 +630,11 @@ def run_streaming(
             metrics = json.load(fh)
         log.info("pass A cached in %s", work_dir)
     else:
-        metrics, _ = pass_a(retriever, test, labels, ranker, work_dir, batch_sessions,
+        metrics, _ = pass_a(retriever, test, labels, cfg.ranker, work_dir, batch_sessions,
                             skip_targets=[t for t in TYPES if have_ranker[t]])
     rankers = {
         t: train_ranker_cached(work_dir, t, lambda t=t: load_downsampled(work_dir, t),
-                               gbdt, device, use_cache)
+                               cfg.gbdt, device, use_cache)
         for t in TYPES
     }
     preds = score_pass(retriever, test, rankers, batch_sessions)

@@ -17,6 +17,7 @@ says why); the co-visitation and popularity tables, neighbours, session
 ids, cluster labels and the served top-20 are equal (the seeded rankers
 split only on integer-valued features, see test_torch_slice.py).
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -42,9 +43,11 @@ from otto_tpu.models.word2vec import Word2Vec as RefWord2Vec
 from otto_tpu.models.word2vec import build_vocab as ref_build_vocab
 from otto_tpu.ops import kmeans as ref_kmeans
 from otto_tpu_torch import convert
-from otto_tpu_torch.config import CoVisConfig
+from otto_tpu_torch.config import CoVisConfig, Word2VecConfig
 from otto_tpu_torch.data.schema import Events
 from otto_tpu_torch.engine.covis import CoVisTables
+from otto_tpu_torch.engine.session_embed import build_knn_tables
+from otto_tpu_torch.models.word2vec import train_word2vec_device
 from otto_tpu_torch.ops import kmeans as port_kmeans
 from otto_tpu_torch.pipeline import runner as port_runner
 from test_torch_retrieval import BATCH, CFG, N_AIDS, PORT_CFG, build_world
@@ -131,7 +134,7 @@ def build_both(tmp_root):
     return {"w": w, "covis": covis, "counter": counter, "pop50": pop50, "pop1": pop1,
             "knns": knns, "ref_stats": ref_stats, "sess_ids": sess_ids,
             "sess_emb": sess_emb, "labels": labels, "ref": ref, "port": port,
-            "report": report, "report_dir": report_dir, "models": models}
+            "report": report, "report_dir": report_dir, "models": models, "init": init}
 
 
 @pytest.fixture(scope="module")
@@ -228,3 +231,68 @@ def test_top20_from_built_tables_equal(both, tmp_path):
         np.testing.assert_array_equal(got[t][0], want[t][0])
         np.testing.assert_array_equal(got[t][1], want[t][1])
     assert (got["clicks"][1][:, 0] >= 0).mean() > 0.9
+
+
+def _ev(e):
+    return Events(e.session, e.aid, e.ts, e.type)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op thread: these builds run thousands of small ops, where
+    a thread pool only adds waits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _port_build(both, models, **kw):
+    """The port's build as build_both runs it."""
+    sp = both["w"]["split"]
+    with one_thread(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_kmeans, "init_centroids", lambda x, k, s, g: torch.from_numpy(both["init"]))
+        return port_runner.build_retriever(
+            _ev(sp.train), _ev(sp.test), N_AIDS, "cpu", models=models,
+            covis=dataclasses.replace(CoVisConfig(), **COUNTING), retrieval=PORT_CFG, **kw)
+
+
+def test_models_go_by_name_not_order(both):
+    """A models dict in the other order gives the same context: the first
+    name of w2vec is the main model and knn_all, the second knn_1_2; the
+    overlap reads the click_to_click table by name."""
+    reordered = {n: convert.word2vec_from_numpy(both["models"][n])
+                 for n in ("w2v-1-2", "w2v-all")}
+    port, report = _port_build(both, reordered)
+    for got, want in zip(port.ctx.tensors(), both["port"].ctx.tensors()):
+        assert torch.equal(got, want)
+    assert list(report.overlap) == ["w2v-all", "w2v-1-2"]
+    assert report.overlap == both["report"].overlap
+    with pytest.raises(ValueError, match="not in w2vec"):
+        port_runner.build_retriever(None, None, N_AIDS, "cpu",
+                                    models={"w2v-x": reordered["w2v-all"]})
+
+
+def test_missing_models_are_trained(both):
+    """build_retriever trains the models of w2vec it is not given, on
+    train + test, and times each as 'w2vec {name}'."""
+    # a few steps: no rounding up to 64-step dispatches
+    w2vec = {"w2v-all": Word2VecConfig(name="w2v-all", vector_size=16, min_count=1),
+             "w2v-1-2": Word2VecConfig(name="w2v-1-2", types=(1, 2), vector_size=16,
+                                       min_count=1, epochs=2, batch_size=4096,
+                                       steps_per_dispatch=1, knn_first_n_aids=FIRST_N)}
+    given = convert.word2vec_from_numpy(both["models"]["w2v-all"])
+    port, report = _port_build(both, {"w2v-all": given}, w2vec=w2vec)
+    assert "w2vec w2v-1-2" in report.seconds and "w2vec w2v-all" not in report.seconds
+    assert list(report.w2vec) == ["w2v-1-2"] and report.w2vec["w2v-1-2"].mode == "pair"
+    sp = both["w"]["split"]
+    full = _ev(sp.train).concat(_ev(sp.test))
+    with one_thread():
+        trained = train_word2vec_device(full, w2vec["w2v-1-2"], N_AIDS, device="cpu")
+        want = build_knn_tables(trained, N_AIDS, "cpu")
+    assert torch.equal(port.ctx.knn_1_2[0], want.neighbor)
+    assert torch.equal(port.ctx.knn_1_2[1], want.dist)
+    assert torch.equal(port.ctx.knn_all[0], both["port"].ctx.knn_all[0])
+    assert torch.equal(port.ctx.aid_emb, both["port"].ctx.aid_emb)

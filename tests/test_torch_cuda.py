@@ -349,3 +349,58 @@ def test_cuda_gbdt_training_is_deterministic(cuda_device):
     for k in ("gfeat", "thr", "leaf", "gains"):
         assert np.array_equal(getattr(a, k), getattr(b, k)), k
     assert a.eval_history == b.eval_history and (a.thr < cfg.n_bins).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharing", ["chunk", "pair"])
+def test_cuda_sgns_training_deterministic_and_near_cpu(cuda_device, sharing):
+    """Two card trainings of the same corpus are bit-identical (a row's
+    updates are summed exactly in int64 fixed point, not by float
+    atomics); one step from the same draws on the card and on the CPU
+    agrees within the ulps of cuBLAS vs the CPU's products."""
+    import numpy as np
+
+    from otto_tpu_torch.config import Word2VecConfig
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.models import word2vec as w2v
+
+    cpu = torch.device("cpu")
+    ev = generate(SyntheticSpec(n_sessions=3000, n_aids=5000, max_len=64, mean_len=12,
+                                seed=9), cpu)
+    cfg = Word2VecConfig(name="x", vector_size=32, min_count=1, epochs=2,
+                         batch_size=8192, neg_sharing=sharing)
+    a, b = (w2v.train_word2vec_device(ev, cfg, 5000, device=cuda_device) for _ in range(2))
+    assert a.report.mode == ("block" if sharing == "chunk" else "pair")
+    assert np.array_equal(a.emb, b.emb)
+    assert np.isfinite(a.report.epoch_loss).all()
+
+    vocab = w2v.build_vocab(ev, cfg.types, 1, 5000)
+    words, cum = w2v.flat_corpus(ev, vocab, cfg.types)
+    V, N = vocab.size, len(words)
+    g = torch.Generator().manual_seed(3)
+    state = [torch.randn((V, 32), generator=g) * 0.3, torch.randn((V, 32), generator=g) * 0.3,
+             torch.rand(V, generator=g) + 0.01, torch.rand(V, generator=g) + 0.01]
+    if sharing == "chunk":
+        prob, alias = w2v.make_alias(vocab.counts)
+        host = [torch.from_numpy(x).long() for x in (words, w2v.pack_position_info(cum))]
+        host += [torch.from_numpy(prob), torch.from_numpy(alias).long()]
+        d = w2v.block_draws(g, 2048, 4, 10, N, V, 32 * 64)
+    else:
+        host = [torch.from_numpy(words).long(), torch.from_numpy(cum).long(),
+                torch.from_numpy(w2v.make_neg_cdf(vocab.counts))]
+        d = w2v.pair_draws(g, 8192, 10, (8192, 8))
+    keep = torch.from_numpy(w2v.keep_probs(vocab.counts, 1e-3))
+    out = []
+    for dev in (cuda_device, cpu):
+        p = w2v.SGNSParams(*(t.to(dev).clone() for t in state))
+        args = [t.to(dev) for t in host] + [keep.to(dev), 0.25]
+        dd = {k: v.to(dev) for k, v in d.items()}
+        if sharing == "chunk":
+            loss = w2v._block_step(p, *args, 4, 8, dd)
+        else:
+            loss = w2v._pair_step(p, *args, 8192, 8, dd, "pair")
+        out.append(([t.cpu() for t in p], float(loss)))
+    (got, loss_d), (want, loss_c) = out
+    for x, y in zip(got, want):
+        assert torch.allclose(x, y, rtol=1e-5, atol=1e-6)
+    assert abs(loss_d - loss_c) <= 1e-5 * abs(loss_c)

@@ -47,11 +47,12 @@ def test_config_matches_reference():
     assert config.GBDTConfig.from_dict(default) == config.GBDTConfig()
 
 
-@pytest.mark.parametrize("name", ["GBDTConfig", "RankerConfig"])
+@pytest.mark.parametrize("name", ["GBDTConfig", "RankerConfig", "Word2VecConfig"])
 def test_training_config_defaults_match_reference(name):
     """Every field the port has, by name, type and default; the port leaves
-    out otto_tpu's trees_per_dispatch (a dispatch-deadline workaround) and
-    the MLP tower's settings."""
+    out otto_tpu's trees_per_dispatch (a dispatch-deadline workaround), the
+    MLP tower's settings, and the SGD and MXU-padding fields of the
+    word2vec models."""
     got, want = getattr(config, name)(), dataclasses.asdict(getattr(ref_config, name)())
     fields = [f.name for f in dataclasses.fields(got)]
     assert set(fields) <= set(want)
@@ -60,12 +61,14 @@ def test_training_config_defaults_match_reference(name):
     left_out = set(want) - set(fields)
     if name == "GBDTConfig":
         assert left_out == {"trees_per_dispatch"}
+    elif name == "Word2VecConfig":
+        assert left_out == {"sgd_alpha", "sgd_min_alpha", "padded_dim"}
     else:
         assert {"neg_to_pos_ratio", "max_neg_per_session", "device_select",
                 "seed"} == set(fields)
 
 
-@pytest.mark.parametrize("name", ["CoVisConfig", "PopularityConfig"])
+@pytest.mark.parametrize("name", ["CoVisConfig", "PopularityConfig", "DataConfig"])
 def test_counting_config_matches_reference(name):
     """Every field, and so the counting machinery's defaults (host_spill,
     spill_prune_min_rows, pair_budget, max_run_rows) that the spill-time

@@ -4,10 +4,11 @@ recall@20.
 
 otto_tpu's Pipeline.run_streaming runs once on tests/test_pipeline.py's
 tiny configuration and data (2,500 sessions, 1,200 aids, 20 trees at depth
-3); the port's run_streaming runs on the CPU with what the port cannot make
-the same way: otto_tpu's word2vec models (its `w2v-*.npz`), otto_tpu's
-k-means++ start (test_torch_build.py says why) and otto_tpu's threefry GBDT
-draws (test_torch_gbdt_train.py's hook).
+3); the port's run_streaming runs on the CPU under the config.json that
+otto_tpu stored, with what the port cannot make the same way: otto_tpu's
+word2vec models (its `w2v-*.npz`, given by the config's model names),
+otto_tpu's k-means++ start (test_torch_build.py says why) and otto_tpu's
+threefry GBDT draws (test_torch_gbdt_train.py's hook).
 
 Held equal: the retrieval reports and metrics; the persisted pass-A rows'
 labels, sessions and every integer-valued feature (float16 bytes); the
@@ -114,13 +115,15 @@ def run_both(tmp_root):
         mp.setattr(port_gbdt, "tree_draws", lambda cfg, f, n, device: ref_draws(cfg, f, n))
         lab = sp.labels
         port_metrics = port_runner.run_streaming(
-            ev(sp.train), ev(sp.test), Labels(lab.session, lab.type, lab.aid), models,
-            SPEC.n_aids, str(port_dir), "cpu",
-            covis=dataclasses.replace(port_config.CoVisConfig(), accumulator_capacity=1 << 17),
-            retrieval=port_config.RetrievalConfig(**RETRIEVAL),
-            kmeans=dataclasses.replace(port_config.KMeansConfig(), max_iter=10),
-            gbdt=port_config.GBDTConfig(**GBDT), batch_sessions=BATCH)
+            ev(sp.train), ev(sp.test), Labels(lab.session, lab.type, lab.aid),
+            SPEC.n_aids, str(port_dir), "cpu", cfg=port_cfg(ref_dir), models=models,
+            batch_sessions=BATCH)
     return {"ref": (ref_metrics, ref_dir), "port": (port_metrics, str(port_dir)), "split": sp}
+
+
+def port_cfg(ref_dir):
+    """CFG as the port reads it from the config.json otto_tpu stored."""
+    return port_config.config_from_json(os.path.join(ref_dir, "config.json"))
 
 
 @pytest.fixture(scope="module")
@@ -217,6 +220,7 @@ def test_resume_skips_pass_a_and_serves_without_labels(both, tmp_path):
     import shutil
 
     (_, port_dir), sp = both["port"], both["split"]
+    cfg = port_cfg(both["ref"][1])
     work = tmp_path / "resume"
     shutil.copytree(port_dir, work)
     for t in ("carts", "orders"):
@@ -234,15 +238,15 @@ def test_resume_skips_pass_a_and_serves_without_labels(both, tmp_path):
             t: (np.array([1], np.int32), np.zeros((1, 20), np.int32)) for t in rankers})
         lab = sp.labels
         m = port_runner.run_streaming(
-            None, None, Labels(lab.session, lab.type, lab.aid), {}, SPEC.n_aids,
-            str(work), "cpu", gbdt=port_config.GBDTConfig(**GBDT), batch_sessions=BATCH)
+            None, None, Labels(lab.session, lab.type, lab.aid), SPEC.n_aids, str(work),
+            "cpu", cfg=cfg, batch_sessions=BATCH)
         assert not calls and m["ceiling_total"] == both["port"][0]["ceiling_total"]
         for t in ("carts", "orders"):
             np.testing.assert_array_equal(
                 port_gbdt.GBDTRanker.load(str(work / f"ranker-gbdt-{t}.npz")).thr,
                 port_gbdt.GBDTRanker.load(os.path.join(port_dir, f"ranker-gbdt-{t}.npz")).thr)
-        assert port_runner.run_streaming(None, None, None, {}, SPEC.n_aids, str(work),
-                                         "cpu") == {}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_runner.run_streaming(None, None, None, {}, SPEC.n_aids, str(work), "cpu",
-                                  ranker_backend="mlp")
+        assert port_runner.run_streaming(None, None, None, SPEC.n_aids, str(work),
+                                         "cpu", cfg=cfg) == {}
+    with pytest.raises(NotImplementedError, match="MLP ranker is not ported"):
+        port_runner.run_streaming(None, None, None, SPEC.n_aids, str(work), "cpu",
+                                  cfg=dataclasses.replace(cfg, ranker_backend="mlp"))
