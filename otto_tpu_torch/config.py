@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Tuple
+import logging
+import os
+from typing import Dict, List, Optional, Tuple
 
 TYPES: Tuple[str, ...] = ("clicks", "carts", "orders")
 TYPE2ID: Dict[str, int] = {t: i for i, t in enumerate(TYPES)}
@@ -284,6 +286,9 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
 
 
+DEFAULT = Config()
+
+
 def config_to_json(cfg: Config, path: str) -> None:
     with open(path, "w") as fh:
         json.dump(dataclasses.asdict(cfg), fh, indent=2)
@@ -347,3 +352,14 @@ def stale_sections(cfg: Config, stored: dict) -> List[str]:
         if not same:
             stale.append(name)
     return stale
+
+
+def setup_logging(work_dir: Optional[str] = None, level: int = logging.INFO) -> None:
+    """Log to stderr and, with a work dir, to its `logs.log`."""
+    handlers: List[logging.Handler] = [logging.StreamHandler()]
+    if work_dir is not None:
+        os.makedirs(work_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(work_dir, "logs.log")))
+    logging.basicConfig(
+        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
+        handlers=handlers, level=level, force=True)

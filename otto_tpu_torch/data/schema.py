@@ -1,8 +1,9 @@
 """Event and label tables on the host.
 
 Counterpart of otto_tpu/data/schema.py: structure-of-arrays numpy tables
-in the OTTO layout `[session i32, aid i32, ts i32 (seconds), type i8]`.
-Parquet input and output stay with otto_tpu.
+in the OTTO layout `[session i32, aid i32, ts i32 (seconds), type i8]`,
+with parquet files of that layout as the exchange format. pyarrow is
+imported only by the parquet methods: nothing else of the port needs it.
 """
 from __future__ import annotations
 
@@ -42,6 +43,15 @@ class Events:
         return Events(*(np.concatenate([getattr(self, c), getattr(other, c)])
                         for c in ("session", "aid", "ts", "type")))
 
+    def to_parquet(self, path: str) -> None:
+        _write_parquet(path, {"session": (self.session, "int32"), "aid": (self.aid, "int32"),
+                              "ts": (self.ts, "int32"), "type": (self.type, "int8")})
+
+    @staticmethod
+    def from_parquet(path: str) -> "Events":
+        t = _read_parquet(path)
+        return Events(t["session"], t["aid"], t["ts"], t["type"])
+
 
 @dataclasses.dataclass
 class Labels:
@@ -62,3 +72,28 @@ class Labels:
     def for_type(self, type_id: int) -> "Labels":
         m = self.type == type_id
         return Labels(self.session[m], self.type[m], self.aid[m])
+
+    def to_parquet(self, path: str) -> None:
+        _write_parquet(path, {"session": (self.session, "int32"), "type": (self.type, "int8"),
+                              "aid": (self.aid, "int32")})
+
+    @staticmethod
+    def from_parquet(path: str) -> "Labels":
+        t = _read_parquet(path)
+        return Labels(t["session"], t["type"], t["aid"])
+
+
+def _write_parquet(path: str, columns) -> None:
+    """columns: name -> (array, arrow type name), in file order."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    pq.write_table(pa.table({name: pa.array(a, getattr(pa, typ)())
+                             for name, (a, typ) in columns.items()}), path)
+
+
+def _read_parquet(path: str):
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(path)
+    return {name: t[name].to_numpy() for name in t.column_names}

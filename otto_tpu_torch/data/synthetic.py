@@ -1,21 +1,25 @@
-"""Synthetic OTTO-like sessions, generated on a device.
+"""Synthetic OTTO-like sessions.
 
 Counterpart of otto_tpu/data/synthetic.py: the same schema, knobs and
 latent structure (zipf item popularity, latent item categories with
 within-category steps, revisits of earlier session items, a click ->
-cart -> order funnel), drawn with a `torch.Generator` on the given
-device. The random stream is torch's, so the events differ from
-otto_tpu's `generate` draw for draw.
+cart -> order funnel), by two generators:
 
-The session walk is a loop over the L time steps with all S sessions as
-one vector; the padded [S, L] grids are flattened to the ragged event
-table on the device, and only the flat columns reach the host.
+- `generate`: otto_tpu's numpy generator, draw for draw (numpy's PCG64
+  stream), so a synthetic run of the port sees otto_tpu's events;
+- `generate_device`: the same walk drawn with a `torch.Generator` on a
+  device. Its random stream is torch's, so its events differ from
+  `generate`'s draw for draw. The session walk is a loop over the L time
+  steps with all S sessions as one vector; the padded [S, L] grids are
+  flattened to the ragged event table on the device, and only the flat
+  columns reach the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from otto_tpu_torch.data.schema import Events
@@ -39,7 +43,61 @@ class SyntheticSpec:
     seed: int = 0
 
 
-def generate(spec: SyntheticSpec, device) -> Events:
+def _zipf_draw(rng: np.random.Generator, spec: SyntheticSpec, size) -> np.ndarray:
+    """Item ids with zipf popularity; id == popularity rank."""
+    u = rng.random(size)
+    # inverse CDF of a truncated zipf by a power transform
+    ranks = (spec.n_aids ** (u ** spec.zipf_a)).astype(np.int64) - 1
+    return np.clip(ranks, 0, spec.n_aids - 1).astype(np.int32)
+
+
+def generate(spec: SyntheticSpec) -> Events:
+    """(session, ts)-sorted events of `spec.n_sessions` sessions from
+    numpy's generator seeded with spec.seed, bit-equal to otto_tpu's
+    `generate`; session ids are 0..n_sessions-1, item ids popularity
+    ranks."""
+    rng = np.random.default_rng(spec.seed)
+    S, L = spec.n_sessions, spec.max_len
+    # latent categories: a fixed permutation of the item space
+    perm = rng.permutation(spec.n_aids).astype(np.int32)
+    perm_inv = np.argsort(perm).astype(np.int32)
+    lengths = np.clip(rng.lognormal(np.log(spec.mean_len), 0.7, S).astype(np.int32), 2, L)
+
+    aid = np.zeros((S, L), np.int32)
+    typ = np.zeros((S, L), np.int8)
+    carted = np.full((S, 4), -1, np.int32)   # ring buffer of carted aids
+    n_carted = np.zeros(S, np.int32)
+    rows = np.arange(S)
+    aid[:, 0] = _zipf_draw(rng, spec, S)
+    for t in range(1, L):
+        u = rng.random(S)
+        slot = perm[aid[:, t - 1]] // spec.cat_size * spec.cat_size + rng.integers(
+            0, spec.cat_size, S)
+        nbr = perm_inv[np.clip(slot, 0, spec.n_aids - 1)]
+        prev = aid[rows, rng.integers(0, t, S)]
+        fresh = _zipf_draw(rng, spec, S)
+        aid[:, t] = np.where(u < spec.p_revisit, prev,
+                             np.where(u < spec.p_revisit + spec.p_neighbor, nbr, fresh))
+        is_cart = rng.random(S) < spec.p_cart
+        is_order = (rng.random(S) < spec.p_order_after_cart) & (n_carted > 0) & ~is_cart
+        typ[:, t] = np.where(is_cart, 1, np.where(is_order, 2, 0)).astype(np.int8)
+        # an order re-targets a previously carted item
+        pick = rng.integers(0, 4, S) % np.maximum(n_carted, 1)
+        aid[:, t] = np.where(is_order, carted[rows, pick], aid[:, t])
+        ring_pos = n_carted % 4
+        carted[is_cart, ring_pos[is_cart]] = aid[is_cart, t]
+        n_carted = n_carted + is_cart.astype(np.int32)
+
+    # session start uniform over the span, exponential gaps (median ~1 min)
+    start = rng.integers(0, spec.span_days * DAY, S)[:, None]
+    gaps = rng.exponential(90.0, (S, L)).astype(np.int64) + 1
+    ts = (start + np.cumsum(gaps, axis=1)).astype(np.int32)
+    mask = np.arange(L)[None, :] < lengths[:, None]
+    session = np.broadcast_to(np.arange(S, dtype=np.int32)[:, None], (S, L))
+    return Events(session[mask], aid[mask], ts[mask], typ[mask]).sort_by_session_ts()
+
+
+def generate_device(spec: SyntheticSpec, device) -> Events:
     """(session, ts)-sorted events of `spec.n_sessions` sessions, drawn on
     `device` (named by the caller: there is no default); session ids are
     0..n_sessions-1, item ids are popularity ranks."""

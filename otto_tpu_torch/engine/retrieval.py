@@ -246,6 +246,11 @@ class RetrievedBatch:
             return x
         return x[torch.as_tensor(self._keep, device=x.device)]
 
+    def device_tensors(self) -> List[torch.Tensor]:
+        """The batch's tensors on its device (features, candidates,
+        ts_order)."""
+        return [self.feats, self._cand, self._ts_order]
+
     def cand_device(self) -> torch.Tensor:
         """[n_keep, C] int32 candidates on the device."""
         return self._filtered(self._cand)
@@ -286,11 +291,11 @@ class RetrievedBatch:
                 _label_keep_bits_program(cand, self._session_device(), *label_keys,
                                          generator, int(neg_ratio), int(neg_cap)))
 
-    def unpack_meta(self, meta: torch.Tensor) -> np.ndarray:
-        """Pull a pack_meta() result: caches the keep-filtered candidates
-        as this batch's `cand` and returns the [n_keep, C] uint16 source-
-        flag bits (bit k = SOURCE_FLAGS[k])."""
-        m = meta.cpu().numpy()
+    def unpack_meta(self, meta) -> np.ndarray:
+        """Pull a pack_meta() result (the tensor, or its HostCopy): caches
+        the keep-filtered candidates as this batch's `cand` and returns the
+        [n_keep, C] uint16 source-flag bits (bit k = SOURCE_FLAGS[k])."""
+        m = meta.numpy() if isinstance(meta, HostCopy) else meta.cpu().numpy()
         self._host["cand"] = ((m >> len(SOURCE_FLAGS)) - 1).astype(np.int32)
         return (m & ((1 << len(SOURCE_FLAGS)) - 1)).astype(np.uint16)
 
@@ -307,9 +312,37 @@ class RetrievedBatch:
         return self._rows_f16(si, ci).cpu().numpy().astype(np.float32)
 
     def feats_rows_async(self, si: np.ndarray, ci: np.ndarray):
-        """(rows, n): the [n, F] float16 rows of feats_rows, pulled (the
-        plain pull: on one local card the copy has nothing to overlap)."""
-        return self._rows_f16(si, ci).cpu().numpy(), len(si)
+        """(handle, n): the [n, F] float16 rows of feats_rows, gathered on
+        the current stream and copied to the host asynchronously (a
+        HostCopy; np.asarray(handle) waits for it)."""
+        return HostCopy(self._rows_f16(si, ci)), len(si)
+
+
+class HostCopy:
+    """A device -> host copy in flight. For a CUDA tensor: a non_blocking
+    copy into pinned host memory, issued on the current stream, and an
+    event recorded after it; `numpy()` (and np.asarray) waits for that
+    event only, not for the rest of the device's queue. A CPU tensor is
+    its own host copy."""
+
+    def __init__(self, x: torch.Tensor):
+        self.event = None
+        if x.device.type == "cuda":
+            self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self._host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(x.device))
+        else:
+            self._host = x
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self._host.numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
 
 
 def _null_to(x, ident, repl):
@@ -800,6 +833,19 @@ class SessionLookup:
             emb=np.asarray(emb, np.float32)[order],
         )
 
+    @staticmethod
+    def from_dicts(cluster: Dict[int, int], emb: Dict[int, np.ndarray],
+                   dim: int) -> "SessionLookup":
+        """From {session: cluster} and {session: embedding} (a session in
+        only one of them gets cluster 0 / a zero embedding)."""
+        ids = np.array(sorted(set(cluster) | set(emb)), np.int64)
+        cl = np.array([cluster.get(int(s), 0) for s in ids], np.int32)
+        em = np.stack([
+            np.asarray(emb.get(int(s), np.zeros(dim, np.float32)), np.float32)
+            for s in ids
+        ]) if len(ids) else np.zeros((0, dim), np.float32)
+        return SessionLookup(ids=ids, cluster=cl, emb=em)
+
     def lookup(self, sessions: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Vectorized join; misses get cluster 0 / zero embedding."""
         if len(self.ids) == 0:
@@ -822,6 +868,18 @@ class Retriever:
     ctx: RetrievalContext
     cfg: RetrievalConfig
     sessions: SessionLookup              # session -> (cl50, embedding)
+
+    def run(
+        self,
+        test: Events,
+        batch_sessions: int = 256,
+        keep_aids: Optional[int] = None,
+        max_candidates: Optional[int] = None,
+    ) -> List[RetrievedBatch]:
+        """Every batch of iter_run in one list: every batch's [S, C, F]
+        features stay on the device at once (~213 KB a session at C = 512),
+        as the batch runner keeps them."""
+        return list(self.iter_run(test, batch_sessions, keep_aids, max_candidates))
 
     def iter_run(
         self,
@@ -869,3 +927,28 @@ class Retriever:
                     ts_order=ts_order,
                     keep=keep_idx,
                 )
+
+
+def join_labels(batches: List[RetrievedBatch], labels) -> List[np.ndarray]:
+    """Per batch, [S, C, 3] float32 0/1 targets: candidate c of session s
+    is a type-t label (the label join of the batch runner, on the host, on
+    the 45-bit keys of label_keys_device)."""
+    by_type = {}
+    for tid in (0, 1, 2):
+        lab = labels.for_type(tid)
+        by_type[tid] = np.sort(lab.session.astype(np.int64) << AID_BITS
+                               | lab.aid.astype(np.int64))
+    out = []
+    for b in batches:
+        cand = b.cand
+        tgt = np.zeros(cand.shape + (3,), np.float32)
+        key = (b.session.astype(np.int64)[:, None] << AID_BITS) | np.maximum(
+            cand, 0).astype(np.int64)
+        for tid, srt in by_type.items():
+            if len(srt) == 0:
+                continue
+            pos = np.searchsorted(srt, key)
+            hit = (pos < len(srt)) & (srt[np.minimum(pos, len(srt) - 1)] == key)
+            tgt[:, :, tid] = (hit & (cand >= 0)).astype(np.float32)
+        out.append(tgt)
+    return out

@@ -1,28 +1,115 @@
-"""Per-source retrieval evaluation, streamed on the device.
+"""Per-source retrieval evaluation (C14).
 
-Counterpart of otto_tpu/eval/per_source.py's `DeviceSourceEval` and
-`format_report`: the recall ceiling of every candidate source (src_any,
-src_self, the five co-visitation sources, the two w2vec sources, cluster
-popularity) and of each "source & not self", at 20, 100, 200 and all
-candidate columns, plus per-source candidate-count statistics. Each batch
-folds its packed meta (cand + source flags) and its label bits into
-integer hit counters and count histograms on the device; `finalize`
-pulls a few KB once. Integer counters make the result exact and the same
-on every device.
+Counterpart of otto_tpu/eval/per_source.py: the recall ceiling of every
+candidate source (src_any, src_self, the five co-visitation sources, the
+two w2vec sources, cluster popularity) and of each "source & not self",
+at 20, 100, 200 and all candidate columns, plus per-source
+candidate-count statistics. Two paths give the same report:
+
+- the host path, `eval_retrieved_by_source` over batches kept whole (the
+  batch runner): each batch's source flags are packed on its device into
+  one uint16 per candidate (`SrcFlagBatch.from_batch`), so only [S, C]
+  uint16 crosses to the host, never the [S, C, F] features;
+- the streamed path, `DeviceSourceEval`: each batch folds its packed meta
+  (cand + source flags) and its label bits into integer hit counters and
+  count histograms on the device; `finalize` pulls a few KB once.
+  Integer counters make the result exact and the same on every device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from otto_tpu_torch.config import TYPE2ID, TYPE_WEIGHTS, TYPES
 from otto_tpu_torch.data.schema import Labels
-from otto_tpu_torch.engine.retrieval import SOURCE_FLAGS
+from otto_tpu_torch.engine.retrieval import FEATURE_INDEX, SOURCE_FLAGS, RetrievedBatch
+from otto_tpu_torch.eval.recall import recall_at_k
 
 # bit order of the packed meta's flags
 SOURCES = SOURCE_FLAGS
+
+
+class SrcFlagBatch:
+    """What the per-source report reads of a retrieval batch: its sessions,
+    its candidates [S, C] and the source flags packed into one uint16 per
+    candidate (bit k = SOURCES[k]), all on the host."""
+
+    __slots__ = ("session", "cand", "flags")
+
+    def __init__(self, session, cand, flags):
+        # flags: [S, C] uint16 bitmask (packed) or [S, C, n_src] bool
+        self.session, self.cand, self.flags = session, cand, flags
+
+    def src(self, name: str) -> np.ndarray:
+        k = SOURCES.index(name)
+        if self.flags.ndim == 2:
+            return (self.flags >> k) & 1 > 0
+        return self.flags[:, :, k]
+
+    @classmethod
+    def from_batch(cls, b: RetrievedBatch) -> "SrcFlagBatch":
+        """Pack b's flags on its device; pull the [S, C] uint16 and b.cand."""
+        return cls(b.session, b.cand, _pack_flags_program(b.feats).cpu().numpy())
+
+
+def _pack_flags_program(feats: torch.Tensor) -> torch.Tensor:
+    """[S, C, F] features -> [S, C] uint16 source-flag bits, on feats'
+    device."""
+    idx = torch.tensor([FEATURE_INDEX[s] for s in SOURCES], device=feats.device)
+    bits = (feats[:, :, idx] > 0).to(torch.int32)
+    w = 1 << torch.arange(len(SOURCES), dtype=torch.int32, device=feats.device)
+    return (bits * w).sum(dim=-1, dtype=torch.int32).to(torch.uint16)
+
+
+def _masked_cands(batches, mask_fn):
+    sess, cands = [], []
+    for b in batches:
+        sess.append(b.session)
+        cands.append(np.where(mask_fn(b), b.cand, -1))
+    return np.concatenate(sess), np.concatenate(cands)
+
+
+def _src(b: SrcFlagBatch, name: str) -> np.ndarray:
+    return b.src(name)
+
+
+def eval_retrieved_by_source(
+    batches: List,
+    labels: Labels,
+    cutoffs: Sequence[int] = (20, 100, 200),
+    include_not_self: bool = True,
+) -> Dict[str, Dict]:
+    """batches: RetrievedBatch or SrcFlagBatch (a RetrievedBatch is packed
+    on its device first) -> {source: {type: {topK: recall}}} plus the
+    candidates-per-session stats of each source under '_counts'."""
+    batches = [b if isinstance(b, SrcFlagBatch) else SrcFlagBatch.from_batch(b)
+               for b in batches]
+    report: Dict[str, Dict] = {}
+    filters = {s: (lambda b, s=s: _src(b, s)) for s in SOURCES}
+    if include_not_self:
+        for s in SOURCES:
+            if s in ("src_any", "src_self"):
+                continue
+            filters[f"{s} & not self"] = lambda b, s=s: _src(b, s) & ~_src(b, "src_self")
+    for name, mask_fn in filters.items():
+        sess, cands = _masked_cands(batches, mask_fn)
+        report[name] = recall_at_k(sess, cands, labels, cutoffs)
+
+    counts: Dict[str, Dict[str, float]] = {}
+    for s in SOURCES:
+        per_session = np.concatenate([(_src(b, s) & (b.cand >= 0)).sum(axis=1)
+                                      for b in batches])
+        counts[s] = {
+            "mean": float(per_session.mean()),
+            "min": int(per_session.min()),
+            "p50": float(np.percentile(per_session, 50)),
+            "p95": float(np.percentile(per_session, 95)),
+            "max": int(per_session.max()),
+        }
+    report["_counts"] = counts
+    return report
 
 
 class DeviceSourceEval:

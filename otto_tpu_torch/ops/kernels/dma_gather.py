@@ -64,5 +64,6 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         )
     _build.check(err, "gather_rows_hbm")
     global launches
-    launches += 1
+    with _build.count_lock:   # the pipelined runners launch from two threads
+        launches += 1
     return out

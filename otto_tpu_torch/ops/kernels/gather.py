@@ -68,5 +68,6 @@ def gather_rows(
         )
     _build.check(err, "gather_rows")
     global launches
-    launches += 1
+    with _build.count_lock:   # the pipelined runners launch from two threads
+        launches += 1
     return out

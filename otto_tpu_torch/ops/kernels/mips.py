@@ -182,5 +182,6 @@ def mips_topk(
         )
     _build.check(err, "mips_topk")
     global launches
-    launches += 1
+    with _build.count_lock:   # the pipelined runners launch from two threads
+        launches += 1
     return out_s, out_i

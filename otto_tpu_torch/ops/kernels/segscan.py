@@ -104,5 +104,6 @@ def segmented_scan(
         )
     _build.check(err, "segmented_scan")
     global launches
-    launches += 1
+    with _build.count_lock:   # the pipelined runners launch from two threads
+        launches += 1
     return out

@@ -1,12 +1,14 @@
-"""The ported functions of the pipeline.
+"""The ported pipeline.
 
-Counterpart of otto_tpu/pipeline/runner.py's streaming runner
-(`Pipeline.run_streaming`) and the stages it runs:
+Counterpart of otto_tpu/pipeline/runner.py. The stages are module
+functions:
 
 - `build_retriever`: co-visitation counting (C7), word2vec training
   (C8), the item kNN tables (C9), the session embeddings (C10), the
   session clusters (C11) and cluster popularity (C12) on the device, and
-  the Retriever that serves from them;
+  the Retriever that serves from them; with a cache dir, each artifact is
+  read from there when present and written there when built, in
+  otto_tpu's formats, so either package reads the other's work dir;
 - `pass_a`: retrieve the test sessions with labels: the label join, the
   per-source retrieval eval (C14) and negative downsampling (C15), whose
   rows are persisted per target before any training;
@@ -17,7 +19,11 @@ Counterpart of otto_tpu/pipeline/runner.py's streaming runner
 - `run_streaming`: all of them in that order, with otto_tpu's work-dir
   guard (`check_work_dir`) and crash-resume fast path.
 
-Plain loops: the batches run one after the other on the device's stream.
+`pass_a` and `score_pass` overlap each batch's consumer work with the
+next batch's retrieval (`pipelined_consume`). `Pipeline` is otto_tpu's
+class over a work dir: its streaming runner calls `run_streaming`, and
+its batch runner (`run`) keeps every retrieval batch on the device, with
+the host-side C14 eval. `run_synthetic` runs it on generated sessions.
 """
 from __future__ import annotations
 
@@ -25,8 +31,11 @@ import dataclasses
 import json
 import logging
 import os
+import pickle
+import queue
+import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,27 +57,38 @@ from otto_tpu_torch.config import (
 )
 from otto_tpu_torch.data.batching import pack_sessions
 from otto_tpu_torch.data.schema import Events, Labels
+from otto_tpu_torch.data.split import split_events
+from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+from otto_tpu_torch.device import resolve
 from otto_tpu_torch.engine import rank as rank_engine
-from otto_tpu_torch.engine.covis import CoVisCounter
+from otto_tpu_torch.engine.covis import CoVisCounter, CoVisTables
 from otto_tpu_torch.engine.popularity import compute_popularity
 from otto_tpu_torch.engine.retrieval import (
     FEATURE_NAMES,
+    HostCopy,
     RetrievalContext,
     Retriever,
     SessionLookup,
+    join_labels,
     label_keys_device,
 )
 from otto_tpu_torch.engine.session_embed import (
+    KnnTables,
     build_knn_tables,
     compute_session_embeddings,
 )
 from otto_tpu_torch.eval.diagnostics import w2vec_covis_overlap, write_overlap_report
-from otto_tpu_torch.eval.per_source import DeviceSourceEval, format_report
-from otto_tpu_torch.eval.recall import evaluate_topk
+from otto_tpu_torch.eval.per_source import (
+    DeviceSourceEval,
+    eval_retrieved_by_source,
+    format_report,
+)
+from otto_tpu_torch.eval.recall import evaluate_submission_file, evaluate_topk, recall_at_k
 from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
 from otto_tpu_torch.ops.kmeans import kmeans_fit
+from otto_tpu_torch.utils.reports import report_name
 
 log = logging.getLogger(__name__)
 
@@ -77,16 +97,20 @@ log = logging.getLogger(__name__)
 class BuildReport:
     """What `build_retriever` measured: seconds per stage (ended by a device
     sync; "covis count" is both updates, "covis tables" the global merge,
-    prune and top-N tables, "w2vec {name}" a model's training), on CUDA
-    the peak bytes allocated within each stage, the co-visitation
+    prune and top-N tables, "w2vec {name}" a model's training, "load
+    {file}" / "write {file}" an artifact read from / written to the
+    cache), on CUDA the peak bytes allocated within each stage, the co-visitation
     counter's work (`covis`: seconds of host dedup and packing,
     microbatches, grid lanes, emitted pairs, ladder merges, rows spilled
     and pruned, the host merge that ran, unique pairs per type before /
     after the global prune, rows with a neighbour per table), what each
     trained word2vec model ran (`w2vec`), the w2vec x co-visitation
     overlap per model, the k-means fit (inertia, n_iter, n_points,
-    n_nonempty clusters) and the popularity tables' fill (`popularity`:
-    candidates per cluster, aids ranked)."""
+    n_nonempty clusters), the popularity tables' fill (`popularity`:
+    candidates per cluster, aids ranked) and the artifact cache (`cache`:
+    the artifacts read and written, the seconds spent writing, the bytes
+    of every artifact in the cache dir; empty without one). A stage read
+    from the cache has no counter, training or fit entry."""
 
     seconds: Dict[str, float]
     peak_bytes: Dict[str, int]
@@ -95,6 +119,13 @@ class BuildReport:
     overlap: Dict[str, Dict[str, float]]
     kmeans: Dict[str, float]
     popularity: Dict[str, object]
+    cache: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+
+# the artifact cache of build_retriever, in otto_tpu's names and formats
+# (model names fill the {} of the per-model files)
+CACHE_FILES = ("covis.pkl", "w2v-{}.npz", "knn-{}.npz", "session_emb.npz",
+               "clusters.npz", "kmeans-inertia.csv")
 
 
 def _covis_report(counter: CoVisCounter, tables) -> Dict[str, object]:
@@ -146,6 +177,8 @@ def build_retriever(
     retrieval: RetrievalConfig = RetrievalConfig(),
     kmeans: KMeansConfig = KMeansConfig(),
     report_dir: Optional[str] = None,
+    cache_dir: Optional[str] = None,
+    use_cache: bool = True,
 ) -> Tuple[Retriever, BuildReport]:
     """Stages C7-C12 and the retrieval context, on `device`, as otto_tpu's
     Pipeline.build_retriever runs them:
@@ -164,8 +197,17 @@ def build_retriever(
       C12 `compute_popularity` of train + test over those clusters and
           over one cluster.
     Models go by `w2vec`'s names, in its order: the first is the main model
-    (the item embeddings and knn_all), the second gives knn_1_2. Writes no
-    artifact cache. -> (Retriever, BuildReport)."""
+    (the item embeddings and knn_all), the second gives knn_1_2.
+
+    With `cache_dir`, C7-C11 each read their artifact from there when it is
+    present and use_cache, else build it and write it there: `covis.pkl`
+    (a dict of tuples of numpy arrays), `w2v-{name}.npz` (not for a given
+    model), `knn-{name}.npz`, `session_emb.npz`, `clusters.npz` (and a row
+    of `kmeans-inertia.csv`), in otto_tpu's formats. A device-sampled
+    word2vec training then keeps its epoch checkpoint in
+    `w2v-{name}.ckpt` (resumed from when present), removed once the .npz
+    is written. Popularity is recomputed every time, as in otto_tpu.
+    -> (Retriever, BuildReport)."""
     dev = torch.device(device)
     names = list(w2vec)
     models = dict(models or {})
@@ -174,6 +216,8 @@ def build_retriever(
     unknown = sorted(set(models) - set(names))
     if unknown:
         raise ValueError(f"build_retriever: models {unknown} are not in w2vec {names}")
+    loaded: List[str] = []
+    written: List[str] = []
     seconds: Dict[str, float] = {}
     peak: Dict[str, int] = {}
     if dev.type == "cuda":
@@ -190,19 +234,47 @@ def build_retriever(
         seconds[stage] = now - t
         t = now
 
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def cached(name: str) -> Optional[str]:
+        """The artifact's path when the cache holds it (and is used)."""
+        path = os.path.join(cache_dir, name) if cache_dir is not None else None
+        if use_cache and path is not None and os.path.exists(path):
+            loaded.append(name)
+            return path
+        return None
+
+    def save(name: str, write: Callable[[str], None]) -> None:
+        """write(path) the artifact into the cache, timed as "write {name}"."""
+        if cache_dir is not None:
+            write(os.path.join(cache_dir, name))
+            written.append(name)
+            lap(f"write {name}")
+
     # ---- C7 co-visitation --------------------------------------------------
-    counter = CoVisCounter(covis, dev)
-    try:
-        counter.update(train)
-        counter.update(test)
-        lap("covis count")
-        tables = counter.retrieval_tables(n_aids)
-    finally:
-        counter.close()
+    path = cached("covis.pkl")
+    if path:
+        with open(path, "rb") as fh:
+            stored = pickle.load(fh)
+        tables = {name: CoVisTables(*(put(a) for a in stored[name])) for name in covis.names}
+        covis_rep = {"cached": "covis.pkl"}
+        lap("load covis.pkl")
+    else:
+        counter = CoVisCounter(covis, dev)
+        try:
+            counter.update(train)
+            counter.update(test)
+            lap("covis count")
+            tables = counter.retrieval_tables(n_aids)
+        finally:
+            counter.close()
+        covis_rep = _covis_report(counter, tables)
+        log.info("covis %s", covis_rep)
+        lap("covis tables")
+        save("covis.pkl", lambda p: _pickle(p, {k: tuple(x.cpu().numpy() for x in v)
+                                                for k, v in tables.items()}))
     covis_tables = tuple(tables[name] for name in covis.names)
-    covis_rep = _covis_report(counter, tables)
-    log.info("covis %s", covis_rep)
-    lap("covis tables")
 
     # ---- C8 word2vec -------------------------------------------------------
     full = train.concat(test)
@@ -211,17 +283,43 @@ def build_retriever(
         if name in models:
             continue
         wcfg = w2vec[name]
-        trainer = train_word2vec_device if wcfg.sampler == "device" else train_word2vec
-        models[name] = trainer(full, wcfg, n_aids, device=dev)
+        mfile = f"w2v-{name}.npz"
+        path = cached(mfile)
+        if path:
+            models[name] = Word2Vec.load(path, wcfg)
+            lap(f"load {mfile}")
+            continue
+        ckpt = (os.path.join(cache_dir, f"w2v-{name}.ckpt")
+                if cache_dir is not None and use_cache and wcfg.sampler == "device" else None)
+        if wcfg.sampler == "device":
+            models[name] = train_word2vec_device(full, wcfg, n_aids, device=dev,
+                                                 checkpoint_path=ckpt)
+        else:
+            models[name] = train_word2vec(full, wcfg, n_aids, device=dev)
         trained[name] = models[name].report
         log.info("w2vec %s: %s", name, trained[name])
         lap(f"w2vec {name}")
+        save(mfile, models[name].save)
+        # the checkpoint goes only once the .npz is written: no moment
+        # without either
+        if ckpt and os.path.exists(ckpt):
+            os.remove(ckpt)
 
     # ---- C9 kNN -----------------------------------------------------------
     knns = {}
     for name in names:
+        kfile = f"knn-{name}.npz"
+        path = cached(kfile)
+        if path:
+            z = np.load(path)
+            knns[name] = KnnTables(put(z["neighbor"]), put(z["dist"]))
+            lap(f"load {kfile}")
+            continue
         knns[name] = build_knn_tables(models[name], n_aids, dev)
         lap(f"knn {name}")
+        kt = knns[name]
+        save(kfile, lambda p: np.savez_compressed(p, neighbor=kt.neighbor.cpu().numpy(),
+                                                  dist=kt.dist.cpu().numpy()))
     co_nbr = tables["click_to_click"].neighbor.cpu().numpy()
     overlap = {}
     for name in names:
@@ -234,20 +332,41 @@ def build_retriever(
     lap("overlap")
 
     # ---- C10 session embeddings --------------------------------------------
-    aid_emb = torch.from_numpy(models[names[0]].embedding_by_aid(n_aids)).to(dev)
-    sess_ids, sess_emb = compute_session_embeddings(pack_sessions(full), aid_emb)
-    lap("session_emb")
+    aid_emb = put(models[names[0]].embedding_by_aid(n_aids))
+    path = cached("session_emb.npz")
+    if path:
+        z = np.load(path)
+        sess_ids, sess_emb = z["session"], put(z["emb"])
+        lap("load session_emb.npz")
+    else:
+        sess_ids, sess_emb = compute_session_embeddings(pack_sessions(full), aid_emb)
+        lap("session_emb")
+        # uncompressed: the [n_sessions, D] grid is large
+        save("session_emb.npz",
+             lambda p: np.savez(p, session=sess_ids, emb=sess_emb.cpu().numpy()))
 
     # ---- C11 kmeans --------------------------------------------------------
     n_clusters = kmeans.n_clusters_to_find[0]
-    _, labels, inertia, n_iter = kmeans_fit(
-        sess_emb, n_clusters, max_iter=kmeans.max_iter, tol=kmeans.tol,
-        seed=kmeans.seed)
-    labels = labels.cpu().numpy()
-    km = {"inertia": inertia, "n_iter": n_iter, "n_points": len(labels),
-          "n_nonempty": int(np.unique(labels).size)}
-    log.info("kmeans %s", km)
-    lap("kmeans")
+    km = {}
+    path = cached("clusters.npz")
+    if path:
+        labels = np.load(path)["cluster"]
+        lap("load clusters.npz")
+    else:
+        _, labels, inertia, n_iter = kmeans_fit(
+            sess_emb, n_clusters, max_iter=kmeans.max_iter, tol=kmeans.tol,
+            seed=kmeans.seed)
+        labels = labels.cpu().numpy()
+        km = {"inertia": inertia, "n_iter": n_iter, "n_points": len(labels),
+              "n_nonempty": int(np.unique(labels).size)}
+        log.info("kmeans %s", km)
+        lap("kmeans")
+        save("clusters.npz", lambda p: np.savez_compressed(p, session=sess_ids, cluster=labels))
+        if cache_dir is not None:
+            with open(os.path.join(cache_dir, "kmeans-inertia.csv"), "a") as fh:
+                if fh.tell() == 0:
+                    fh.write("n_clusters,inertia,n_iter,n_points\n")
+                fh.write(f"{n_clusters},{inertia:.3f},{n_iter},{len(labels)}\n")
 
     # ---- C12 popularity ----------------------------------------------------
     pop50 = compute_popularity(
@@ -273,7 +392,21 @@ def build_retriever(
         sessions=SessionLookup.build(sess_ids, labels, sess_emb.cpu().numpy()),
     )
     lap("context")
-    return retriever, BuildReport(seconds, peak, covis_rep, trained, overlap, km, pop_rep)
+    cache = {}
+    if cache_dir is not None:
+        files = [os.path.join(cache_dir, f.format(n))
+                 for f in CACHE_FILES for n in (names if "{}" in f else [None])]
+        cache = {"loaded": loaded, "written": written,
+                 "write_seconds": sum(seconds[f"write {n}"] for n in written),
+                 "bytes": sum(os.path.getsize(f) for f in files if os.path.exists(f))}
+        log.info("artifact cache %s: %s", cache_dir, cache)
+    return retriever, BuildReport(seconds, peak, covis_rep, trained, overlap, km, pop_rep,
+                                  cache)
+
+
+def _pickle(path: str, obj) -> None:
+    with open(path, "wb") as fh:
+        pickle.dump(obj, fh)
 
 
 def check_serving_features(tname: str, ranker: GBDTRanker) -> None:
@@ -287,20 +420,26 @@ def check_serving_features(tname: str, ranker: GBDTRanker) -> None:
 
 def score_pass(
     retriever: Retriever, test: Events, rankers: Dict[str, object],
-    batch_sessions: int,
+    batch_sessions: int, overlap: bool = True,
 ) -> Dict[str, tuple]:
     """One scoring pass: retrieve, score all three targets per batch on the
-    device, pull one stacked [3, S, 20] aid array per batch.
-    -> {type name: (sessions [N] sorted, top-20 aids [N, 20])}."""
+    device, pull one stacked [3, S, 20] aid array per batch; with
+    `overlap`, a batch is scored and pulled while the next one retrieves
+    (pipelined_consume). -> {type name: (sessions [N] sorted, top-20 aids
+    [N, 20])}."""
     for tname in TYPES:
         check_serving_features(tname, rankers[tname])
     pieces = {t: ([], []) for t in TYPES}
     ranker_list = [rankers[t] for t in TYPES]
-    for b in retriever.iter_run(test, batch_sessions=batch_sessions):
+
+    def consume(b, meta):
         multi = rank_engine.score_topk_multi(b, ranker_list)
         for i, tname in enumerate(TYPES):
             pieces[tname][0].append(b.session)
             pieces[tname][1].append(multi[i])
+
+    pipelined_consume(retriever.iter_run(test, batch_sessions=batch_sessions), consume,
+                      overlap=overlap)
     preds = {}
     for tname in TYPES:
         s = np.concatenate(pieces[tname][0])
@@ -310,31 +449,117 @@ def score_pass(
     return preds
 
 
+def pipelined_consume(batch_iter, consume, pack=None, overlap: bool = True
+                      ) -> Dict[str, float]:
+    """Producer / consumer over retrieval batches (otto_tpu's
+    `_pipelined_consume`). The calling thread retrieves each batch and runs
+    `pack(b)` (its device programs, and the start of their host copies);
+    `consume(b, pack(b))` does the batch's host work.
+
+    With `overlap`, consume runs on a worker thread, one batch behind,
+    through a queue of depth 1 (at most ~3 batches' features alive), so a
+    batch's host work overlaps the next batch's retrieval. On CUDA the
+    worker sets the batch's device and runs consume on a stream of its own:
+    that stream first waits for an event the producer recorded after
+    pack(b), and the batch's device tensors are marked as used there
+    (record_stream), so the consumer's device work and pulls never wait for
+    the producer's later batches, and no tensor is reused under it. After
+    a consumer error the worker drains the queue (the producer never
+    blocks) and the error is raised here. Without `overlap`, the same
+    calls run in turn on this thread.
+
+    -> seconds: "produce" (retrieval and pack, on this thread), "consume"
+    (the consumer's own time), "wait" (this thread blocked on the queue
+    or on the worker's last batches)."""
+    seconds = {"produce": 0.0, "consume": 0.0, "wait": 0.0}
+    if not overlap:
+        t = time.perf_counter()
+        for b in batch_iter:
+            meta = pack(b) if pack is not None else None
+            t1 = time.perf_counter()
+            consume(b, meta)
+            t2 = time.perf_counter()
+            seconds["produce"] += t1 - t
+            seconds["consume"] += t2 - t1
+            t = time.perf_counter()
+        return seconds
+
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+    errs: list = []
+
+    def drain():
+        stream = None
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if errs:
+                continue   # discard: the producer's put() must never block
+            b, meta, ready = item
+            t = time.perf_counter()
+            try:
+                if ready is None:
+                    consume(b, meta)
+                else:
+                    dev = b.feats.device
+                    if stream is None:
+                        torch.cuda.set_device(dev)
+                        stream = torch.cuda.Stream(dev)
+                    stream.wait_event(ready)
+                    for x in b.device_tensors():
+                        x.record_stream(stream)
+                    with torch.cuda.stream(stream):
+                        consume(b, meta)
+            except BaseException as e:   # re-raised in the producer
+                errs.append(e)
+            seconds["consume"] += time.perf_counter() - t
+
+    worker = threading.Thread(target=drain, daemon=True, name="pipeline-consume")
+    worker.start()
+    try:
+        t = time.perf_counter()
+        for b in batch_iter:
+            if errs:
+                break
+            meta = pack(b) if pack is not None else None
+            ready = None
+            if b.feats.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(b.feats.device))
+            t1 = time.perf_counter()
+            q.put((b, meta, ready))
+            t2 = time.perf_counter()
+            seconds["produce"] += t1 - t
+            seconds["wait"] += t2 - t1
+            t = time.perf_counter()
+    finally:
+        t = time.perf_counter()
+        q.put(None)
+        worker.join()
+        seconds["wait"] += time.perf_counter() - t
+    if errs:
+        raise errs[0]
+    return seconds
+
+
 def submit_and_eval(
     work_dir: str, preds: Dict[str, tuple], labels: Optional[Labels]
 ) -> Optional[Dict[str, float]]:
     """Write `submission.csv` into work_dir; with labels, evaluate recall@20
-    (written to `eval_submission.json`) and cross-check it against an
-    independent re-parse of the CSV, logging a warning when they differ.
-    -> the recall dict, or None without labels."""
+    (written to `eval_submission.json` and to a timestamped, git-hashed
+    copy `eval-submission-*.json`) and cross-check it against an
+    independent re-parse of the CSV (evaluate_submission_file), logging a
+    warning when they differ. -> the recall dict, or None without
+    labels."""
     path = os.path.join(work_dir, "submission.csv")
     rank_engine.write_submission(path, preds)
     if labels is None:
         return None
     res = evaluate_topk(preds, labels)
-    with open(os.path.join(work_dir, "eval_submission.json"), "w") as fh:
-        json.dump(res, fh, indent=2)
-
-    sub = rank_engine.read_submission(path)
-    reparsed = {}
-    for tname in TYPES:
-        rows = sub.get(tname, {})
-        sessions = np.fromiter(rows.keys(), np.int32, len(rows))
-        aids = np.full((len(rows), 20), -1, np.int32)
-        for i, alist in enumerate(rows.values()):
-            aids[i, : min(len(alist), 20)] = alist[:20]
-        reparsed[tname] = (sessions, aids)
-    res2 = evaluate_topk(reparsed, labels)
+    for name in ("eval_submission.json", report_name("eval-submission") + ".json"):
+        with open(os.path.join(work_dir, name), "w") as fh:
+            json.dump(res, fh, indent=2)
+    res2 = evaluate_submission_file(path, labels)
     if abs(res2["total"] - res["total"]) > 1e-9:
         log.warning("submission re-parse mismatch: %s vs %s",
                     res2["total"], res["total"])
@@ -364,8 +589,10 @@ def load_rankers(work_dir: str) -> Dict[str, GBDTRanker]:
 @dataclasses.dataclass
 class PassAReport:
     """What `pass_a` measured: wall seconds (ended by a device sync), test
-    sessions and batches, seconds per phase (retrieval + device programs;
-    host pulls, selection and row gathers; eval and persisting), and per
+    sessions and batches, seconds per phase ("retrieve + device programs"
+    on the producer's thread; "pulls + select + rows", the consumer's own
+    time, on the worker thread when overlapped; "waiting for the
+    consumer", the producer blocked on it; "eval + persist"), and per
     target the downsampled rows and the sessions with a positive."""
 
     seconds: float
@@ -392,14 +619,21 @@ def pass_a(
     work_dir: str,
     batch_sessions: int = 512,
     skip_targets: Sequence[str] = (),
+    overlap: bool = True,
 ) -> Tuple[Dict[str, float], PassAReport]:
     """Training pass A over the test sessions, batch by batch on the
     retriever's device: the packed meta and the label bits (the label join
-    on 45-bit keys), the per-source eval's counters, then on the host the
+    on 45-bit keys) and the per-source eval's counters, then on the host the
     downsample selection of every target (one numpy rng per type, seeded
     42, drawn only for batches with a positive; with
     ranker_cfg.device_select the keep bits come from the device instead)
-    and one float16 row gather of the selected rows.
+    and one float16 row gather of the selected rows, whose pull is
+    finished one batch later.
+
+    With `overlap` the host side runs on a worker thread while the next
+    batch retrieves (pipelined_consume); the batches reach it in order,
+    so rows, label bits, counters and the rng draws are those of the
+    sequential loop.
 
     Writes into work_dir `eval_retrieved.json` (the ceiling recall),
     `eval_retrieved_sources.json` (the per-source report),
@@ -409,21 +643,16 @@ def pass_a(
     PassAReport)."""
     dev = retriever.ctx.aid_emb.device
     t0 = time.perf_counter()
-    phases = {"retrieve + device programs": 0.0, "pulls + select + rows": 0.0,
-              "eval + persist": 0.0}
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
-
     lab_keys = label_keys_device(labels, dev)
     rngs = {t: np.random.default_rng(42) for t in TYPES}
     rows = {t: [] for t in TYPES}
     dev_eval = None
     n_sessions = n_batches = 0
-    t = sync()
-    for b in retriever.iter_run(test, batch_sessions=batch_sessions):
+    pend: list = []   # (rows handle, layout) of the batch whose pull is in flight
+
+    def pack(b):
+        """The batch's device programs (producer thread)."""
+        nonlocal dev_eval, n_sessions, n_batches
         if ranker_cfg.device_select:
             gen = torch.Generator(device=dev).manual_seed(
                 ranker_cfg.seed * 1_000_003 + n_batches)
@@ -437,12 +666,21 @@ def pass_a(
         dev_eval.update(meta, tbits_d)
         n_sessions += len(b.session)
         n_batches += 1
-        now = sync()
-        phases["retrieve + device programs"] += now - t
-        t = now
+        return HostCopy(meta), HostCopy(tbits_d)
 
-        b.unpack_meta(meta)
-        tbits = tbits_d.cpu().numpy()
+    def flush():
+        handle, layout = pend.pop(0)
+        feats = np.array(handle)   # out of the pinned buffer
+        off = 0
+        for tname, cnt, y, sess in layout:
+            rows[tname].append((feats[off: off + cnt], y, sess))
+            off += cnt
+
+    def consume(b, meta):
+        """The batch's host side (worker thread when overlapped)."""
+        meta_h, tbits_h = meta
+        b.unpack_meta(meta_h)
+        tbits = tbits_h.numpy()
         sels = {}
         if ranker_cfg.device_select:
             for tname in TYPES:
@@ -458,18 +696,24 @@ def pass_a(
                 if got is not None:
                     sels[tname] = got
         if sels:
-            feats, _ = b.feats_rows_async(
+            handle, _ = b.feats_rows_async(
                 np.concatenate([s[0] for s in sels.values()]),
                 np.concatenate([s[1] for s in sels.values()]))
-            off = 0
-            for tname, (si, _, y) in sels.items():
-                rows[tname].append((feats[off: off + len(si)], y, b.session[si]))
-                off += len(si)
-        now = sync()
-        phases["pulls + select + rows"] += now - t
-        t = now
+            pend.append((handle, [(t, len(si), y, b.session[si])
+                                  for t, (si, _, y) in sels.items()]))
+            while len(pend) > 1:
+                flush()
+
+    seconds = pipelined_consume(retriever.iter_run(test, batch_sessions=batch_sessions),
+                                consume, pack=pack, overlap=overlap)
+    while pend:
+        flush()
     if dev_eval is None:
         raise ValueError("pass A: no test sessions")
+    t = time.perf_counter()
+    phases = {"retrieve + device programs": seconds["produce"],
+              "pulls + select + rows": seconds["consume"],
+              "waiting for the consumer": seconds["wait"]}
 
     report = dev_eval.finalize(labels)
     ceiling = report.pop("_ceiling")
@@ -505,6 +749,8 @@ def pass_a(
         n_rows[tname] = len(y)
         n_pos_sessions[tname] = int(np.unique(sess).size)
     phases["eval + persist"] = time.perf_counter() - t
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     rep = PassAReport(time.perf_counter() - t0, n_sessions, n_batches, phases,
                       n_rows, n_pos_sessions)
     log.info("pass A: %s", rep)
@@ -584,6 +830,15 @@ def check_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool) -> 
             json.dump({"n_aids": n_aids}, fh)
 
 
+def check_backend(cfg: Config) -> None:
+    """Only the GBDT ranker is ported: refuse another backend before any
+    work."""
+    if cfg.ranker_backend != "gbdt":
+        raise NotImplementedError(
+            f"ranker backend {cfg.ranker_backend!r}: the MLP ranker is not ported yet "
+            "(ROADMAP Queue 1, \"The MLP ranker\"); use 'gbdt'")
+
+
 def run_streaming(
     train: Events,
     test: Events,
@@ -592,30 +847,26 @@ def run_streaming(
     work_dir: str,
     device,
     cfg: Config = Config(),
-    models: Optional[Dict[str, Word2Vec]] = None,
     batch_sessions: int = 512,
     use_cache: bool = True,
 ) -> Dict[str, float]:
     """The pipeline from events to recall@20 on `device`, as otto_tpu's
-    Pipeline.run_streaming: check_work_dir, build_retriever (training the
-    models of cfg.w2vec that `models` does not hold), then with labels
-    pass_a, the three rankers (train_ranker_cached) and pass B
-    (score_pass) -> submit_and_eval; without labels, the rankers in
-    work_dir score pass B.
+    Pipeline.run_streaming: check_work_dir, build_retriever with work_dir
+    as its artifact cache, then with labels pass_a, the three rankers
+    (train_ranker_cached) and pass B (score_pass) -> submit_and_eval;
+    without labels, the rankers in work_dir score pass B.
 
     Crash-resume: with use_cache, when `passA-metrics.json` and, for every
     target, its ranker or its persisted rows are in work_dir, pass A is
     skipped and the missing rankers train from the rows.
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
-    if cfg.ranker_backend != "gbdt":
-        raise NotImplementedError(
-            f"ranker backend {cfg.ranker_backend!r}: the MLP ranker is not ported yet "
-            "(ROADMAP Queue 1, \"The MLP ranker\"); use 'gbdt'")
+    check_backend(cfg)
     check_work_dir(work_dir, cfg, n_aids, use_cache)
     retriever, _ = build_retriever(
-        train, test, n_aids, device, cfg.w2vec, models, cfg.covis, cfg.popularity,
-        cfg.retrieval, cfg.kmeans, report_dir=work_dir)
+        train, test, n_aids, device, cfg.w2vec, None, cfg.covis, cfg.popularity,
+        cfg.retrieval, cfg.kmeans, report_dir=work_dir, cache_dir=work_dir,
+        use_cache=use_cache)
     if labels is None:
         preds = score_pass(retriever, test, load_rankers(work_dir), batch_sessions)
         submit_and_eval(work_dir, preds, None)
@@ -640,3 +891,206 @@ def run_streaming(
     preds = score_pass(retriever, test, rankers, batch_sessions)
     metrics.update(submit_and_eval(work_dir, preds, labels))
     return metrics
+
+
+# ---------------------------------------------------------------------------
+# the Pipeline over a work dir, and its batch runner
+# ---------------------------------------------------------------------------
+def _host_rss_gb() -> float:
+    """Resident host memory of this process, in GiB (0 where /proc is
+    missing)."""
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return 0.0
+
+
+@dataclasses.dataclass
+class Pipeline:
+    """otto_tpu's Pipeline on one device: `cfg`, the artifact `work_dir`,
+    `n_aids`, `use_cache` (False: rebuild and overwrite every artifact)
+    and `device` (default "cuda", which raises without a card; tests pass
+    "cpu"). Construction resolves the device, refuses a ranker backend
+    other than 'gbdt', and runs the work-dir guard (check_work_dir).
+
+    `run_streaming` is the module's run_streaming; `run` is the batch
+    runner, which keeps every retrieval batch on the device and evaluates
+    C14 on the host. Both give the same metrics from the same work dir.
+    `stage_log` collects one entry a stage: elapsed seconds since the
+    calling method began, host RSS and, on CUDA, the peak device memory
+    allocated so far."""
+
+    cfg: Config
+    work_dir: str
+    n_aids: int
+    use_cache: bool = True
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
+        check_backend(self.cfg)
+        check_work_dir(self.work_dir, self.cfg, self.n_aids, self.use_cache)
+        self.stage_log: List[Dict] = []
+        self.build_report: Optional[BuildReport] = None
+
+    def _p(self, name: str) -> str:
+        return os.path.join(self.work_dir, name)
+
+    def _cached(self, name: str) -> bool:
+        return self.use_cache and os.path.exists(self._p(name))
+
+    def _log(self, stage: str, t0: float, msg: str = "") -> None:
+        el = time.time() - t0
+        entry = {"stage": stage, "elapsed_s": round(el, 3), "rss_gb": round(_host_rss_gb(), 2)}
+        if self.device.type == "cuda":
+            entry["peak_mem_gb"] = round(torch.cuda.max_memory_allocated(self.device) / 2**30, 2)
+        if msg:
+            entry["msg"] = msg
+        self.stage_log.append(entry)
+        log.info("[%7.1fs] %s %s", el, stage, msg)
+
+    # ------------------------------------------------------------------
+    def run(self, train: Events, test: Events, labels: Optional[Labels] = None,
+            batch_sessions: int = 256) -> Dict[str, float]:
+        """The batch runner: retrieve_with_features, then with labels
+        rank_and_eval; without labels the work dir's rankers score every
+        batch and the submission is written (metrics stay empty)."""
+        batches, targets, metrics = self.retrieve_with_features(
+            train, test, labels, batch_sessions=batch_sessions)
+        if labels is not None:
+            self.rank_and_eval(batches, targets, labels, metrics)
+        else:
+            t0 = time.time()
+            rankers = self.load_rankers()
+            preds = {t: rank_engine.score_and_topk(batches, rankers[t])[:2] for t in TYPES}
+            self._log("score (inference-only)", t0)
+            self._submit_and_eval(preds, None, metrics, t0)
+        return metrics
+
+    def run_streaming(self, train: Events, test: Events, labels: Optional[Labels] = None,
+                      batch_sessions: int = 512) -> Dict[str, float]:
+        """The two-pass streaming runner (module run_streaming): one batch's
+        features on the device at a time."""
+        t0 = time.time()
+        metrics = run_streaming(train, test, labels, self.n_aids, self.work_dir,
+                                self.device, self.cfg, batch_sessions, self.use_cache)
+        self._log("run_streaming", t0)
+        return metrics
+
+    def build_retriever(self, train: Events, test: Events) -> Retriever:
+        """C7-C12 with the work dir as the artifact cache (module
+        build_retriever); its BuildReport is kept as `build_report`."""
+        t0 = time.time()
+        cfg = self.cfg
+        retriever, self.build_report = build_retriever(
+            train, test, self.n_aids, self.device, cfg.w2vec, None, cfg.covis,
+            cfg.popularity, cfg.retrieval, cfg.kmeans, report_dir=self.work_dir,
+            cache_dir=self.work_dir, use_cache=self.use_cache)
+        cache = self.build_report.cache
+        self._log("context built", t0, f"cache: loaded {cache['loaded']}, wrote "
+                  f"{cache['written']}")
+        return retriever
+
+    def retrieve_with_features(self, train: Events, test: Events,
+                               labels: Optional[Labels] = None, batch_sessions: int = 256):
+        """C7-C14: build_retriever, every test batch retrieved at once
+        (Retriever.run), then with labels join_labels and _eval_retrieved.
+        -> (batches, targets or None, metrics)."""
+        t0 = time.time()
+        retriever = self.build_retriever(train, test)
+        batches = retriever.run(test, batch_sessions=batch_sessions)
+        self._sync()
+        self._log("retrieve", t0, f"{sum(len(b.session) for b in batches)} sessions")
+        targets = None
+        metrics: Dict[str, float] = {}
+        if labels is not None:
+            targets = join_labels(batches, labels)
+            metrics = self._eval_retrieved(
+                np.concatenate([b.session for b in batches]),
+                np.concatenate([b.cand for b in batches]), batches, labels, t0)
+        return batches, targets, metrics
+
+    def _eval_retrieved(self, all_sess, all_cand, src_batches, labels, t0) -> Dict[str, float]:
+        """C14 on the host: the retrieval ceiling (recall_at_k of every
+        candidate) into `eval_retrieved.json` and the per-source report
+        (eval_retrieved_by_source; the flags packed on the device) into
+        `eval_retrieved_sources.json`. src_batches: RetrievedBatch or
+        SrcFlagBatch."""
+        metrics: Dict[str, float] = {}
+        ceiling = recall_at_k(all_sess, all_cand, labels, cutoffs=(20, 100, 200))
+        with open(self._p("eval_retrieved.json"), "w") as fh:
+            json.dump(ceiling, fh, indent=2)
+        for t in ("clicks", "carts", "orders", "total"):
+            metrics[f"ceiling_{t}"] = ceiling[t]["topall"]
+        self._log("eval_retrieved", t0, json.dumps(ceiling["total"]))
+        per_src = eval_retrieved_by_source(src_batches, labels)
+        with open(self._p("eval_retrieved_sources.json"), "w") as fh:
+            json.dump(per_src, fh, indent=2)
+        log.info("per-source recall:\n%s", format_report(per_src))
+        self._log("eval per-source", t0)
+        return metrics
+
+    def rank_and_eval(self, batches, targets, labels: Labels,
+                      metrics: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+        """C15-C19 on the kept batches: each target's ranker (cached, or
+        trained from rank_engine.downsample's rows), the top-20 of every
+        batch per target, then the submission and recall@20. Mutates and
+        returns `metrics`."""
+        t0 = time.time()
+        metrics = {} if metrics is None else metrics
+        rankers = {
+            t: self._train_ranker_cached(
+                t, lambda t=t: rank_engine.downsample(batches, targets, TYPE2ID[t],
+                                                      self.cfg.ranker), t0)
+            for t in TYPES
+        }
+        preds = {t: rank_engine.score_and_topk(batches, rankers[t])[:2] for t in TYPES}
+        self._sync()
+        self._log("score", t0)
+        return self._submit_and_eval(preds, labels, metrics, t0)
+
+    def _train_ranker_cached(self, tname: str, rows_fn, t0: float) -> GBDTRanker:
+        ranker = train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg.gbdt,
+                                     self.device, self.use_cache)
+        self._log(f"ranker {tname} (gbdt)", t0)
+        return ranker
+
+    def _submit_and_eval(self, preds, labels, metrics, t0):
+        """submit_and_eval into the work dir; with labels its recall@20
+        joins `metrics`. -> metrics."""
+        res = submit_and_eval(self.work_dir, preds, labels)
+        self._log("submit", t0)
+        if res is not None:
+            metrics.update(res)
+        return metrics
+
+    def load_rankers(self) -> Dict[str, GBDTRanker]:
+        return load_rankers(self.work_dir)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def run_synthetic(
+    cfg: Config,
+    work_dir: str,
+    spec: SyntheticSpec,
+    batch_sessions: int = 256,
+    streaming: Optional[bool] = None,
+    device="cuda",
+) -> Dict[str, float]:
+    """otto_tpu's generated events (data.synthetic.generate), split as
+    cfg.data says, through a Pipeline on `device`: the streaming runner
+    past 50k test sessions (or as `streaming` says), else the batch
+    runner. -> its metrics."""
+    pipe = Pipeline(cfg=cfg, work_dir=work_dir, n_aids=spec.n_aids, device=device)
+    sp = split_events(generate(spec), cfg.data.test_days, cfg.data.seed)
+    if streaming is None:
+        streaming = len(np.unique(sp.test.session)) > 50_000
+    runner = pipe.run_streaming if streaming else pipe.run
+    return runner(sp.train, sp.test, sp.labels, batch_sessions=batch_sessions)

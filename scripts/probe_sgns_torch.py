@@ -32,7 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from otto_tpu_torch.config import W2VEC_MODELS  # noqa: E402
 from otto_tpu_torch.data.split import split_events  # noqa: E402
-from otto_tpu_torch.data.synthetic import SyntheticSpec, generate  # noqa: E402
+from otto_tpu_torch.data.synthetic import SyntheticSpec, generate_device  # noqa: E402
 from otto_tpu_torch.device import pin_fp32, resolve  # noqa: E402
 from otto_tpu_torch.models import word2vec as w2v  # noqa: E402
 
@@ -129,7 +129,7 @@ def main():
     cfg = dataclasses.replace(W2VEC_MODELS["w2v-all"], neg_sharing="chunk")
     spec = SyntheticSpec(n_sessions=args.sessions, n_aids=N_AIDS, max_len=512,
                          mean_len=18, seed=1234)
-    sp = split_events(generate(spec, dev), test_days=7, seed=0)
+    sp = split_events(generate_device(spec, dev), test_days=7, seed=0)
     full = sp.train.concat(sp.test)
     t = time.perf_counter()
     vocab = w2v.build_vocab(full, cfg.types, cfg.min_count, N_AIDS)

@@ -38,7 +38,7 @@ def main():
 
     from otto_tpu_torch.config import CoVisConfig, PopularityConfig
     from otto_tpu_torch.data.split import split_events
-    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate_device
     from otto_tpu_torch.engine.covis import CoVisCounter
     from otto_tpu_torch.engine.popularity import compute_popularity
 
@@ -46,7 +46,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    sp = split_events(generate(SyntheticSpec(
+    sp = split_events(generate_device(SyntheticSpec(
         n_sessions=args.sessions, n_aids=N_AIDS, max_len=512, mean_len=18, seed=1234),
         dev), test_days=7, seed=0)
     full = sp.train.concat(sp.test)

@@ -244,12 +244,12 @@ def test_cuda_covis_and_popularity_match_cpu(cuda_device, spill, prune):
     import numpy as np
 
     from otto_tpu_torch.config import CoVisConfig, PopularityConfig
-    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate_device
     from otto_tpu_torch.engine import baseline
     from otto_tpu_torch.engine.covis import CoVisCounter
     from otto_tpu_torch.engine.popularity import compute_popularity
 
-    ev = generate(SyntheticSpec(n_sessions=800, n_aids=3000, max_len=64, seed=3), cuda_device)
+    ev = generate_device(SyntheticSpec(n_sessions=800, n_aids=3000, max_len=64, seed=3), cuda_device)
     cfg = dataclasses.replace(CoVisConfig(), pair_budget=1 << 14, max_run_rows=1 << 17,
                               host_spill=spill, spill_prune_min_rows=prune,
                               accumulator_capacity=1 << 13)
@@ -319,7 +319,7 @@ def test_cuda_pass_a_programs_match_cpu(cuda_device):
         ev = DeviceSourceEval(C, dev)
         ev.update(meta, bits)
         rows, _ = b.feats_rows_async(si, ci)
-        out.append((meta.cpu(), bits.cpu(), ev.hits.cpu(), ev.hist.cpu(), rows))
+        out.append((meta.cpu(), bits.cpu(), ev.hits.cpu(), ev.hist.cpu(), np.asarray(rows)))
     for a, c in zip(*out):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, c)
@@ -361,11 +361,11 @@ def test_cuda_sgns_training_deterministic_and_near_cpu(cuda_device, sharing):
     import numpy as np
 
     from otto_tpu_torch.config import Word2VecConfig
-    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate_device
     from otto_tpu_torch.models import word2vec as w2v
 
     cpu = torch.device("cpu")
-    ev = generate(SyntheticSpec(n_sessions=3000, n_aids=5000, max_len=64, mean_len=12,
+    ev = generate_device(SyntheticSpec(n_sessions=3000, n_aids=5000, max_len=64, mean_len=12,
                                 seed=9), cpu)
     cfg = Word2VecConfig(name="x", vector_size=32, min_count=1, epochs=2,
                          batch_size=8192, neg_sharing=sharing)
@@ -404,3 +404,83 @@ def test_cuda_sgns_training_deterministic_and_near_cpu(cuda_device, sharing):
     for x, y in zip(got, want):
         assert torch.allclose(x, y, rtol=1e-5, atol=1e-6)
     assert abs(loss_d - loss_c) <= 1e-5 * abs(loss_c)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline on the card: the artifact cache and the overlapped consumer
+# ---------------------------------------------------------------------------
+def _small_config():
+    import dataclasses
+
+    from otto_tpu_torch.config import (Config, CoVisConfig, GBDTConfig, KMeansConfig,
+                                       RetrievalConfig, Word2VecConfig)
+
+    w2v = {n: Word2VecConfig(name=n, types=t, vector_size=16, window=4, min_count=2,
+                             epochs=1, batch_size=4096, steps_per_dispatch=1, knn_k=10,
+                             knn_first_n_aids=2000)
+           for n, t in (("wall", (0, 1, 2)), ("w12", (1, 2)))}
+    return Config(covis=dataclasses.replace(CoVisConfig(), accumulator_capacity=1 << 17),
+                  retrieval=RetrievalConfig(max_session_aids=16, max_candidates=128,
+                                            session_len_buckets=(8, 32)),
+                  w2vec=w2v, kmeans=dataclasses.replace(KMeansConfig(), max_iter=10),
+                  gbdt=GBDTConfig(n_trees=10, max_depth=3, n_bins=16, max_group=64))
+
+
+@pytest.mark.cuda
+def test_cuda_build_cache_round_trip_and_overlapped_pass_a(cuda_device, tmp_path):
+    """A small build on the card writes its artifact cache; a second build
+    from that cache gives bit-equal tables. Pass A overlapped (consumer
+    thread and stream) and in turn on one thread: rows, label bits,
+    counters and reports bit-equal; so are two score passes."""
+    import json
+    import os
+
+    import numpy as np
+
+    from otto_tpu_torch.config import TYPES
+    from otto_tpu_torch.data.split import split_events
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from otto_tpu_torch.pipeline import runner
+
+    cfg = _small_config()
+    sp = split_events(generate(SyntheticSpec(n_sessions=3000, n_aids=2000, mean_len=10,
+                                             seed=4)), 7, 42)
+
+    def build():
+        return runner.build_retriever(
+            sp.train, sp.test, 2000, cuda_device, cfg.w2vec, None, cfg.covis, cfg.popularity,
+            cfg.retrieval, cfg.kmeans, cache_dir=str(tmp_path))
+
+    first, rep1 = build()
+    second, rep2 = build()
+    assert len(rep1.cache["written"]) == 7 and not rep1.cache["loaded"]
+    assert len(rep2.cache["loaded"]) == 7 and not rep2.cache["written"]
+    for a, b in zip(first.ctx.tensors(), second.ctx.tensors()):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+    for f in ("ids", "cluster", "emb"):
+        assert np.array_equal(getattr(first.sessions, f), getattr(second.sessions, f))
+
+    out = {}
+    for overlap in (True, False):
+        work = tmp_path / f"pass_a_{overlap}"
+        work.mkdir()
+        metrics, rep = runner.pass_a(second, sp.test, sp.labels, cfg.ranker, str(work),
+                                     batch_sessions=128, overlap=overlap)
+        files = {n: (work / n).read_text() for n in
+                 ("eval_retrieved.json", "eval_retrieved_sources.json", "passA-metrics.json")}
+        rows = {t: {k: v.tobytes() for k, v in np.load(work / f"downsampled-{t}.npz").items()}
+                for t in TYPES}
+        out[overlap] = (metrics, rep.rows, files, rows)
+    assert out[True] == out[False]
+    assert rep.batches > 4 and all(n > 0 for n in rep.rows.values())
+
+    rankers = {t: runner.train_ranker_cached(
+        str(tmp_path / "pass_a_True"), t,
+        lambda t=t: runner.load_downsampled(str(tmp_path / "pass_a_True"), t),
+        cfg.gbdt, cuda_device) for t in TYPES}
+    a = runner.score_pass(second, sp.test, rankers, 128, overlap=True)
+    b = runner.score_pass(second, sp.test, rankers, 128, overlap=False)
+    for t in TYPES:
+        assert np.array_equal(a[t][0], b[t][0]) and np.array_equal(a[t][1], b[t][1])
+    assert json.loads(out[True][2]["passA-metrics.json"])["ceiling_total"] > 0
+    assert os.path.exists(tmp_path / "kmeans-inertia.csv")

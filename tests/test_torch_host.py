@@ -210,7 +210,7 @@ SPEC = synthetic.SyntheticSpec(n_sessions=500, n_aids=3000, max_len=48,
 
 
 def test_generate_schema_and_structure():
-    ev = synthetic.generate(SPEC, "cpu")
+    ev = synthetic.generate_device(SPEC, "cpu")
     assert ev.session.dtype == np.int32 and ev.type.dtype == np.int8
     # (session, ts)-sorted, every session present with 2..max_len events
     order = np.lexsort((ev.ts, ev.session))
@@ -233,8 +233,8 @@ def test_generate_schema_and_structure():
 
 
 def test_generate_is_seeded():
-    a, b = synthetic.generate(SPEC, "cpu"), synthetic.generate(SPEC, "cpu")
-    c = synthetic.generate(dataclasses.replace(SPEC, seed=6), "cpu")
+    a, b = synthetic.generate_device(SPEC, "cpu"), synthetic.generate_device(SPEC, "cpu")
+    c = synthetic.generate_device(dataclasses.replace(SPEC, seed=6), "cpu")
     for col in ("session", "aid", "ts", "type"):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
     assert not np.array_equal(a.aid[:100], c.aid[:100])
@@ -244,7 +244,7 @@ def test_generate_feeds_split_and_packing():
     """The on-device generator's events go through the port's split and
     packing into every length bucket, as chip_smoke.py drives them."""
     spec = dataclasses.replace(SPEC, n_sessions=3000, max_len=200, mean_len=18)
-    sp = split.split_events(synthetic.generate(spec, torch.device("cpu")),
+    sp = split.split_events(synthetic.generate_device(spec, torch.device("cpu")),
                             test_days=7, seed=0)
     assert len(sp.train) and len(sp.labels)
     packed = batching.pack_sessions(sp.test, (8, 32, 128))
@@ -312,3 +312,72 @@ def test_word2vec_load_reads_reference_npz(events, tmp_path):
              word_of_aid=vocab.word_of_aid, counts=vocab.counts, emb=emb[:-1])
     with pytest.raises(ValueError):
         word2vec.Word2Vec.load(str(tmp_path / "bad.npz"), got.cfg)
+
+
+@pytest.mark.parametrize("spec", [
+    dict(n_sessions=700, n_aids=900, max_len=80, mean_len=12, span_days=21, seed=3),
+    dict(n_sessions=300, n_aids=50, max_len=20, seed=11, p_cart=0.3),
+])
+def test_numpy_generate_matches_reference(spec):
+    """The numpy generator draws otto_tpu's events, bit for bit."""
+    want = ref_generate(RefSpec(**spec))
+    got = synthetic.generate(synthetic.SyntheticSpec(**spec))
+    for col in ("session", "aid", "ts", "type"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+        assert getattr(got, col).dtype == getattr(want, col).dtype
+
+
+def test_parquet_round_trip_with_reference(events, tmp_path):
+    """Each package reads the other's parquet files (pyarrow only there)."""
+    from otto_tpu.data.schema import Events as RefEvents
+
+    ref_ev, ev = events
+    ev.to_parquet(str(tmp_path / "port.parquet"))
+    ref_ev.to_parquet(str(tmp_path / "ref.parquet"))
+    for got, want in ((RefEvents.from_parquet(str(tmp_path / "port.parquet")), ref_ev),
+                      (Events.from_parquet(str(tmp_path / "ref.parquet")), ev)):
+        for col in ("session", "aid", "ts", "type"):
+            np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+            assert getattr(got, col).dtype == getattr(want, col).dtype
+    lab = Labels(np.array([4, 5]), np.array([2, 0]), np.array([7, 8]))
+    lab.to_parquet(str(tmp_path / "lab.parquet"))
+    back = RefLabels.from_parquet(str(tmp_path / "lab.parquet"))
+    assert (back.session.tolist(), back.type.tolist(), back.aid.tolist()) == \
+        ([4, 5], [2, 0], [7, 8])
+    assert Labels.from_parquet(str(tmp_path / "lab.parquet")).aid.dtype == np.int32
+
+
+def test_reports_match_reference():
+    """test_aux.py's report_name and describe_numeric, on both packages."""
+    from otto_tpu.utils import reports as ref_reports
+    from otto_tpu_torch.utils import reports
+
+    name = reports.report_name("eval", tag="v1")
+    assert name.startswith("eval-") and "-v1" in name
+    assert reports.git_hash() == ref_reports.git_hash()
+    for v in (np.arange(101), np.random.default_rng(0).normal(size=37), np.array([])):
+        got, want = reports.describe_numeric(v), ref_reports.describe_numeric(v)
+        assert list(got) == list(want)
+        np.testing.assert_array_equal(list(got.values()), list(want.values()))
+    d = reports.describe_numeric(np.arange(101))
+    assert d["min"] == 0 and d["max"] == 100 and d["50%"] == 50
+
+
+def test_timing_harness(tmp_path):
+    """test_aux.py's StageTimer and time_fn (host clock for CPU outputs),
+    and a profiler trace."""
+    from otto_tpu_torch.utils import timing
+
+    t = timing.StageTimer()
+    with t.stage("a"):
+        sum(range(1000))
+    with t.stage("a"):
+        pass
+    assert list(t.stages) == ["a"] and t.stages["a"] > 0 and "total" in t.report()
+    r = timing.time_fn("add", lambda x: x + 1, torch.zeros(8), iters=3, warmup=2)
+    assert r.name == "add" and len(r.runs) == 3 and r.mean_s >= 0 and r.compile_s >= 0
+    assert r.per_second > 0 and r.items_per_second(10) > 0
+    with timing.profiler_trace(str(tmp_path)) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert any("mm" in e.key for e in prof.key_averages())
+    timing.device_sync(torch.zeros(2))   # CPU outputs: nothing to wait for

@@ -57,7 +57,9 @@ def test_every_module_imports_without_jax():
         "otto_tpu_torch.ops.kernels.dma_gather", "otto_tpu_torch.eval.diagnostics",
         "otto_tpu_torch.engine.session_embed", "otto_tpu_torch.pipeline.runner",
         "otto_tpu_torch.eval.per_source", "otto_tpu_torch.models.ranker",
-        "otto_tpu_torch.utils.checkpoint",
+        "otto_tpu_torch.utils.checkpoint", "otto_tpu_torch.utils.reports",
+        "otto_tpu_torch.utils.timing", "otto_tpu_torch.data.jsonl",
+        "otto_tpu_torch.pipeline.cli",
     } <= names
 
 

@@ -222,6 +222,7 @@ def test_downsample_rows_and_f16_bytes_equal():
     ci = np.array([0, 1, 2, 3, 4, 39])
     h_ref, n = ref_b[0].feats_rows_async(si, ci)
     h_port, n_port = port_b[0].feats_rows_async(si, ci)
+    h_port = np.asarray(h_port)
     assert n == n_port == 6 and h_port.dtype == np.float16
     assert np.asarray(h_ref)[:n].tobytes() == h_port.tobytes()
     assert np.isfinite(h_port).all() and h_port[0, 4] == 65504.0

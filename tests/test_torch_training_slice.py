@@ -6,9 +6,16 @@ otto_tpu's Pipeline.run_streaming runs once on tests/test_pipeline.py's
 tiny configuration and data (2,500 sessions, 1,200 aids, 20 trees at depth
 3); the port's run_streaming runs on the CPU under the config.json that
 otto_tpu stored, with what the port cannot make the same way: otto_tpu's
-word2vec models (its `w2v-*.npz`, given by the config's model names),
+word2vec models (its `w2v-*.npz`, copied into the port's work dir and
+read from the port's artifact cache),
 otto_tpu's k-means++ start (test_torch_build.py says why) and otto_tpu's
 threefry GBDT draws (test_torch_gbdt_train.py's hook).
+
+The port's batch runner (Pipeline.run) then runs on copies of both work
+dirs, every table and ranker read from the cache: on otto_tpu's it gives
+otto_tpu's ceiling, per-source report and recall, on the port's its own
+streaming run's (otto_tpu's test_streaming_runner_matches_batch), and
+otto_tpu's build reads the port's cache files.
 
 Held equal: the retrieval reports and metrics; the persisted pass-A rows'
 labels, sessions and every integer-valued feature (float16 bytes); the
@@ -29,10 +36,13 @@ picks whichever gain its float32 sums round higher, while the port's exact
 sums tie and it takes the first. Such a tree sends every row to the same
 leaf; the test checks exactly that.
 """
+import contextlib
 import dataclasses
 import functools
 import json
 import os
+import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -53,11 +63,9 @@ from otto_tpu.data.split import split_events
 from otto_tpu.data.synthetic import SyntheticSpec, generate
 from otto_tpu.engine.retrieval import FEATURE_NAMES
 from otto_tpu.models.gbdt import GBDTRanker as RefGBDT
-from otto_tpu.models.word2vec import Word2Vec as RefWord2Vec
 from otto_tpu.ops import kmeans as ref_kmeans
 from otto_tpu.pipeline.runner import Pipeline
 from otto_tpu_torch import config as port_config
-from otto_tpu_torch import convert
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.models import gbdt as port_gbdt
 from otto_tpu_torch.ops import kmeans as port_kmeans
@@ -96,8 +104,6 @@ def run_both(tmp_root):
     ref_metrics = Pipeline(cfg=CFG, work_dir=ref_dir, n_aids=SPEC.n_aids).run_streaming(
         sp.train, sp.test, sp.labels, batch_sessions=BATCH)
 
-    models = {n: convert.word2vec_from_numpy(RefWord2Vec.load(
-        os.path.join(ref_dir, f"w2v-{n}.npz"), c)) for n, c in W2V.items()}
     sess_emb = np.load(os.path.join(ref_dir, "session_emb.npz"))["emb"]
     n_clusters = CFG.kmeans.n_clusters_to_find[0]
     assert len(sess_emb) < 1 << 16           # k-means++ seeded on every session
@@ -109,6 +115,9 @@ def run_both(tmp_root):
 
     port_dir = tmp_root / "port"
     port_dir.mkdir()
+    # otto_tpu's word2vec models reach the port through its artifact cache
+    for n in W2V:
+        shutil.copy(os.path.join(ref_dir, f"w2v-{n}.npz"), port_dir)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_kmeans, "init_centroids",
                    lambda x, k, sample, generator: torch.from_numpy(init))
@@ -116,8 +125,7 @@ def run_both(tmp_root):
         lab = sp.labels
         port_metrics = port_runner.run_streaming(
             ev(sp.train), ev(sp.test), Labels(lab.session, lab.type, lab.aid),
-            SPEC.n_aids, str(port_dir), "cpu", cfg=port_cfg(ref_dir), models=models,
-            batch_sessions=BATCH)
+            SPEC.n_aids, str(port_dir), "cpu", cfg=port_cfg(ref_dir), batch_sessions=BATCH)
     return {"ref": (ref_metrics, ref_dir), "port": (port_metrics, str(port_dir)), "split": sp}
 
 
@@ -217,8 +225,6 @@ def test_resume_skips_pass_a_and_serves_without_labels(both, tmp_path):
     ranker already trained) in the work dir, run_streaming trains the
     missing rankers from the rows, and an unlabelled run serves from the
     rankers alone."""
-    import shutil
-
     (_, port_dir), sp = both["port"], both["split"]
     cfg = port_cfg(both["ref"][1])
     work = tmp_path / "resume"
@@ -250,3 +256,150 @@ def test_resume_skips_pass_a_and_serves_without_labels(both, tmp_path):
     with pytest.raises(NotImplementedError, match="MLP ranker is not ported"):
         port_runner.run_streaming(None, None, None, SPEC.n_aids, str(work), "cpu",
                                   cfg=dataclasses.replace(cfg, ranker_backend="mlp"))
+
+
+# ---------------------------------------------------------------------------
+# the batch runner and the artifact cache, on copies of both work dirs
+# ---------------------------------------------------------------------------
+def close(x, y, tol, path=""):
+    """Two reports equal: the same keys, numbers within tol."""
+    if isinstance(x, dict):
+        assert isinstance(y, dict) and set(x) == set(y), (path, set(x) ^ set(y))
+        for k in x:
+            close(x[k], y[k], tol, f"{path}/{k}")
+    else:
+        assert abs(x - y) <= tol, (path, x, y)
+
+
+def _port_split(sp):
+    lab = sp.labels
+    return (Events(sp.train.session, sp.train.aid, sp.train.ts, sp.train.type),
+            Events(sp.test.session, sp.test.aid, sp.test.ts, sp.test.type),
+            Labels(lab.session, lab.type, lab.aid))
+
+
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op thread: these runs are thousands of small ops, where a
+    thread pool contending with other test processes only adds waits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def batch_runs(both, tmp_path_factory):
+    """Pipeline.run (labelled, then unlabelled) on a copy of the port's work
+    dir and (labelled) on a copy of otto_tpu's; every table and ranker
+    must come from the cache."""
+    with one_thread():
+        return _batch_runs(both, tmp_path_factory)
+
+
+def _batch_runs(both, tmp_path_factory):
+    cfg = port_cfg(both["ref"][1])
+    train, test, labels = _port_split(both["split"])
+    out = {}
+    for name, (_, src) in (("port", both["port"]), ("ref", both["ref"])):
+        work = tmp_path_factory.mktemp(f"batch_{name}")
+        shutil.copytree(src, work, dirs_exist_ok=True)
+        rankers = {t: os.stat(work / f"ranker-gbdt-{t}.npz").st_mtime_ns for t in TYPES}
+        pipe = port_runner.Pipeline(cfg, str(work), SPEC.n_aids, device="cpu")
+        metrics = pipe.run(train, test, labels, batch_sessions=BATCH)
+        assert len(pipe.build_report.cache["loaded"]) == 7, pipe.build_report.cache
+        assert not pipe.build_report.cache["written"]
+        assert rankers == {t: os.stat(work / f"ranker-gbdt-{t}.npz").st_mtime_ns
+                           for t in TYPES}
+        out[name] = (metrics, work, (work / "submission.csv").read_text())
+        if name == "port":
+            assert pipe.run(train, test, None, batch_sessions=BATCH) == {}
+            out["rank"] = (work / "submission.csv").read_text()
+    return out
+
+
+def test_batch_runner_on_reference_work_dir(both, batch_runs):
+    """The port's Pipeline.run on otto_tpu's tables and rankers: otto_tpu's
+    ceiling and per-source report (host eval against otto_tpu's device
+    eval, within 1e-9) and recall@20 (exactly)."""
+    (ref_m, ref_dir), (got, work, _) = both["ref"], batch_runs["ref"]
+    for name in ("eval_retrieved.json", "eval_retrieved_sources.json"):
+        with open(os.path.join(ref_dir, name)) as a, open(work / name) as b:
+            close(json.load(b), json.load(a), 1e-9, name)
+    for k in ("ceiling_clicks", "ceiling_carts", "ceiling_orders", "ceiling_total"):
+        assert abs(got[k] - ref_m[k]) <= 1e-9, k
+    for k in ("clicks", "carts", "orders", "total"):
+        assert got[k] == ref_m[k], (k, got[k], ref_m[k])
+
+
+def test_batch_runner_matches_streaming(both, batch_runs):
+    """otto_tpu's test_streaming_runner_matches_batch on the port: the batch
+    runner (host C14 eval, score_and_topk in turn) against the streaming run
+    (device C14 eval, overlapped score_pass) on the same work dir: metrics
+    and reports within 1e-9, the same submission; the unlabelled run (the
+    CLI's rank) writes that submission too."""
+    (stream_m, port_dir), (got, work, sub) = both["port"], batch_runs["port"]
+    for k, v in got.items():
+        assert abs(v - stream_m[k]) <= 1e-9, (k, v, stream_m[k])
+    for name in ("eval_retrieved.json", "eval_retrieved_sources.json"):
+        with open(os.path.join(port_dir, name)) as a, open(work / name) as b:
+            close(json.load(b), json.load(a), 1e-9, name)
+    want = open(os.path.join(port_dir, "submission.csv")).read()
+    assert sub == want and batch_runs["rank"] == want
+    assert len(want.splitlines()) == 1 + 3 * len(np.unique(both["split"].test.session))
+
+
+def test_reference_reads_the_port_cache(both, tmp_path):
+    """otto_tpu's build_retriever on a copy of the port's work dir reads
+    every cached artifact and serves from the port's arrays: its tables
+    equal the port's."""
+    from otto_tpu.config import config_to_json as ref_config_to_json
+
+    (_, port_dir), sp = both["port"], both["split"]
+    work = tmp_path / "ref_reads_port"
+    shutil.copytree(port_dir, work)
+    ref_config_to_json(CFG, str(work / "config.json"))   # otto_tpu's own guard
+    with open(os.path.join(port_dir, "covis.pkl"), "rb") as fh:
+        stored = pickle.load(fh)
+    assert all(type(v) is tuple and all(type(a) is np.ndarray for a in v)
+               for v in stored.values())
+    mtimes = {f: os.stat(work / f).st_mtime_ns for f in os.listdir(work)
+              if f.endswith((".npz", ".pkl"))}
+    ref = Pipeline(cfg=CFG, work_dir=str(work), n_aids=SPEC.n_aids).build_retriever(
+        sp.train, sp.test)
+    assert mtimes == {f: os.stat(work / f).st_mtime_ns for f in mtimes}
+    train, test, _ = _port_split(sp)
+    with one_thread():
+        port = port_runner.Pipeline(port_cfg(both["ref"][1]), str(work), SPEC.n_aids,
+                                    device="cpu").build_retriever(train, test)
+    want = [np.asarray(x) for x in jax.tree_util.tree_leaves(ref.ctx)]
+    got = [t.numpy() for t in port.ctx.tensors()]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    for f in ("ids", "cluster", "emb"):
+        np.testing.assert_array_equal(getattr(port.sessions, f), getattr(ref.sessions, f))
+
+
+def test_pass_a_overlapped_equals_sequential(both, tmp_path):
+    """The streaming run's pass A (overlapped: consumer thread) against
+    pass A in turn on one thread, from the same cached tables: rows
+    (float16 bytes), labels, sessions, reports and metrics bit-equal."""
+    (_, port_dir), sp = both["port"], both["split"]
+    train, test, labels = _port_split(sp)
+    cfg = port_cfg(both["ref"][1])
+    with one_thread():
+        retriever, _ = port_runner.build_retriever(
+            train, test, SPEC.n_aids, "cpu", cfg.w2vec, None, cfg.covis, cfg.popularity,
+            cfg.retrieval, cfg.kmeans, cache_dir=port_dir)
+        _, rep = port_runner.pass_a(retriever, test, labels, cfg.ranker, str(tmp_path),
+                                    BATCH, overlap=False)
+    assert rep.phases["waiting for the consumer"] == 0.0
+    for name in ("eval_retrieved.json", "eval_retrieved_sources.json", "passA-metrics.json"):
+        assert (tmp_path / name).read_text() == open(os.path.join(port_dir, name)).read()
+    for t in TYPES:
+        got, want = np.load(tmp_path / f"downsampled-{t}.npz"), _rows(port_dir, t)
+        for k in ("feats", "y", "session"):
+            assert got[k].tobytes() == want[k].tobytes(), (t, k)
