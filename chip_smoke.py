@@ -12,8 +12,10 @@ Phases, each printed before the last line:
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search)
    and K4 (table row gather) against their plain PyTorch twins on the card
    at the main paths' shapes (K1 at the transport sort's and at the GBDT
-   tree walk's), with CUDA event times of kernel, twin and library call
-   and each kernel's bound.
+   tree walk's, with its launch plan), with CUDA event times of kernel,
+   twin and library call and each kernel's bound; then one transport sort
+   of 40 int32 columns at [2048, 4096] with K1 reading the columns by
+   pointer against the same sort on the stacked columns, timed in turns.
 4. Table build at production width from the generated events: synthetic
    OTTO-shaped sessions (1.8M aids, sessions up to 512 events, 500k
    sessions, ~11.5M events) and the port's build_retriever at otto_tpu's
@@ -50,7 +52,8 @@ Phases, each printed before the last line:
 5. Serving at production width from the built tables and the trained
    rankers: the port's score_pass (retrieval -> scoring -> top-20, batch
    2048, 32 kept aids, 512 candidates) over every test session and
-   submit_and_eval, checking that K1 and K2 were launched; then the
+   submit_and_eval, checking that K1 and K2 were launched and printing
+   K1's launches by call shape (B, S, P, W); then the
    heuristic baseline over the same sessions on the built co-visitation
    tables; recall@20 per type beside the ceiling and the baseline's. The
    data are synthetic, so the recalls show that the rankers rank, not what
@@ -185,29 +188,41 @@ def launch_counts():
 
 
 @contextlib.contextmanager
-def walk_launches(path):
-    """Count into WALK["launches"][path] the K1 launches made inside the
-    GBDT tree walk meanwhile: the calls of models/gbdt.py's gather_rows
-    (the walk, _predict_binned_program, is its only caller there) on CUDA
-    tensors with a non-empty output, one launch each. Counted per call, so
-    the retrieval's launches on another thread never enter the count."""
+def k1_calls(path):
+    """Count the K1 launches made meanwhile, from any thread, through
+    gather_rows's only callers, ops/segment.py (every transport sort) and
+    models/gbdt.py (the GBDT tree walk): each call on CUDA tensors with a
+    non-empty output is one launch. Yields {(B, S, P, W): launches} of
+    both callers and sets WALK["launches"][path] to the walk's. Counted
+    per call, so what other code launches meanwhile never enters."""
+    import threading
+
     from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops import segment
 
-    inner = gbdt.gather_rows
-    counts = WALK.setdefault("launches", {})
-    counts[path] = 0
+    hist, walk = {}, WALK.setdefault("launches", {})
+    walk[path] = 0
+    lock = threading.Lock()
+    inner = {m: m.gather_rows for m in (segment, gbdt)}
 
-    def counted(values, idx, check=False):
-        out = inner(values, idx, check)
-        if values.device.type == "cuda" and out.numel():
-            counts[path] += 1
-        return out
+    def counted(m, fn):
+        def call(values, idx, check=False):
+            out = fn(values, idx, check)
+            if idx.device.type == "cuda" and out.numel():
+                key = (out.shape[0], out.shape[1], values[0].shape[-1], out.shape[2])
+                with lock:
+                    hist[key] = hist.get(key, 0) + 1
+                    walk[path] += m is gbdt
+            return out
+        return call
 
-    gbdt.gather_rows = counted
+    for m, fn in inner.items():
+        m.gather_rows = counted(m, fn)
     try:
-        yield
+        yield hist
     finally:
-        gbdt.gather_rows = inner
+        for m, fn in inner.items():
+            m.gather_rows = fn
 
 
 def topk_max_err(got, want, q, c, metric):
@@ -300,10 +315,11 @@ def phase_kernels(dev, smi):
         else:
             out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
 
-    # K1: transport-sort shape (stacked columns moved through a row
-    # permutation, W = P) and the GBDT tree-walk shape (W = T = 150 > P = F,
-    # one level of one ranker on a 2048-session batch), each with its bound
-    # and one torch.gather
+    # K1: transport-sort shape (columns moved through a row permutation,
+    # W = P) and the GBDT tree-walk shape (W = T = 150 > P = F, one level of
+    # one ranker on a 2048-session batch), each with its bound and one
+    # torch.gather; float32 as random 32-bit words (NaN payloads included),
+    # compared as int32 words
     for B, S, P, W, perm in ((40, 2048, 4096, 4096, True),
                              (1, 2048 * 512, 104, 150, False)):
         if perm:
@@ -312,16 +328,15 @@ def phase_kernels(dev, smi):
         else:
             idx = torch.randint(0, P, (S, W), generator=g, device=dev,
                                 dtype=torch.int32)
+        print(f"# gather_rows plan {(B, S, P, W)}: {gather.plan(B, S, P, W)}")
         for dtype in (torch.int32, torch.float32):
-            if dtype == torch.int32:
-                v = torch.randint(-2**31, 2**31 - 1, (B, S, P), generator=g,
-                                  device=dev, dtype=torch.int32)
-            else:
-                v = torch.randn((B, S, P), generator=g, device=dev)
+            v = torch.randint(-2**31, 2**31 - 1, (B, S, P), generator=g,
+                              device=dev, dtype=torch.int32).view(dtype)
             got = gather.gather_rows(v, idx, check=True)
             want = gather.gather_rows_ref(v, idx)
             torch.cuda.synchronize()
-            require(torch.equal(got, want), f"K1 {dtype} {(B, S, P, W)} bit-equal")
+            require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                    f"K1 {dtype} {(B, S, P, W)} bit-equal")
             ms = cuda_ms(lambda: gather.gather_rows(v, idx))
             plain = cuda_ms(lambda: gather.gather_rows_ref(v, idx))
             head = None
@@ -337,6 +352,7 @@ def phase_kernels(dev, smi):
             report(f"gather_rows {dtype}", (B, S, P, W), 0.0, ms, plain, head)
             del v, got, want
         del idx
+    transport_sort_forms(dev, g, smi)
 
     # K2: groupby-scan shape; segment starts from sorted random keys
     B, S, P = 20, 2048, 4096
@@ -421,6 +437,38 @@ def phase_kernels(dev, smi):
         print(f"#   {gbs:.1f} GB/s (row bytes read + written)")
         del table, got, want
     return out
+
+
+def transport_sort_forms(dev, g, smi, B=40, S=2048, C=4096):
+    """One rowwise_transport_sort of B int32 columns at [S, C] (the sort's
+    shape in phase 3) as the port runs it, K1 reading the columns by
+    pointer, against the same sort with the columns first stacked into one
+    [B, S, C] tensor (what the sort did before): outputs equal, CUDA event
+    times taken in turns (stacked, list, list, stacked)."""
+    from otto_tpu_torch.ops import segment
+    from otto_tpu_torch.ops.kernels import gather
+
+    key = torch.randint(0, 1000, (S, C), generator=g, device=dev, dtype=torch.int32)
+    cols = [torch.randint(-2**31, 2**31 - 1, (S, C), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(B)]
+
+    def stacked():
+        ks, perm = torch.sort(key, dim=-1, stable=True)
+        return ks, gather.gather_rows(torch.stack(cols), perm.to(torch.int32))
+
+    def listed():
+        return segment.rowwise_transport_sort(key, cols)
+
+    (ka, a), (kb, b) = stacked(), listed()
+    require(torch.equal(ka, kb) and all(torch.equal(a[i], b[i]) for i in range(B)),
+            "transport sort: list form equal to the stacked form")
+    del a, b
+    times = [cuda_ms(fn) for fn in (stacked, listed, listed, stacked)]
+    st, ls = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    print(f"# rowwise_transport_sort {B} int32 columns at {[S, C]}: stacked then K1 "
+          f"{times[0]:.3f} / {times[3]:.3f} ms, columns by pointer {times[1]:.3f} / "
+          f"{times[2]:.3f} ms (in turns; means {st:.3f} vs {ls:.3f} ms, "
+          f"{st - ls:.3f} ms saved a sort) ({smi})")
 
 
 # --------------------------------------------------------------------------
@@ -729,7 +777,7 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
     cfg = GBDTConfig()
     rankers = {}
     zero_launch_counts()
-    with walk_launches("training"):
+    with k1_calls("training"):
         for t in TYPES:
             feats, y, sess = load_downsampled(work, t)
             torch.cuda.synchronize()
@@ -782,11 +830,15 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with walk_launches("serving"):
+    with k1_calls("serving") as shapes:
         preds = score_pass(retriever, sp.test, rankers, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    print(f"# K1 launches on the serving path by shape (B, S, P, W): "
+          f"{sorted(shapes.items(), key=lambda kv: (-kv[1], kv[0]))}")
+    require(sum(shapes.values()) == launches["gather_rows"],
+            f"K1 shape histogram covers every serving launch: {shapes} vs {launches}")
     peak = torch.cuda.max_memory_allocated()
     with tempfile.TemporaryDirectory() as work:
         recall = submit_and_eval(work, preds, sp.labels)

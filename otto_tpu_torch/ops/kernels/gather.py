@@ -1,12 +1,18 @@
-"""K1: batched row-wise gather `out[b, s, w] = values[b, s, idx[s, w]]`.
+"""K1: batched row-wise gather `out[b, s, w] = values[b][s, idx[s, w]]`.
 
-B stacked columns of one 4-byte dtype share one row-local index map; the
-index width W may differ from the row width P (the GBDT tree walk gathers
-T = 150 tree-bin columns from F = 104 feature columns). The CUDA kernel is
-`otto_tpu_torch/csrc/gather_rows.cu`; `gather_rows_ref` is its plain
-PyTorch twin. A CPU tensor goes to the twin, a CUDA tensor to the kernel.
+B columns of one 4-byte dtype share one row-local index map; the index
+width W may differ from the row width P (the GBDT tree walk gathers
+T = 150 tree-bin columns from F = 104 feature columns). The columns come
+either stacked, one [B, S, P] tensor, or as a sequence of B [S, P]
+tensors, which the kernel reads by pointer without stacking them. The
+CUDA kernel is `otto_tpu_torch/csrc/gather_rows.cu`; `gather_rows_ref` is
+its plain PyTorch twin. A CPU tensor goes to the twin, a CUDA tensor to
+the kernel.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -17,57 +23,107 @@ from otto_tpu_torch.ops.kernels import _build
 launches = 0
 
 _DTYPES = (torch.int32, torch.float32)
+# column pointers one launch takes (gather_rows.cu MAX_COLS)
+MAX_COLS = 256
+# dynamic shared memory of one block on sm_90 (gather_rows.cu SMEM_MAX):
+# the kernel needs at least one source row and one index row in it
+SMEM_BYTES = 232448
+
+Columns = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def gather_rows_ref(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain twin: `torch.gather` on the stack."""
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _shape(values: Columns) -> Tuple[int, int, int, torch.dtype, torch.device]:
+    """-> (B, S, P, dtype, device) of either form; raises on a form, a mix
+    of dtypes or devices the kernel does not take."""
+    if isinstance(values, torch.Tensor):
+        if values.dim() != 3:
+            raise ValueError(f"gather_rows: values {tuple(values.shape)} are not [B, S, P]")
+        return (*values.shape, values.dtype, values.device)
+    cols = list(values)
+    if not cols:
+        raise ValueError("gather_rows: an empty column list has no shape")
+    first = cols[0]
+    if any(not isinstance(c, torch.Tensor) or c.dim() != 2 or c.shape != first.shape
+           for c in cols):
+        raise ValueError("gather_rows: columns are not tensors of one [S, P] shape")
+    if any(c.dtype != first.dtype for c in cols):
+        raise TypeError("gather_rows: columns of more than one dtype: "
+                        f"{sorted({str(c.dtype) for c in cols})}")
+    if any(c.device != first.device for c in cols):
+        raise ValueError("gather_rows: columns on more than one device")
+    return (len(cols), *first.shape, first.dtype, first.device)
+
+
+def gather_rows_ref(values: Columns, idx: torch.Tensor) -> torch.Tensor:
+    """Plain twin: `torch.gather` on the stack (a column list is stacked)."""
+    if not isinstance(values, torch.Tensor):
+        values = torch.stack(list(values))
     B = values.shape[0]
     ix = idx.long().unsqueeze(0).expand(B, -1, -1)
     return torch.gather(values, 2, ix)
 
 
-def gather_rows(
-    values: torch.Tensor, idx: torch.Tensor, check: bool = False
-) -> torch.Tensor:
-    """values [B, S, P] int32 | float32, idx [S, W] int32 in [0, P) ->
-    [B, S, W]. `check=True` verifies the index range first (one device
-    sync; the kernel itself does not bound-check)."""
-    if values.dim() != 3 or idx.dim() != 2 or idx.shape[0] != values.shape[1]:
-        raise ValueError(
-            f"gather_rows: values {tuple(values.shape)} / idx "
-            f"{tuple(idx.shape)} are not [B, S, P] / [S, W]"
-        )
-    if values.dtype not in _DTYPES or idx.dtype != torch.int32:
-        raise TypeError(
-            f"gather_rows: values {values.dtype} (int32|float32), "
-            f"idx {idx.dtype} (int32)"
-        )
-    if values.device != idx.device:
+def gather_rows(values: Columns, idx: torch.Tensor, check: bool = False) -> torch.Tensor:
+    """values [B, S, P] int32 | float32, or a sequence of B [S, P] tensors
+    of one such dtype and device; idx [S, W] int32 in [0, P) -> [B, S, W].
+    B is at most MAX_COLS, and one source row and one index row must fit
+    a block's shared memory (16 + P and W words each rounded up to 16
+    bytes <= SMEM_BYTES). `check=True` verifies the index range first (one
+    device sync; the kernel itself does not bound-check)."""
+    B, S, P, dtype, device = _shape(values)
+    if idx.dim() != 2 or idx.shape[0] != S:
+        raise ValueError(f"gather_rows: values {(B, S, P)} / idx {tuple(idx.shape)} "
+                         "are not [B, S, P] / [S, W]")
+    if dtype not in _DTYPES or idx.dtype != torch.int32:
+        raise TypeError(f"gather_rows: values {dtype} (int32|float32), idx {idx.dtype} (int32)")
+    if device != idx.device:
         raise ValueError("gather_rows: values and idx on different devices")
-    B, S, P = values.shape
     W = idx.shape[1]
-    if check and idx.numel() and (
-        int(idx.min()) < 0 or int(idx.max()) >= P
-    ):
+    if B > MAX_COLS:
+        raise ValueError(f"gather_rows: {B} columns, above the kernel's {MAX_COLS} "
+                         "column pointers")
+    need = 16 + _round16(4 * P) + _round16(4 * W)
+    if need > SMEM_BYTES:
+        raise ValueError(f"gather_rows: one source row (P = {P}) and one index row "
+                         f"(W = {W}) need {need} bytes of shared memory, above the "
+                         f"{SMEM_BYTES} a block has")
+    if check and idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= P):
         raise IndexError(f"gather_rows: index outside [0, {P})")
-    if values.device.type == "cpu":
+    if device.type == "cpu":
         return gather_rows_ref(values, idx)
-    if values.device.type != "cuda":
-        raise ValueError(f"gather_rows: no kernel for {values.device}")
-    values = values.contiguous()
+    if device.type != "cuda":
+        raise ValueError(f"gather_rows: no kernel for {device}")
+    if isinstance(values, torch.Tensor):
+        values = values.contiguous()
+        bases = [values.data_ptr() + 4 * S * P * b for b in range(B)]
+    else:
+        values = [c.contiguous() for c in values]
+        bases = [c.data_ptr() for c in values]
     idx = idx.contiguous()
-    out = torch.empty((B, S, W), dtype=values.dtype, device=values.device)
+    out = torch.empty((B, S, W), dtype=dtype, device=device)
     if out.numel() == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(values.device):
+    ptrs = (ctypes.c_void_p * B)(*bases)
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.otto_gather_rows(
-            values.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            B, S, P, W, stream,
-        )
+        err = lib.otto_gather_rows(ptrs, B, idx.data_ptr(), out.data_ptr(), S, P, W, stream)
     _build.check(err, "gather_rows")
     global launches
     with _build.count_lock:   # the pipelined runners launch from two threads
         launches += 1
     return out
+
+
+def plan(B: int, S: int, P: int, W: int, device=None) -> dict:
+    """The kernel's launch plan for a shape on a CUDA device: rows per tile,
+    ring stages, index slots, shared bytes a block, blocks an SM, grid."""
+    lib = _build.load()
+    got = (ctypes.c_int * 6)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _build.check(lib.otto_gather_rows_plan(B, S, P, W, got), "gather_rows plan")
+    return dict(zip(("rows", "stages", "islots", "smem", "blocks_per_sm", "grid"), got))

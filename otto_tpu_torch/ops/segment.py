@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from otto_tpu_torch.ops.kernels.gather import gather_rows
+from otto_tpu_torch.ops.kernels.gather import MAX_COLS, gather_rows
 from otto_tpu_torch.ops.kernels.segscan import identity as _reduce_identity
 from otto_tpu_torch.ops.kernels.segscan import segmented_scan
 
@@ -262,7 +262,8 @@ def rowwise_transport_sort(
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Stable-sort `arrays` by `key` [S, C] along the last axis: one key
     sort, then every column moves through the permutation in one K1 gather
-    per dtype. Returns (sorted_key, [sorted_arrays...])."""
+    per dtype (per MAX_COLS columns), which reads the columns where they
+    lie. Returns (sorted_key, [sorted_arrays...])."""
     ks, perm = torch.sort(key, dim=-1, stable=True)
     if not arrays:
         return ks, []
@@ -272,9 +273,11 @@ def rowwise_transport_sort(
         groups.setdefault(a.dtype, []).append(i)
     outs: List[torch.Tensor] = [None] * len(arrays)
     for idxs in groups.values():
-        g = gather_rows(torch.stack([arrays[i] for i in idxs]), perm32)
-        for j, i in enumerate(idxs):
-            outs[i] = g[j]
+        for c0 in range(0, len(idxs), MAX_COLS):
+            part = idxs[c0:c0 + MAX_COLS]
+            g = gather_rows([arrays[i] for i in part], perm32)
+            for j, i in enumerate(part):
+                outs[i] = g[j]
     return ks, outs
 
 

@@ -19,14 +19,33 @@ width (phase 4: 500k generated sessions, through a Pipeline on a
 temporary work dir), pass A over every test session and three rankers
 (`--trees` trees each) from its rows, and a score_pass over every test
 session (phase 5's path). Needs a CUDA device.
+
+Probes of fault 1 at the first check (the one that has failed):
+`--first-threads N` runs that check with `torch.set_num_threads(N)`;
+`--locate` records every float32 `torch.einsum` and `torch.linalg.norm`
+call of the first CPU retrieval run (the terms of eucl_dist_ses_aid: the
+dot products, the session norms and the candidate norms) and prints the
+largest error of each against float64 on the same inputs, split into the
+calling thread's share of the rows (the first 1/threads) and the rest.
+`--trace-ops` hashes every aten op's CPU output in the first check's two
+CPU runs (8 blocks along the first dimension) and prints the ops whose
+outputs differ, in order. The calling thread's CPU math state (threads, oneDNN and float32
+precision settings, CPU capability, autocast and grad modes, MXCSR) is
+printed before and after the history.
 """
 import argparse
+import contextlib
+import ctypes
+import hashlib
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,12 +79,169 @@ def history(dev, smi, trees):
           f"{n} sessions in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _mxcsr():
+    """The calling thread's MXCSR (SSE rounding mode, flush-to-zero,
+    denormals-are-zero), read by a two-line helper that the host compiler
+    builds in a temporary directory; None without a compiler."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        return None
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = os.path.join(tmp, "mxcsr.c"), os.path.join(tmp, "libmxcsr.so")
+        with open(src, "w") as f:
+            f.write("unsigned otto_mxcsr(void) { return __builtin_ia32_stmxcsr(); }\n")
+        if subprocess.run([cxx, "-x", "c", "-O1", "-fPIC", "-shared", "-o", lib, src],
+                          capture_output=True).returncode:
+            return None
+        fn = ctypes.CDLL(lib).otto_mxcsr
+        fn.restype = ctypes.c_uint
+        return f"0x{fn():04x}"
+
+
+def math_state(when):
+    """Print the calling thread's CPU math state."""
+    mk = torch.backends.mkldnn
+    state = {
+        "threads": torch.get_num_threads(), "interop_threads": torch.get_num_interop_threads(),
+        "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS"),
+        "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+        "mkldnn": (mk.is_available(), mk.enabled),
+        "mkldnn.matmul.fp32_precision": getattr(getattr(mk, "matmul", None), "fp32_precision", None),
+        "mkldnn.conv.fp32_precision": getattr(getattr(mk, "conv", None), "fp32_precision", None),
+        "fp32_precision": getattr(torch.backends, "fp32_precision", None),
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "autocast_cpu": (torch.is_autocast_enabled("cpu"), str(torch.get_autocast_dtype("cpu"))),
+        "grad": torch.is_grad_enabled(), "inference_mode": torch.is_inference_mode_enabled(),
+        "flush_denormal_mxcsr": _mxcsr(),
+    }
+    print(f"# math state {when}: {json.dumps(state, default=str)}", flush=True)
+
+
+class Locate:
+    """Records the float32 CPU einsum / norm calls of the first CPU
+    retrieve_batch and holds each to float64 on the same inputs."""
+
+    def __init__(self):
+        from otto_tpu_torch.engine import retrieval
+
+        self.retrieval = retrieval
+        self.inner = (torch.einsum, torch.linalg.norm, retrieval.retrieve_batch)
+        self.armed = False
+        self.done = False
+        self.calls = []
+
+    def _record(self, name, fn, args, kwargs):
+        out = fn(*args, **kwargs)
+        ts = [a for a in args if isinstance(a, torch.Tensor)]
+        if self.armed and ts and all(t.device.type == "cpu" and t.dtype == torch.float32
+                                     for t in ts):
+            ref = fn(*[a.double() if isinstance(a, torch.Tensor) else a for a in args],
+                     **kwargs)
+            err = (out.double() - ref).abs()
+            err = err / ref.abs().clamp(min=1e-6) if name == "norm" else err
+            share = max(1, out.shape[0] // torch.get_num_threads()) if out.dim() else 1
+            self.calls.append({
+                "op": name, "shapes": [tuple(t.shape) for t in ts],
+                "threads": torch.get_num_threads(),
+                "calling_share_max": float(err[:share].max()) if err.numel() else 0.0,
+                "rest_max": float(err[share:].max()) if err[share:].numel() else 0.0,
+                "bad_rows": int((err.reshape(err.shape[0], -1).amax(1) > 1e-4).sum())
+                if err.dim() else int(err > 1e-4)})
+        return out
+
+    def __enter__(self):
+        einsum, norm, retrieve = self.inner
+        torch.einsum = lambda *a, **k: self._record("einsum", einsum, a, k)
+        torch.linalg.norm = lambda *a, **k: self._record("norm", norm, a, k)
+
+        def first_cpu(*a, **k):
+            arm = not self.done and a[0][0].device.type == "cpu"
+            self.armed = arm
+            try:
+                return retrieve(*a, **k)
+            finally:
+                self.armed = False
+                self.done = self.done or arm
+        self.retrieval.retrieve_batch = first_cpu
+        return self
+
+    def __exit__(self, *exc):
+        torch.einsum, torch.linalg.norm, self.retrieval.retrieve_batch = self.inner
+        for c in self.calls:
+            print(f"# locate (first CPU run): {json.dumps(c)}", flush=True)
+
+
+class OpTrace:
+    """Logs every aten op of the first two CPU retrieve_batch calls (the
+    cross-check's first and second CPU runs of one batch) with a hash of
+    each CPU output in 8 blocks of its first dimension, and prints the ops
+    whose outputs differ between the two runs, in order, with the blocks
+    that differ: the first of them is where the first run went wrong."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from otto_tpu_torch.engine import retrieval
+
+        logs = self.logs = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if "empty" in str(func):    # uninitialised memory
+                    return out
+                for t in torch.utils._pytree.tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and t.device.type == "cpu" and t.numel():
+                        a = np.ascontiguousarray(t.detach().numpy())
+                        blocks = a.view(np.uint8).reshape(t.shape[0] if t.dim() else 1, -1)
+                        step = -(-blocks.shape[0] // 8)
+                        logs[-1].append((str(func), tuple(t.shape), str(t.dtype), tuple(
+                            hashlib.sha1(blocks[i:i + step].tobytes()).hexdigest()[:12]
+                            for i in range(0, blocks.shape[0], step))))
+                return out
+
+        self.mode = Mode
+        self.retrieval = retrieval
+        self.inner = retrieval.retrieve_batch
+
+    def __enter__(self):
+        def traced(*a, **k):
+            if len(self.logs) >= 2 or a[0][0].device.type != "cpu":
+                return self.inner(*a, **k)
+            self.logs.append([])
+            with self.mode():
+                return self.inner(*a, **k)
+        self.retrieval.retrieve_batch = traced
+        return self
+
+    def __exit__(self, *exc):
+        self.retrieval.retrieve_batch = self.inner
+        if len(self.logs) < 2:
+            return
+        first, second = self.logs
+        diff = [(i, f[0], f[1], f[2], [b for b, (x, y) in enumerate(zip(f[3], g[3])) if x != y])
+                for i, (f, g) in enumerate(zip(first, second)) if f != g]
+        print(f"# op trace: {len(first)} / {len(second)} CPU ops in the first / second run, "
+              f"{len(diff)} outputs differ; first ones (index, op, shape, dtype, blocks of "
+              f"8 along dim 0 that differ): {diff[:12]}", flush=True)
+        if diff:
+            i = diff[0][0]
+            print(f"# op trace: the ops before the first difference: {first[max(0, i - 6):i]}",
+                  flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=50)
     ap.add_argument("--history", action="store_true",
                     help="run chip_smoke.py's phases 3-5 first, in this process")
     ap.add_argument("--trees", type=int, default=25, help="trees a ranker in --history")
+    ap.add_argument("--first-threads", type=int, default=0,
+                    help="torch.set_num_threads for the first check (0: leave as is)")
+    ap.add_argument("--locate", action="store_true",
+                    help="hold the first CPU run's einsum / norm calls to float64")
+    ap.add_argument("--trace-ops", action="store_true",
+                    help="compare every CPU op's output between the first check's two CPU runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("repeat_cross_check: no CUDA device", file=sys.stderr)
@@ -76,20 +252,34 @@ def main():
     pin_fp32()
     smi = chip_smoke.phase_device()
     chip_smoke.phase_build()
+    math_state("before the history")
     if args.history:
         history(dev, smi, args.trees)
+    math_state("after the history")
     failures = []
     t0 = time.perf_counter()
     for i in range(args.runs):
         seed = chip_smoke.SEED + 1 + i
+        threads = torch.get_num_threads()
         try:
-            first_run = chip_smoke.cross_check_retrieval(dev, seed, quiet=True)[-1]
+            with contextlib.ExitStack() as stack:
+                if i == 0 and args.locate:
+                    stack.enter_context(Locate())
+                if i == 0 and args.trace_ops:
+                    stack.enter_context(OpTrace())
+                if i == 0 and args.first_threads:
+                    torch.set_num_threads(args.first_threads)
+                    stack.callback(torch.set_num_threads, threads)
+                first_run = chip_smoke.cross_check_retrieval(dev, seed, quiet=True)[-1]
             if first_run is not None:
                 failures.append({"seed": seed, "message": first_run})
         except RuntimeError as e:
             failures.append({"seed": seed, "message": str(e)})
             print(f"# seed {seed}: {e}", flush=True)
-    print(json.dumps({"runs": args.runs, "history": args.history, "failures": len(failures),
+    print(json.dumps({"runs": args.runs, "history": args.history,
+                      "first_threads": args.first_threads or torch.get_num_threads(),
+                      "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS"),
+                      "failures": len(failures),
                       "seeds_failed": [f["seed"] for f in failures],
                       "seconds": round(time.perf_counter() - t0, 1), "card": smi}))
     return 0

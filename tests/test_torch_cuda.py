@@ -21,23 +21,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K1's edges: the walk's and the sort's shapes, S = 1, S not a multiple of
+# the tile rows (10007 rows in 36-row tiles, 20011 in 24-row tiles), odd P
+# and W (tiles whose bytes are not a multiple of 16: the kernel's own
+# word-by-word path), B = 1 and B at the column-pointer limit, P at the
+# shared-memory limit (one source row and one index row of W = 8 fill a
+# block's 232,448 bytes: a one-stage ring)
+K1_P_MAX = (gather.SMEM_BYTES - 16) // 4 - 8
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stacked", "list", "odd_views"])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize(
     "B,S,P,W", [(3, 9, 300, 300), (1, 1000, 104, 150), (2, 7, 4000, 4000),
-                (2, 5, 15000, 3)],
+                (2, 5, 15000, 3), (1, 1, 104, 150), (3, 1, 4096, 4096),
+                (1, 10007, 104, 150), (2, 20011, 301, 151), (5, 17, 7, 5),
+                (gather.MAX_COLS, 9, 36, 17), (1, 3, K1_P_MAX, 8)],
 )
-def test_cuda_gather_matches_twin(cuda_device, dtype, B, S, P, W):
+def test_cuda_gather_matches_twin(cuda_device, dtype, B, S, P, W, form):
+    """Random 32-bit words (as float32: NaNs with payloads, infinities,
+    denormals) through the kernel, stacked, as a list of columns and as a
+    list of views at an odd word offset (no column 16-byte aligned): bit
+    for bit the twin's, compared as int32 words, and the list forms equal
+    to the stacked form."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    vals = torch.randint(-1000, 1000, (B, S, P), generator=g,
-                         device=cuda_device).to(dtype)
+    words = torch.randint(-2**31, 2**31 - 1, (B * S * P + 1,), generator=g,
+                          device=cuda_device, dtype=torch.int32)
+    vals = words[:B * S * P].view(B, S, P).view(dtype)
+    if form == "stacked":
+        arg = vals
+    elif form == "list":
+        arg = [vals[b].clone() for b in range(B)]
+    else:
+        arg = [words[1 + b * S * P:1 + (b + 1) * S * P].view(S, P).view(dtype)
+               for b in range(B)]
+        vals = torch.stack(arg)
     idx = torch.randint(0, P, (S, W), generator=g, device=cuda_device,
                         dtype=torch.int32)
     before = gather.launches
-    got = gather.gather_rows(vals, idx, check=True)
+    got = gather.gather_rows(arg, idx, check=True)
     torch.cuda.synchronize()
     assert gather.launches == before + 1
-    assert torch.equal(got, gather.gather_rows_ref(vals, idx))
+    want = gather.gather_rows_ref(arg, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if form != "stacked":
+        stacked = gather.gather_rows(vals, idx)
+        assert torch.equal(got.view(torch.int32), stacked.view(torch.int32))
 
 
 @pytest.mark.cuda

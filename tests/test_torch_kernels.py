@@ -60,6 +60,93 @@ def test_gather_width_differs(W):
     _check_gather(vals, idx)
 
 
+# the cases above, each also given as a list of B column tensors
+_LIST_CASES = {
+    "odd": (7, (3, 9, 300), None),
+    "repeated": (8, (2, 8, 256), 256),
+    "width150": (9, (1, 37, 104), 150),
+    "width40": (9, (1, 37, 104), 40),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", sorted(_LIST_CASES))
+def test_gather_column_list_matches_stack_and_pallas(case, dtype):
+    """The sequence-of-columns form is bit-equal to the stacked form, to
+    the twin on either form and to otto_tpu's Pallas gather_rows."""
+    seed, (B, S, P), W = _LIST_CASES[case]
+    rng = np.random.default_rng(seed)
+    vals = _vals(rng, (B, S, P), dtype)
+    if W is None:
+        idx = np.stack([rng.permutation(P) for _ in range(S)]).astype(np.int32)
+    else:
+        idx = rng.integers(0, P, (S, W)).astype(np.int32)
+    want = np.asarray(
+        pallas_gather_rows(jnp.asarray(vals), jnp.asarray(idx), interpret=True)
+    )
+    t, ix = torch.from_numpy(vals), torch.from_numpy(idx)
+    cols = [torch.from_numpy(vals[b].copy()) for b in range(B)]
+    stacked = gather.gather_rows(t, ix)
+    listed = gather.gather_rows(cols, ix)
+    assert listed.shape == (B, S, ix.shape[1]) and listed.dtype == t.dtype
+    for got in (listed, stacked, gather.gather_rows_ref(cols, ix),
+                gather.gather_rows(tuple(cols), ix)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_column_views():
+    """Non-contiguous and offset column views give the contiguous answer."""
+    rng = np.random.default_rng(10)
+    wide = torch.from_numpy(rng.integers(-9, 9, (5, 2 * 33 + 1)).astype(np.int32))
+    cols = [wide[:, 1:34], wide[:, 34:], wide.t()[:33].t()[:, :33]]
+    idx = torch.from_numpy(rng.integers(0, 33, (5, 20)).astype(np.int32))
+    want = gather.gather_rows(torch.stack([c.contiguous() for c in cols]), idx)
+    assert torch.equal(gather.gather_rows(cols, idx), want)
+
+
+def test_gather_rejects_bad_column_lists():
+    ix = torch.zeros((4, 8), dtype=torch.int32)
+    a = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(TypeError):      # mixed dtypes
+        gather.gather_rows([a, a.float()], ix)
+    with pytest.raises(ValueError):     # mixed devices
+        gather.gather_rows([a, a.to("meta")], ix)
+    with pytest.raises(ValueError):     # shapes differ
+        gather.gather_rows([a, a[:, :4]], ix)
+    with pytest.raises(ValueError):     # not [S, P]
+        gather.gather_rows([a[None]], ix)
+    with pytest.raises(ValueError):     # no column to take a shape from
+        gather.gather_rows([], ix)
+
+
+def test_gather_rejects_too_many_columns():
+    """B above the kernel's column pointers is refused in either form."""
+    ix = torch.zeros((2, 3), dtype=torch.int32)
+    cols = [torch.zeros((2, 3), dtype=torch.int32)] * (gather.MAX_COLS + 1)
+    with pytest.raises(ValueError, match="column pointers"):
+        gather.gather_rows(cols, ix)
+    with pytest.raises(ValueError, match="column pointers"):
+        gather.gather_rows(torch.zeros((gather.MAX_COLS + 1, 2, 3), dtype=torch.int32), ix)
+    # at the limit it runs
+    out = gather.gather_rows(cols[:gather.MAX_COLS], ix)
+    assert out.shape == (gather.MAX_COLS, 2, 3)
+
+
+def test_gather_rejects_rows_above_shared_memory():
+    """One source row and one index row must fit a block's shared memory:
+    P + W = 58108 words fit (16 + 4P + 4W bytes = SMEM_BYTES), one more
+    word does not."""
+    W = 8
+    P_max = (gather.SMEM_BYTES - 16) // 4 - W
+    ix = torch.zeros((1, W), dtype=torch.int32)
+    out = gather.gather_rows(torch.ones((1, 1, P_max), dtype=torch.float32), ix)
+    assert torch.equal(out, torch.ones((1, 1, W)))
+    with pytest.raises(ValueError, match="shared memory"):
+        gather.gather_rows(torch.zeros((1, 1, P_max + 1), dtype=torch.float32), ix)
+    with pytest.raises(ValueError, match="shared memory"):
+        gather.gather_rows([torch.zeros((1, P_max + 1), dtype=torch.int32)], ix)
+
+
 def test_gather_rejects_bad_inputs():
     v = torch.zeros((1, 4, 8), dtype=torch.int64)
     with pytest.raises(TypeError):

@@ -82,6 +82,54 @@ def test_rowwise_transport_sort():
         _eq(g, w)
 
 
+def test_rowwise_transport_sort_reads_columns_in_place(monkeypatch):
+    """The sort hands K1 its columns as they are: no torch.stack, and
+    non-contiguous column views sort as otto_tpu sorts their copies."""
+    key = _keys(13)
+    rng = np.random.default_rng(14)
+    wide = rng.integers(-1000, 1000, (S, 3 * C)).astype(np.int32)
+    arrays = [wide[:, 1:C + 1], wide[:, C + 1:2 * C + 1],
+              rng.normal(size=(C, S)).astype(np.float32).T]
+    wk, wout = ref_seg.rowwise_transport_sort(
+        jnp.asarray(key), [jnp.asarray(np.ascontiguousarray(a)) for a in arrays])
+    wt = torch.from_numpy(wide)
+    cols = [wt[:, 1:C + 1], wt[:, C + 1:2 * C + 1], torch.from_numpy(arrays[2].T.copy()).t()]
+
+    def no_stack(*a, **k):
+        raise AssertionError("rowwise_transport_sort stacked its columns")
+
+    monkeypatch.setattr(torch, "stack", no_stack)
+    # the twin stacks on the CPU: hold the sort to the kernel's list form
+    # through a twin that gathers column by column
+    from otto_tpu_torch.ops.kernels import gather
+
+    monkeypatch.setattr(gather, "gather_rows_ref", lambda v, ix: torch.cat(
+        [torch.gather(c, 1, ix.long())[None] for c in v]))
+    gk, gout = port_seg.rowwise_transport_sort(torch.from_numpy(key), cols)
+    _eq(gk, wk)
+    for g, w in zip(gout, wout):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("max_cols", [1, 2, 64])
+def test_rowwise_groupby_scan_column_chunks(monkeypatch, max_cols):
+    """More columns of one dtype than a K1 launch takes go in several
+    launches, with outputs unchanged against otto_tpu."""
+    monkeypatch.setattr(port_seg, "MAX_COLS", max_cols)
+    key = _keys(15)
+    cols = _cols(16)
+    cols["g"] = (np.random.default_rng(17).integers(0, 5, (S, C)).astype(np.int32),
+                 "carry")
+    wk, wout, wend, wn = ref_seg.rowwise_groupby_scan(jnp.asarray(key), _j(cols))
+    gk, gout, gend, gn = port_seg.rowwise_groupby_scan(torch.from_numpy(key), _t(cols))
+    _eq(gk, wk)
+    _eq(gend, wend)
+    _eq(gn, wn)
+    for n in cols:
+        _eq(gout[n], wout[n])
+
+
 @pytest.mark.parametrize("seed", [5, 6])
 def test_segmented_scan(seed):
     rng = np.random.default_rng(seed)
