@@ -12,10 +12,11 @@ Phases, each printed before the last line:
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search)
    and K4 (table row gather) against their plain PyTorch twins on the card
    at the main paths' shapes (K1 at the transport sort's and at the GBDT
-   tree walk's, with its launch plan), with CUDA event times of kernel,
-   twin and library call and each kernel's bound; then one transport sort
-   of 40 int32 columns at [2048, 4096] with K1 reading the columns by
-   pointer against the same sort on the stacked columns, timed in turns.
+   tree walk's), with CUDA event times of kernel, twin and library call
+   and each kernel's bound; then one transport sort of 40 int32 columns
+   at [2048, 4096] with K1 reading the columns by pointer, held bit for
+   bit to torch.sort plus the twin and to the same sort on the stacked
+   columns, the two forms timed in turns.
 4. Table build at production width from the generated events: synthetic
    OTTO-shaped sessions (1.8M aids, sessions up to 512 events, 500k
    sessions, ~11.5M events) and the port's build_retriever at otto_tpu's
@@ -114,6 +115,9 @@ EMB_D = 100
 KNN_K = 20
 KNN_QUERIES = 600_000      # knn_first_n_aids
 N_CLUSTERS = 50
+# the transport sort's K1 call in phase 3: 40 int32 columns of
+# [BATCH, 4096] session rows
+SORT_B, SORT_C = 40, 4096
 
 # K3 scores: 3xTF32 tensor-core sums in the kernel (about 2^-21 relative per
 # product) against cuBLAS's float32 sums in the twin, far inside this share
@@ -320,15 +324,14 @@ def phase_kernels(dev, smi):
     # one ranker on a 2048-session batch), each with its bound and one
     # torch.gather; float32 as random 32-bit words (NaN payloads included),
     # compared as int32 words
-    for B, S, P, W, perm in ((40, 2048, 4096, 4096, True),
-                             (1, 2048 * 512, 104, 150, False)):
+    for B, S, P, W, perm in ((SORT_B, BATCH, SORT_C, SORT_C, True),
+                             (1, BATCH * 512, 104, 150, False)):
         if perm:
             idx = torch.argsort(torch.rand((S, P), generator=g, device=dev),
                                 dim=1).to(torch.int32)
         else:
             idx = torch.randint(0, P, (S, W), generator=g, device=dev,
                                 dtype=torch.int32)
-        print(f"# gather_rows plan {(B, S, P, W)}: {gather.plan(B, S, P, W)}")
         for dtype in (torch.int32, torch.float32):
             v = torch.randint(-2**31, 2**31 - 1, (B, S, P), generator=g,
                               device=dev, dtype=torch.int32).view(dtype)
@@ -439,15 +442,18 @@ def phase_kernels(dev, smi):
     return out
 
 
-def transport_sort_forms(dev, g, smi, B=40, S=2048, C=4096):
-    """One rowwise_transport_sort of B int32 columns at [S, C] (the sort's
-    shape in phase 3) as the port runs it, K1 reading the columns by
-    pointer, against the same sort with the columns first stacked into one
-    [B, S, C] tensor (what the sort did before): outputs equal, CUDA event
-    times taken in turns (stacked, list, list, stacked)."""
+def transport_sort_forms(dev, g, smi):
+    """One rowwise_transport_sort of SORT_B int32 columns at [BATCH,
+    SORT_C] (the sort's shape in phase 3) as the port runs it, K1 reading
+    the columns by pointer, against torch.sort and the plain twin on the
+    same columns, and against the same sort with the columns first stacked
+    into one tensor (what the sort did before): outputs bit-equal, CUDA
+    event times of the two forms taken in turns (stacked, list, list,
+    stacked)."""
     from otto_tpu_torch.ops import segment
     from otto_tpu_torch.ops.kernels import gather
 
+    B, S, C = SORT_B, BATCH, SORT_C
     key = torch.randint(0, 1000, (S, C), generator=g, device=dev, dtype=torch.int32)
     cols = [torch.randint(-2**31, 2**31 - 1, (S, C), generator=g, device=dev,
                           dtype=torch.int32) for _ in range(B)]
@@ -459,10 +465,14 @@ def transport_sort_forms(dev, g, smi, B=40, S=2048, C=4096):
     def listed():
         return segment.rowwise_transport_sort(key, cols)
 
+    ks, perm = torch.sort(key, dim=-1, stable=True)
+    plain = gather.gather_rows_ref(cols, perm)
     (ka, a), (kb, b) = stacked(), listed()
+    require(torch.equal(ks, kb) and all(torch.equal(plain[i], b[i]) for i in range(B)),
+            "transport sort: list form equal to torch.sort and the plain twin")
     require(torch.equal(ka, kb) and all(torch.equal(a[i], b[i]) for i in range(B)),
             "transport sort: list form equal to the stacked form")
-    del a, b
+    del a, b, plain, perm
     times = [cuda_ms(fn) for fn in (stacked, listed, listed, stacked)]
     st, ls = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
     print(f"# rowwise_transport_sort {B} int32 columns at {[S, C]}: stacked then K1 "

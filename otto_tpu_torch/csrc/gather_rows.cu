@@ -23,12 +23,13 @@
 //     not first copy them into one stacked tensor, which cost a full
 //     extra read and write of the source.
 //   * Tile and ring sizes follow the shape: narrow rows (the GBDT walk,
-//     P = 104, W = 150) take 56 rows a tile with the ring over tiles;
-//     wide rows (the transport sort, P = W = 4096) two rows a tile with
-//     the ring over the columns. At the main paths' shapes one block
-//     fills an SM's shared memory (measured on the H100: 1.5% faster at
-//     the sort's shape than two blocks of half the tile, level at the
-//     walk's); smaller plans leave room for more blocks an SM.
+//     P = 104, W = 150) take 56 rows a tile, 4 stages and 4 index slots,
+//     the ring running over tiles; wide rows (the transport sort,
+//     P = W = 4096, B = 40) two rows a tile, 4 stages and 2 index slots,
+//     the ring running over the columns. At the main paths' shapes one
+//     block fills an SM's shared memory (measured on the H100: 1.5%
+//     faster at the sort's shape than two blocks of half the tile, level
+//     at the walk's); smaller plans leave room for more blocks an SM.
 //   * An item whose global address or byte count is not a multiple of 16
 //     (an odd-offset column view, the last short tile of an odd width)
 //     cannot go by bulk copy: its threads copy it word by word into the
@@ -315,25 +316,6 @@ bool make_plan(int B, int S, int P, int W, int sms, Plan* out) {
   return false;
 }
 
-// The plan for a shape on the current device, with blocks an SM and the
-// grid (at most one block a tile). false: the shape is not one the kernel
-// takes (B above MAX_COLS, no row of source and index fits a block).
-bool device_plan(int B, int S, int P, int W, Plan* p, int* per_sm, int* grid) {
-  if (B < 1 || B > MAX_COLS || S < 1 || P < 1 || W < 1) return false;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!make_plan(B, S, P, W, sms, p)) return false;
-  cudaFuncSetAttribute(gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       SMEM_MAX);
-  *per_sm = 1;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gather_rows_kernel, THREADS, p->smem);
-  if (*per_sm < 1) *per_sm = 1;
-  const int tiles = (S + p->rows - 1) / p->rows;
-  *grid = tiles < *per_sm * sms ? tiles : *per_sm * sms;
-  return true;
-}
-
 }  // namespace
 
 // cols: B column bases, each [S, P] 4-byte words, row-major; idx [S, W]
@@ -343,30 +325,29 @@ bool device_plan(int B, int S, int P, int W, Plan* p, int* per_sm, int* grid) {
 extern "C" int otto_gather_rows(const void* const* cols, int B, const void* idx, void* out,
                                 int S, int P, int W, void* stream) {
   if (B == 0 || S == 0 || W == 0) return static_cast<int>(cudaGetLastError());
-  Plan p;
-  int per_sm = 0, grid = 0;
-  if (!device_plan(B, S, P, W, &p, &per_sm, &grid)) {
+  if (B < 0 || B > MAX_COLS || S < 0 || P < 1 || W < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // four runtime queries a launch: kept once per device instead, they
+  // saved no host time measurable beside the Python wrapper's own
+  // (scripts/bench_k1.py, "host")
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  Plan p;
+  if (!make_plan(B, S, P, W, sms, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM_MAX);
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_rows_kernel, THREADS, p.smem);
+  if (per_sm < 1) per_sm = 1;
+  const int tiles = (S + p.rows - 1) / p.rows;
+  const int most = per_sm * sms;
   Cols c;
   for (int b = 0; b < B; ++b) c.p[b] = static_cast<const uint32_t*>(cols[b]);
-  gather_rows_kernel<<<grid, THREADS, p.smem, static_cast<cudaStream_t>(stream)>>>(
+  gather_rows_kernel<<<tiles < most ? tiles : most, THREADS, p.smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       c, static_cast<const int32_t*>(idx), static_cast<uint32_t*>(out), B, S, P, W, p.rows,
       p.stages, p.islots, p.sstride, p.istride);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The launch plan for a shape on the current device, into plan[0..5]:
-// rows per tile, stages, index slots, shared bytes a block, blocks an SM,
-// grid. Returns 0, or cudaErrorInvalidValue where the kernel does not
-// take the shape.
-extern "C" int otto_gather_rows_plan(int B, int S, int P, int W, int* plan) {
-  Plan p;
-  int per_sm = 0, grid = 0;
-  if (!device_plan(B, S, P, W, &p, &per_sm, &grid)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int got[6] = {p.rows, p.stages, p.islots, p.smem, per_sm, grid};
-  for (int i = 0; i < 6; ++i) plan[i] = got[i];
   return static_cast<int>(cudaGetLastError());
 }

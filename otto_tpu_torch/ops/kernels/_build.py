@@ -133,8 +133,6 @@ def load() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.otto_gather_rows.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr]
     lib.otto_gather_rows.restype = i32
-    lib.otto_gather_rows_plan.argtypes = [i32, i32, i32, i32, ptr]
-    lib.otto_gather_rows_plan.restype = i32
     lib.otto_segscan.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.otto_segscan.restype = i32
     lib.otto_mips_topk.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]

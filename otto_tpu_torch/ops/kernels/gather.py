@@ -118,12 +118,3 @@ def gather_rows(values: Columns, idx: torch.Tensor, check: bool = False) -> torc
         launches += 1
     return out
 
-
-def plan(B: int, S: int, P: int, W: int, device=None) -> dict:
-    """The kernel's launch plan for a shape on a CUDA device: rows per tile,
-    ring stages, index slots, shared bytes a block, blocks an SM, grid."""
-    lib = _build.load()
-    got = (ctypes.c_int * 6)()
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        _build.check(lib.otto_gather_rows_plan(B, S, P, W, got), "gather_rows plan")
-    return dict(zip(("rows", "stages", "islots", "smem", "blocks_per_sm", "grid"), got))

@@ -23,75 +23,56 @@ def _vals(rng, shape, dtype):
     return rng.integers(-100, 100, shape).astype(dtype)
 
 
-def _check_gather(vals, idx):
+# how gather_rows is given its B columns: one [B, S, P] tensor, or a list
+# or tuple of B [S, P] tensors
+FORMS = ["stacked", "list", "tuple"]
+
+
+def _check_gather(vals, idx, form):
     want = np.asarray(
         pallas_gather_rows(jnp.asarray(vals), jnp.asarray(idx), interpret=True)
     )
-    got = gather.gather_rows(torch.from_numpy(vals), torch.from_numpy(idx))
-    # a gather moves words: bit-equal for every dtype
-    np.testing.assert_array_equal(got.numpy(), want)
+    cols = torch.from_numpy(vals)
+    if form == "list":
+        cols = [torch.from_numpy(v.copy()) for v in vals]
+    elif form == "tuple":
+        cols = tuple(torch.from_numpy(v.copy()) for v in vals)
+    ix = torch.from_numpy(idx)
+    # a gather moves words: bit-equal for every dtype, kernel and twin
+    for got in (gather.gather_rows(cols, ix), gather.gather_rows_ref(cols, ix)):
+        assert got.dtype == torch.from_numpy(vals).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-def test_gather_permutation_odd_shapes(dtype):
+def test_gather_permutation_odd_shapes(dtype, form):
     rng = np.random.default_rng(7)
     B, S, P = 3, 9, 300  # odd S, P not a multiple of 128
     vals = _vals(rng, (B, S, P), dtype)
     idx = np.stack([rng.permutation(P) for _ in range(S)]).astype(np.int32)
-    _check_gather(vals, idx)
+    _check_gather(vals, idx, form)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-def test_gather_repeated_indices(dtype):
+def test_gather_repeated_indices(dtype, form):
     rng = np.random.default_rng(8)
     B, S, P = 2, 8, 256
     vals = _vals(rng, (B, S, P), dtype)
     idx = rng.integers(0, P, (S, P)).astype(np.int32)  # not a permutation
-    _check_gather(vals, idx)
+    _check_gather(vals, idx, form)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("W", [150, 40])
-def test_gather_width_differs(W):
+def test_gather_width_differs(W, form):
     """W != P, as in the GBDT tree walk (T tree columns from F features)."""
     rng = np.random.default_rng(9)
     B, S, P = 1, 37, 104
     vals = rng.integers(0, 64, (B, S, P)).astype(np.int32)
     idx = rng.integers(0, P, (S, W)).astype(np.int32)
-    _check_gather(vals, idx)
-
-
-# the cases above, each also given as a list of B column tensors
-_LIST_CASES = {
-    "odd": (7, (3, 9, 300), None),
-    "repeated": (8, (2, 8, 256), 256),
-    "width150": (9, (1, 37, 104), 150),
-    "width40": (9, (1, 37, 104), 40),
-}
-
-
-@pytest.mark.parametrize("dtype", [np.int32, np.float32])
-@pytest.mark.parametrize("case", sorted(_LIST_CASES))
-def test_gather_column_list_matches_stack_and_pallas(case, dtype):
-    """The sequence-of-columns form is bit-equal to the stacked form, to
-    the twin on either form and to otto_tpu's Pallas gather_rows."""
-    seed, (B, S, P), W = _LIST_CASES[case]
-    rng = np.random.default_rng(seed)
-    vals = _vals(rng, (B, S, P), dtype)
-    if W is None:
-        idx = np.stack([rng.permutation(P) for _ in range(S)]).astype(np.int32)
-    else:
-        idx = rng.integers(0, P, (S, W)).astype(np.int32)
-    want = np.asarray(
-        pallas_gather_rows(jnp.asarray(vals), jnp.asarray(idx), interpret=True)
-    )
-    t, ix = torch.from_numpy(vals), torch.from_numpy(idx)
-    cols = [torch.from_numpy(vals[b].copy()) for b in range(B)]
-    stacked = gather.gather_rows(t, ix)
-    listed = gather.gather_rows(cols, ix)
-    assert listed.shape == (B, S, ix.shape[1]) and listed.dtype == t.dtype
-    for got in (listed, stacked, gather.gather_rows_ref(cols, ix),
-                gather.gather_rows(tuple(cols), ix)):
-        np.testing.assert_array_equal(got.numpy(), want)
+    _check_gather(vals, idx, form)
 
 
 def test_gather_column_views():
