@@ -60,6 +60,15 @@ Phases, each printed before the last line:
    data are synthetic, so the recalls show that the rankers rank, not what
    real data would score; the sessions/s are smoke readings of this one
    run, not a benchmark.
+5b. The MLP ranker (ranker_backend "mlp") at RankerConfig() defaults (104
+   features, 256-128-64, 128-candidate groups, 256 groups a step, 16
+   epochs with early stop 4): three towers trained from phase 4b's
+   persisted rows into the same work dir (ranker-mlp-{t}.npz), each with
+   its seconds, steps/s, best epoch, peak memory and valid ndcg@20 by
+   epoch, whose best must beat the label-blind orders of its own valid
+   groups; one train step and one batch's scoring timed; then score_pass
+   over every test session with the towers (K1 and K2 launched, no tree
+   walk), recall@20 beside the GBDT's, the ceiling and the baseline.
 7. The batch runner from the cache: Pipeline.run on phase 4's work dir
    (every test session's retrieval kept on the card at once, C14 on the
    host, phase 4b's rankers): tables from the cache bit-equal to phase
@@ -87,9 +96,11 @@ Phases, each printed before the last line:
    (bit-identical); SGNS: one block step and one pair step at production
    width from the same draws (tables and accumulators within a stated
    tolerance) and two card trainings of a small corpus in each step kind
-   (bit-identical).
+   (bit-identical); the MLP tower at full width and on a small case,
+   pointwise and listwise: scores within two bfloat16 ulps and three
+   AdamW steps within 1e-4.
 
-Phases 4, 4b, 5, 7 and 8 share one work dir; phase 6 runs last.
+Phases 4, 4b, 5, 5b, 7 and 8 share one work dir; phase 6 runs last.
 Then one JSON line with the kernels' results and, last, the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and the result line is not printed.
@@ -690,28 +701,27 @@ def phase_table_build(dev, smi, work):
 # --------------------------------------------------------------------------
 # phase 4b: training from the built tables
 # --------------------------------------------------------------------------
-def valid_baselines(feats, y, sess, cfg):
+def valid_baselines(feats, y, sess, max_group, k, cap=0, seed=0):
     """Valid ndcg@k of two label-blind orders on the valid groups the
-    trainer evaluates (train_ranker_cached's 75/25 session split, capped
-    and grouped as train_gbdt_ranker does): all-zero scores, random
-    scores, and the candidates' recency order (ts_order_aid, ties at
-    random). All-zero scores rank each group in slot order, and the groups
-    hold their positives first, so that ndcg is 1 by construction: it is
-    printed, and the check compares with the other two."""
+    trainer evaluates (train_ranker_cached's 75/25 session split; `cap`
+    groups drawn with `seed` as train_gbdt_ranker caps them, none for the
+    MLP; grouped at max_group): all-zero scores, random scores, and the
+    candidates' recency order (ts_order_aid, ties at random). All-zero
+    scores rank each group in slot order, and the groups hold their
+    positives first, so that ndcg is 1 by construction: it is printed, and
+    the check compares with the other two."""
     from otto_tpu_torch.engine.retrieval import FEATURE_INDEX
     from otto_tpu_torch.models.gbdt import _cap_groups
     from otto_tpu_torch.models.ranker import _group_pad, ndcg_at_k
 
     u = np.unique(sess)
     vmask = np.isin(sess, u[max(1, int(len(u) * 0.75)):])
-    vf, vy, vs = _cap_groups(feats[vmask], y[vmask], sess[vmask],
-                             cfg.max_valid_groups, cfg.seed, "valid")
-    fg, lg, mg = _group_pad(vf[:, [FEATURE_INDEX["ts_order_aid"]]], vy, vs, cfg.max_group)
+    vf, vy, vs = _cap_groups(feats[vmask], y[vmask], sess[vmask], cap, seed, "valid")
+    fg, lg, mg = _group_pad(vf[:, [FEATURE_INDEX["ts_order_aid"]]], vy, vs, max_group)
     jitter = np.random.default_rng(SEED).random(lg.shape) * 1e-3
-    return {"zero": ndcg_at_k(np.zeros(lg.shape), lg, mg, cfg.ndcg_at),
-            "random": ndcg_at_k(jitter, lg, mg, cfg.ndcg_at),
-            "recency": ndcg_at_k(-fg[..., 0].astype(np.float64) + jitter, lg, mg,
-                                 cfg.ndcg_at),
+    return {"zero": ndcg_at_k(np.zeros(lg.shape), lg, mg, k),
+            "random": ndcg_at_k(jitter, lg, mg, k),
+            "recency": ndcg_at_k(-fg[..., 0].astype(np.float64) + jitter, lg, mg, k),
             "groups": lg.shape[0]}
 
 
@@ -719,7 +729,7 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
     """Pass A over every test session with the split's labels, then the
     three rankers at GBDTConfig() defaults from its rows. -> (rankers,
     pass A launches, training launches, pass A metrics)."""
-    from otto_tpu_torch.config import TYPES, GBDTConfig, RankerConfig
+    from otto_tpu_torch.config import TYPES, Config, RankerConfig
     from otto_tpu_torch.pipeline.runner import (
         load_downsampled,
         pass_a,
@@ -784,7 +794,7 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
               f"{got[src]:.5f}, {got[src + ' & not self']:.5f}; on the seeded "
               f"models {seeded[0]:.4f}, {seeded[1]:.4f}")
 
-    cfg = GBDTConfig()
+    cfg = Config().gbdt
     rankers = {}
     zero_launch_counts()
     with k1_calls("training"):
@@ -793,11 +803,12 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            r = train_ranker_cached(work, t, lambda: (feats, y, sess), cfg, dev,
+            r = train_ranker_cached(work, t, lambda: (feats, y, sess), Config(), dev,
                                     use_cache=False)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            base = valid_baselines(feats, y, sess, cfg)
+            base = valid_baselines(feats, y, sess, cfg.max_group, cfg.ndcg_at,
+                                   cfg.max_valid_groups, cfg.seed)
             n_groups = int(np.unique(sess).size)
             print(f"# ranker {t}: {len(y)} rows, {n_groups} groups ({base['groups']} "
                   f"valid), {dt:.2f} s = {cfg.n_trees / dt:.2f} trees/s, peak "
@@ -870,7 +881,113 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
         print(f"#   {k}: {recall[k]:.5f} / {ceiling['ceiling_' + k]:.5f} / {base[k]:.5f}")
     require(all(recall[k] <= ceiling["ceiling_" + k] + 1e-12 for k in recall),
             "recall@20 within the retrieval ceiling")
-    return launches, recall
+    return launches, recall, base
+
+
+# --------------------------------------------------------------------------
+# phase 5b: the MLP ranker, trained and served
+# --------------------------------------------------------------------------
+def phase_mlp(dev, smi, sp, retriever, work, ceiling, gbdt_recall, base_recall,
+              batch=BATCH):
+    """The MLP backend at RankerConfig() defaults: three towers trained
+    from pass A's persisted rows into the work dir (ranker-mlp-{t}.npz
+    beside the GBDT's files), each beating the label-blind orders of its
+    own valid groups, then served by score_pass over every test session.
+    -> (training launches, serving launches)."""
+    from otto_tpu_torch.config import TYPES, Config
+    from otto_tpu_torch.models import ranker as mlp
+    from otto_tpu_torch.pipeline.runner import (
+        load_downsampled,
+        score_pass,
+        submit_and_eval,
+        train_ranker_cached,
+    )
+
+    cfg = Config(ranker_backend="mlp")
+    rc = cfg.ranker
+    n_test = int(np.unique(sp.test.session).size)
+    rankers = {}
+    zero_launch_counts()
+    for t in TYPES:
+        feats, y, sess = load_downsampled(work, t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = train_ranker_cached(work, t, lambda: (feats, y, sess), cfg, dev, use_cache=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        base = valid_baselines(feats, y, sess, rc.max_group, rc.eval_at)
+        ndcg = [h[2] for h in r.history]
+        print(f"# MLP ranker {t}: {len(y)} rows, {int(np.unique(sess).size)} groups "
+              f"({base['groups']} valid), {dt:.2f} s, {r.steps} steps = "
+              f"{r.steps / dt:.1f} steps/s, best epoch {r.best_epoch} of {len(ndcg)} run, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated ({smi})")
+        print(f"#   valid ndcg@{rc.eval_at} by epoch: {json.dumps([round(v, 5) for v in ndcg])};"
+              f" all-zero {base['zero']:.5f}, random {base['random']:.5f}, recency order "
+              f"{base['recency']:.5f}; loss by epoch "
+              f"{json.dumps([round(h[1], 5) for h in r.history])}")
+        require(os.path.exists(os.path.join(work, f"ranker-mlp-{t}.npz")),
+                f"{t}: ranker-mlp-{t}.npz written")
+        require([tuple(w.shape) for w in r.tower.w] == [(104, 256), (256, 128), (128, 64),
+                                                          (64, 1)],
+                f"{t}: the tower at RankerConfig() width")
+        require(max(ndcg) > max(base["random"], base["recency"]),
+                f"{t}: best valid ndcg {max(ndcg):.5f} beats the label-blind orders")
+        rankers[t] = r
+    tr_launches = launch_counts()
+    print(f"# MLP training launches {tr_launches} ({smi})")
+
+    # one step and one batch's scoring at full width, CUDA events
+    feats, y, sess = load_downsampled(work, "clicks")
+    fg, lg, mg = mlp._group_pad(feats[: 1 << 20].astype(np.float32), y[: 1 << 20],
+                                sess[: 1 << 20], rc.max_group)
+    step_batch = tuple(torch.from_numpy(a[: rc.batch_sessions]).to(dev) for a in (fg, lg, mg))
+    tower = mlp.init_ranker(fg.shape[2], rc, *mlp.compute_norm_stats(feats[: 1 << 20])).to(dev)
+    opt = mlp.make_optimizer(tower, rc)
+    step_ms = cuda_ms(lambda: mlp.train_step(tower, opt, step_batch, 1e-4, rc.sigma,
+                                             rc.eval_at))
+    b = next(retriever.iter_run(sp.test, batch_sessions=batch))
+    r = rankers["clicks"]
+    score_ms = cuda_ms(lambda: r.predict_scores_device(b.feats))
+    # multiply-add FLOPs of one tower over the batch's candidates
+    flops = 2 * b.feats.shape[0] * b.feats.shape[1] * sum(w.numel() for w in r.tower.w)
+    print(f"# MLP train step [{rc.batch_sessions}, {rc.max_group}, {fg.shape[2]}]: "
+          f"{step_ms:.3f} ms; scoring one batch {tuple(b.feats.shape)} through one tower: "
+          f"{score_ms:.3f} ms = {flops / (score_ms * 1e-3) / 1e12:.2f} "
+          f"TFLOP/s ({smi})")
+    del b, fg, lg, mg, step_batch, tower, opt
+
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with k1_calls("mlp serving") as shapes:
+        preds = score_pass(retriever, sp.test, rankers, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        recall = submit_and_eval(tmp, preds, sp.labels)
+    print(f"# MLP serving: {n_test} sessions in {dt:.2f} s = {n_test / dt:.1f} sessions/s, "
+          f"peak {peak / 2**30:.2f} GiB allocated, launches {launches}, of them the tree "
+          f"walk's {WALK['launches']['mlp serving']} ({smi})")
+    print(f"#   K1 launches by shape (B, S, P, W): "
+          f"{sorted(shapes.items(), key=lambda kv: (-kv[1], kv[0]))}")
+    require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
+            f"K1 and K2 launched on the MLP serving path: {launches}")
+    require(WALK["launches"]["mlp serving"] == 0, "no tree walk when the MLP scores")
+    for t, (s_, a) in preds.items():
+        require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"MLP {t} shapes")
+        require(((a >= -1) & (a < N_AIDS)).all(), f"MLP {t} aids in range")
+        require((a[:, 0] >= 0).mean() > 0.99, f"MLP {t} sessions get predictions")
+    print("# recall@20, MLP rankers / GBDT rankers / retrieval ceiling / baseline:")
+    for k in ("clicks", "carts", "orders", "total"):
+        print(f"#   {k}: {recall[k]:.5f} / {gbdt_recall[k]:.5f} / "
+              f"{ceiling['ceiling_' + k]:.5f} / {base_recall[k]:.5f}")
+    require(all(0.0 < recall[k] <= ceiling["ceiling_" + k] + 1e-12 for k in recall),
+            "MLP recall@20 in (0, the retrieval ceiling]")
+    return tr_launches, launches
 
 
 def phase_baseline(smi, sp, retriever, n_test):
@@ -1103,6 +1220,13 @@ GAIN_RTOL = 1e-4
 # SGNS card vs CPU from the same draws: both sum a row's updates exactly
 # (int64 fixed point), but the updates themselves come from cuBLAS vs the
 # CPU's bmm and the devices' exp and rsqrt, which differ by ulps
+# the MLP tower, card against CPU: scores within about two bfloat16 ulps
+# (the forward is summed in float64, so the devices agree to the bit but
+# where a float32 ulp of the loss's exp / log1p meets a bfloat16 rounding
+# boundary); weights after three AdamW steps from the same start
+MLP_SCORE_RTOL = 2.0 ** -6
+MLP_SCORE_ATOL = 1e-3
+MLP_STEP_ATOL = 1e-4
 SGNS_RTOL = 1e-5
 SGNS_ATOL = 1e-6
 
@@ -1347,6 +1471,7 @@ def phase_cross_check(dev):
           f"(rel {rel:.3g}), iterations {it_d} vs {it_c}")
     cross_check_counting(dev)
     cross_check_gbdt(dev)
+    cross_check_mlp(dev)
     cross_check_sgns(dev)
 
 
@@ -1504,6 +1629,75 @@ def cross_check_gbdt(dev):
           f"trainings bit-identical")
 
 
+def mlp_batches(rng, B, G, F, src, n=3):
+    """n seeded batches (feats [B, G, F] of mixed scales with src_* flags,
+    labels, mask) shaped as pass A's padded groups: padding all zero."""
+    out = []
+    for _ in range(n):
+        mask = rng.random((B, G)) < 0.7
+        feats = (rng.standard_normal((B, G, F)) * rng.choice([1.0, 30.0, 1e4], F)
+                 ).astype(np.float32)
+        feats[..., src] = rng.random((B, G, len(src))) < 0.3
+        feats[~mask] = 0.0
+        labels = ((rng.random((B, G)) < 0.05) & mask).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a) for a in (feats, labels, mask)))
+    return out
+
+
+def cross_check_mlp(dev):
+    """The MLP tower on the card against the CPU from the same weights,
+    pointwise and listwise, at RankerConfig() width (104 features,
+    256-128-64, [32, 128, 104] batches) and on a small case (32-16 hidden,
+    [8, 64, 104]): scores within MLP_SCORE_RTOL relative + MLP_SCORE_ATOL,
+    and three AdamW steps on the same batches under the same schedule
+    with weights within MLP_STEP_ATOL. The output bias shifts every score
+    alike, so the loss does not see it: its gradient is rounding noise,
+    which Adam turns into a step of about the rate either way, and it is
+    held within the rates' sum."""
+    import copy
+
+    from otto_tpu_torch.config import RankerConfig
+    from otto_tpu_torch.engine.retrieval import FEATURE_NAMES
+    from otto_tpu_torch.models import ranker as mlp
+
+    cpu, F = torch.device("cpu"), len(FEATURE_NAMES)
+    devices = {"cpu": cpu, "card": dev}
+    src = np.array([i for i, n in enumerate(FEATURE_NAMES) if n.startswith("src_")])
+    for listwise in (False, True):
+        rng = np.random.default_rng(SEED)
+        msg = []
+        for hidden, B, G in (((256, 128, 64), 32, 128), ((32, 16), 8, 64)):
+            cfg = RankerConfig(hidden_dims=hidden)
+            lr = mlp.lr_schedule(cfg, 6)
+            batches = mlp_batches(rng, B, G, F, src)
+            mean, std = mlp.compute_norm_stats(batches[0][0].numpy().reshape(-1, F))
+            towers = {"cpu": mlp.init_ranker(F, cfg, mean, std,
+                                             src_idx=src if listwise else None)}
+            towers["card"] = copy.deepcopy(towers["cpu"]).to(dev)
+            with torch.no_grad():
+                s = {k: towers[k](batches[0][0].to(d)).cpu() for k, d in devices.items()}
+            d = (s["card"] - s["cpu"]).abs()
+            require(bool((d <= MLP_SCORE_RTOL * s["cpu"].abs() + MLP_SCORE_ATOL).all()),
+                    f"MLP {hidden} scores within tolerance (listwise {listwise})")
+            for k, dv in devices.items():
+                opt = mlp.make_optimizer(towers[k], cfg)
+                for i, batch in enumerate(batches):
+                    mlp.train_step(towers[k], opt, tuple(x.to(dv) for x in batch), lr(i),
+                                   cfg.sigma, cfg.eval_at)
+            pairs = list(zip(towers["card"].weights(), towers["cpu"].weights()))
+            err = max([float(np.abs(a - b).max()) for (a, _), (b, _) in pairs]
+                      + [float(np.abs(a - b).max()) for (_, a), (_, b) in pairs[:-1]])
+            out_bias = float(np.abs(pairs[-1][0][1] - pairs[-1][1][1]).max())
+            msg.append(f"{hidden} on [{B}, {G}, {F}]: scores max |diff| {float(d.max()):.3g} "
+                       f"({int((d > 0).sum())} of {d.numel()} differ), after 3 steps weights "
+                       f"max |diff| {err:.3g}, output bias {out_bias:.3g}")
+            require(err <= MLP_STEP_ATOL,
+                    f"MLP {hidden} weights after 3 steps within {MLP_STEP_ATOL}: {err:.3g}")
+            require(out_bias <= sum(lr(i) for i in range(3)),
+                    "MLP output bias within the rates")
+        print(f"# cross-check MLP (listwise {listwise}): " + "; ".join(msg))
+
+
 def cross_check_sgns(dev):
     """SGNS on the card against the CPU from the same draws (made on the
     CPU, copied to both) and the same seeded state: one block step (16384
@@ -1659,8 +1853,11 @@ def main():
         rankers, pa_launches, tr_launches, pa_metrics = phase_training(
             dev, smi, sp, retriever, work)
         torch.cuda.empty_cache()
-        serve_launches, serve_recall = phase_main_path(dev, smi, sp, retriever, rankers,
-                                                       pa_metrics)
+        serve_launches, serve_recall, base_recall = phase_main_path(
+            dev, smi, sp, retriever, rankers, pa_metrics)
+        torch.cuda.empty_cache()
+        mlp_tr_launches, mlp_launches = phase_mlp(dev, smi, sp, retriever, work, pa_metrics,
+                                                  serve_recall, base_recall)
         torch.cuda.empty_cache()
         batch_launches = phase_batch_runner(dev, smi, sp, retriever, work, serve_recall)
         del retriever
@@ -1675,9 +1872,11 @@ def main():
           f"launches in the walk: serving {w['launches']['serving']}, training "
           f"{w['launches']['training']} ({smi})")
     # launches on the paths this script drives: the build (K3, K4), pass A,
-    # training, serving, the batch runner (K1, K2) and the two CLI runs (all)
+    # training, serving, the MLP's training and serving, the batch runner
+    # (K1, K2) and the two CLI runs (all)
     paths = {k: sum(p[k] for p in (build_launches, pa_launches, tr_launches,
-                                   serve_launches, batch_launches, tool_launches))
+                                   serve_launches, mlp_tr_launches, mlp_launches,
+                                   batch_launches, tool_launches))
              for k in build_launches}
     sources = {
         # name: (source, TPU kernel it replaces)

@@ -9,8 +9,8 @@ the serving path reads (`config`, `data.{schema,batching,split}`,
 tests, and `data.synthetic` generates sessions on the device.
 
 Ported so far:
-- the per-session serving path — retrieval (Stages A-E), GBDT scoring,
-  top-20 selection, the submission file and recall@20 — on K1
+- the per-session serving path — retrieval (Stages A-E), GBDT or MLP
+  scoring, top-20 selection, the submission file and recall@20 — on K1
   `ops/kernels/gather.py` (row gather) and K2 `ops/kernels/segscan.py`
   (segmented scan);
 - the table build (`pipeline.runner.build_retriever`): co-visitation
@@ -23,8 +23,9 @@ Ported so far:
 - the heuristic co-visitation baseline (`engine/baseline.py`);
 - the training path (`pipeline.runner.pass_a`, `train_ranker_cached`,
   `run_streaming`): the label join, per-source retrieval eval and
-  negative downsampling of pass A, and GBDT LambdaRank training of the
-  three rankers (`models/gbdt.py`).
+  negative downsampling of pass A, and LambdaRank training of the three
+  rankers: histogram GBDTs (`models/gbdt.py`) or, with
+  `ranker_backend="mlp"`, MLP towers (`models/ranker.py`).
 The four hand-written CUDA kernels are built from `csrc/` at first use.
 otto_tpu's tables, models and rankers cross over through
 `otto_tpu_torch.convert`.

@@ -3,11 +3,11 @@
 Counterpart of otto_tpu/config.py for what the ported modules read: the
 event types and recall weights, the co-visitation counting and
 popularity settings, the retrieval caps, negative downsampling, the GBDT
-ranker's trees and training, the word2vec models (SGNS training and
-their kNN tables), k-means, the data split, and the root Config with its
-JSON round trip. Names and defaults are otto_tpu's;
-tests/test_torch_host.py holds them equal. The MLP tower's settings come
-with the MLP ranker, the mesh with the multi-device paths.
+ranker's trees and training, the MLP ranker's tower and training, the
+word2vec models (SGNS training and their kNN tables), k-means, the data
+split, and the root Config with its JSON round trip. Names and defaults
+are otto_tpu's; tests/test_torch_host.py holds them equal. The mesh
+comes with the multi-device paths.
 """
 from __future__ import annotations
 
@@ -137,8 +137,29 @@ class RetrievalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RankerConfig:
-    """What pass A reads of the ranker settings: negative downsampling.
-    The MLP tower's settings come with the MLP backend."""
+    """The LambdaRank MLP tower (models/ranker.py) and what pass A reads:
+    negative downsampling. otto_tpu's names and defaults."""
+
+    hidden_dims: Tuple[int, ...] = (256, 128, 64)
+    dropout: float = 0.0
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-5
+    epochs: int = 16
+    batch_sessions: int = 256            # session groups a step
+    max_group: int = 128                 # padded candidates a group
+    eval_at: int = 20                    # valid ndcg@eval_at
+    seed: int = 42
+    sigma: float = 1.0                   # LambdaRank pairwise logistic scale
+    # linear warmup over this share of the steps, then cosine decay to
+    # end_lr_frac * learning_rate
+    warmup_frac: float = 0.05
+    end_lr_frac: float = 0.05
+    # stop after this many epochs without a better valid ndcg (0: run
+    # every epoch); the best epoch's weights are kept either way
+    early_stop_epochs: int = 4
+    # score listwise: each candidate's input gains x - mean and x - max
+    # over its session's valid candidates
+    group_context: bool = False
 
     neg_to_pos_ratio: int = 40
     max_neg_per_session: int = 100
@@ -146,7 +167,6 @@ class RankerConfig:
     # (random draws from a torch.Generator, so other rows than the host
     # selection's numpy stream; off by default)
     device_select: bool = False
-    seed: int = 42
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +302,8 @@ class Config:
     popularity: PopularityConfig = dataclasses.field(default_factory=PopularityConfig)
     ranker: RankerConfig = dataclasses.field(default_factory=RankerConfig)
     gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
+    # the rankers' model class: "gbdt" (histogram trees) or "mlp" (the
+    # LambdaRank tower)
     ranker_backend: str = "gbdt"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
 

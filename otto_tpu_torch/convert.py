@@ -1,7 +1,8 @@
 """Carry otto_tpu's tables and models across to the port.
 
 The port can take what otto_tpu built or trained (its word2vec models,
-tables and rankers, for tests): otto_tpu's
+tables and rankers, and the MLP tower's initial weights, for tests):
+otto_tpu's
 numpy (or jax) arrays become tensors on an explicit device, or the port's
 host containers. Arrays are read with
 `np.asarray`, so jax arrays work too, and the port never imports jax
@@ -19,6 +20,7 @@ from otto_tpu_torch.config import GBDTConfig, Word2VecConfig
 from otto_tpu_torch.engine.covis import CoVisTables
 from otto_tpu_torch.engine.retrieval import RetrievalContext
 from otto_tpu_torch.models.gbdt import GBDTRanker
+from otto_tpu_torch.models.ranker import RankerTower
 from otto_tpu_torch.models.word2vec import Vocab, Word2Vec
 
 
@@ -88,4 +90,14 @@ def gbdt_from_numpy(ref) -> GBDTRanker:
         gains=None if gains is None else np.asarray(gains),
         best_iter=int(ref.best_iter),
         best_score=float(ref.best_score),
+    )
+
+
+def ranker_from_numpy(params) -> RankerTower:
+    """otto_tpu's RankerParams (norm stats, (w, b) per layer, src_idx or
+    None) -> the port's RankerTower on the CPU, its own copy of them."""
+    return RankerTower(
+        params.norm_mean, params.norm_std,
+        [(np.asarray(w), np.asarray(b)) for w, b in params.weights],
+        None if params.src_idx is None else np.asarray(params.src_idx),
     )

@@ -6,6 +6,8 @@ Counterpart of otto_tpu/pipeline/cli.py, with its commands: `synth`,
 the pipeline take `--device` (default `cuda`: without a card they fail,
 they never fall back to the CPU; `--device cpu` runs there). Stage
 artifacts and their reuse live in otto_tpu_torch.pipeline.runner.
+`run` and `run-synthetic` take `--ranker-backend` (`gbdt`, the default, or
+`mlp`); `rank` serves with the backend of the work dir's config.json.
 `synth`, `ingest`, `split`, `run` and `rank` read or write parquet, which
 needs pyarrow; `run-synthetic` needs nothing but the port.
 """
@@ -26,6 +28,7 @@ from otto_tpu_torch.config import (
     CoVisConfig,
     GBDTConfig,
     KMeansConfig,
+    RankerConfig,
     RetrievalConfig,
     Word2VecConfig,
     config_from_json,
@@ -37,6 +40,9 @@ from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
 from otto_tpu_torch.pipeline.runner import Pipeline, run_synthetic
 
 log = logging.getLogger(__name__)
+
+# Config.ranker_backend's values
+BACKENDS = ("gbdt", "mlp")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -83,6 +89,13 @@ def check_mesh(args) -> None:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the multi-device paths are not ported yet (ROADMAP "
             "Queue 1, \"The multi-device paths on torch.distributed\"); run on one device")
+
+
+def _with_backend(cfg: Config, args) -> Config:
+    """cfg with --ranker-backend, when given."""
+    if args.ranker_backend is None:
+        return cfg
+    return dataclasses.replace(cfg, ranker_backend=args.ranker_backend)
 
 
 def _use_streaming(args, test: Events) -> bool:
@@ -141,7 +154,7 @@ def cmd_run(args) -> int:
     -> submit -> eval)."""
     train, test = Events.from_parquet(args.train), Events.from_parquet(args.test)
     labels = Labels.from_parquet(args.labels) if args.labels else None
-    pipe = _pipeline(args, DEFAULT, train, test)
+    pipe = _pipeline(args, _with_backend(DEFAULT, args), train, test)
     runner = pipe.run_streaming if _use_streaming(args, test) else pipe.run
     print(json.dumps(runner(train, test, labels, batch_sessions=args.batch_sessions),
                      indent=2))
@@ -179,6 +192,8 @@ def tiny_config() -> Config:
                                   session_len_buckets=(8, 32)),
         w2vec=w2v,
         kmeans=dataclasses.replace(KMeansConfig(), max_iter=10),
+        ranker=RankerConfig(hidden_dims=(32, 16), epochs=3, batch_sessions=64,
+                            max_group=64, learning_rate=3e-3),
         gbdt=GBDTConfig(n_trees=20, max_depth=3, n_bins=16, colsample=0.5,
                         subsample=0.8, min_child_samples=5, max_group=64,
                         row_chunk=4096, group_chunk=256),
@@ -190,7 +205,8 @@ def cmd_run_synthetic(args) -> int:
     check_mesh(args)
     spec = SyntheticSpec(n_sessions=args.sessions, n_aids=args.aids, seed=args.seed)
     streaming = True if args.streaming else (None if not args.no_streaming else False)
-    metrics = run_synthetic(tiny_config() if args.tiny else DEFAULT, args.work_dir, spec,
+    cfg = _with_backend(tiny_config() if args.tiny else DEFAULT, args)
+    metrics = run_synthetic(cfg, args.work_dir, spec,
                             batch_sessions=args.batch_sessions, streaming=streaming,
                             device=args.device)
     print(json.dumps(metrics, indent=2))
@@ -223,6 +239,7 @@ def main(argv=None) -> int:
 
     streaming_help = ("two-pass streaming runner (one batch's features on the "
                       "device; auto past 50k test sessions)")
+    backend_help = "the rankers' model class (default: the config's, gbdt)"
     p = sub.add_parser("run", help=cmd_run.__doc__)
     p.add_argument("--train", required=True)
     p.add_argument("--test", required=True)
@@ -230,6 +247,7 @@ def main(argv=None) -> int:
     p.add_argument("--batch-sessions", type=int, default=256)
     p.add_argument("--streaming", action="store_true", help=streaming_help)
     p.add_argument("--no-streaming", action="store_true", help="force the batch runner")
+    p.add_argument("--ranker-backend", choices=BACKENDS, help=backend_help)
     _add_common(p)
     p.set_defaults(fn=cmd_run)
 
@@ -250,6 +268,7 @@ def main(argv=None) -> int:
     p.add_argument("--tiny", action="store_true", help="small-model config (fast demo)")
     p.add_argument("--streaming", action="store_true", help=streaming_help)
     p.add_argument("--no-streaming", action="store_true", help="force the batch runner")
+    p.add_argument("--ranker-backend", choices=BACKENDS, help=backend_help)
     _add_common(p)
     p.set_defaults(fn=cmd_run_synthetic)
 

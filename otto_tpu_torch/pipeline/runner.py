@@ -12,7 +12,8 @@ functions:
 - `pass_a`: retrieve the test sessions with labels: the label join, the
   per-source retrieval eval (C14) and negative downsampling (C15), whose
   rows are persisted per target before any training;
-- `train_ranker_cached`: one target's GBDT ranker (C16) from those rows;
+- `train_ranker_cached`: one target's ranker (C16) from those rows, a
+  GBDT or an MLP as `Config.ranker_backend` says;
 - `score_pass`: re-retrieve the test sessions, score every batch with the
   three target rankers on the device, keep the top-20 per target;
 - `submit_and_eval`: write the submission file and evaluate recall@20;
@@ -46,7 +47,6 @@ from otto_tpu_torch.config import (
     W2VEC_MODELS,
     Config,
     CoVisConfig,
-    GBDTConfig,
     KMeansConfig,
     PopularityConfig,
     RankerConfig,
@@ -85,6 +85,7 @@ from otto_tpu_torch.eval.per_source import (
 )
 from otto_tpu_torch.eval.recall import evaluate_submission_file, evaluate_topk, recall_at_k
 from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
+from otto_tpu_torch.models.ranker import Ranker, train_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
 from otto_tpu_torch.ops.kmeans import kmeans_fit
@@ -409,7 +410,7 @@ def _pickle(path: str, obj) -> None:
         pickle.dump(obj, fh)
 
 
-def check_serving_features(tname: str, ranker: GBDTRanker) -> None:
+def check_serving_features(tname: str, ranker) -> None:
     """A ranker scores retrieval's [S, C, F] features only if it was trained
     on FEATURE_NAMES, in that order."""
     if tuple(ranker.feature_names) != FEATURE_NAMES:
@@ -566,19 +567,27 @@ def submit_and_eval(
     return res
 
 
-def load_rankers(work_dir: str) -> Dict[str, GBDTRanker]:
-    """Read the three `ranker-gbdt-{clicks,carts,orders}.npz` files that a
-    training run of either package wrote into its work dir; each must be
-    a ranker over retrieval's FEATURE_NAMES."""
+def _load_ranker(path: str, cfg: Config):
+    """A saved ranker of cfg.ranker_backend's class."""
+    if cfg.ranker_backend == "gbdt":
+        return GBDTRanker.load(path)
+    return Ranker.load(path, cfg.ranker)
+
+
+def load_rankers(work_dir: str, cfg: Config = Config()) -> Dict[str, object]:
+    """Read the three `ranker-{backend}-{clicks,carts,orders}.npz` files
+    (backend: cfg.ranker_backend) that a training run of either package
+    wrote into its work dir; each must be a ranker over retrieval's
+    FEATURE_NAMES."""
     rankers = {}
     for tname in TYPES:
-        path = os.path.join(work_dir, f"ranker-gbdt-{tname}.npz")
+        path = _ranker_path(work_dir, tname, cfg.ranker_backend)
         if not os.path.exists(path):
             raise FileNotFoundError(
-                f"no trained gbdt ranker for '{tname}' at {path}; "
+                f"no trained {cfg.ranker_backend} ranker for '{tname}' at {path}; "
                 "run the pipeline with labels first to train rankers"
             )
-        rankers[tname] = GBDTRanker.load(path)
+        rankers[tname] = _load_ranker(path, cfg)
         check_serving_features(tname, rankers[tname])
     return rankers
 
@@ -603,8 +612,8 @@ class PassAReport:
     positive_sessions: Dict[str, int]
 
 
-def _ranker_path(work_dir: str, tname: str) -> str:
-    return os.path.join(work_dir, f"ranker-gbdt-{tname}.npz")
+def _ranker_path(work_dir: str, tname: str, backend: str) -> str:
+    return os.path.join(work_dir, f"ranker-{backend}-{tname}.npz")
 
 
 def _rows_path(work_dir: str, tname: str) -> str:
@@ -761,18 +770,20 @@ def train_ranker_cached(
     work_dir: str,
     tname: str,
     rows_fn: Callable[[], Tuple[np.ndarray, np.ndarray, np.ndarray]],
-    gbdt_cfg: GBDTConfig,
+    cfg: Config,
     device,
     use_cache: bool = True,
-) -> GBDTRanker:
-    """One target's ranker: `ranker-gbdt-{t}.npz` from work_dir when cached;
-    else rows_fn() -> (feats, y, sessions), the sessions split 75/25 in
-    ascending id order into train / valid (no valid set with fewer than 8
-    valid sessions), train_gbdt_ranker on `device`, then the ranker and its
-    gain importance (`feat-importance-{t}.csv`) written to work_dir."""
-    path = _ranker_path(work_dir, tname)
+):
+    """One target's ranker of cfg.ranker_backend's class:
+    `ranker-{backend}-{t}.npz` from work_dir when cached; else rows_fn() ->
+    (feats, y, sessions), the sessions split 75/25 in ascending id order
+    into train / valid (no valid set with fewer than 8 valid sessions),
+    trained on `device` (train_gbdt_ranker with cfg.gbdt, or train_ranker
+    on float32 rows with cfg.ranker), then saved to work_dir; a GBDT also
+    writes its gain importance (`feat-importance-{t}.csv`)."""
+    path = _ranker_path(work_dir, tname, cfg.ranker_backend)
     if use_cache and os.path.exists(path):
-        return GBDTRanker.load(path)
+        return _load_ranker(path, cfg)
     feats, y, sess = rows_fn()
     u_sess = np.unique(sess)
     n_train = max(1, int(len(u_sess) * 0.75))
@@ -781,7 +792,15 @@ def train_ranker_cached(
         vmask = np.isin(sess, u_sess[n_train:])
         valid = (feats[vmask], y[vmask], sess[vmask])
         feats, y, sess = feats[~vmask], y[~vmask], sess[~vmask]
-    ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, gbdt_cfg,
+    if cfg.ranker_backend != "gbdt":
+        ranker = train_ranker(feats.astype(np.float32, copy=False), y, sess, FEATURE_NAMES,
+                              cfg.ranker, valid=valid, device=device)
+        ranker.save(path)
+        log.info("ranker %s (mlp): %d rows, %d steps, best epoch %d, valid ndcg %s",
+                 tname, len(y), ranker.steps, ranker.best_epoch,
+                 [h[2] for h in ranker.history])
+        return ranker
+    ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, cfg.gbdt,
                                valid=valid, device=device)
     ranker.save(path)
     imp = ranker.feature_importance("gain")
@@ -830,15 +849,6 @@ def check_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool) -> 
             json.dump({"n_aids": n_aids}, fh)
 
 
-def check_backend(cfg: Config) -> None:
-    """Only the GBDT ranker is ported: refuse another backend before any
-    work."""
-    if cfg.ranker_backend != "gbdt":
-        raise NotImplementedError(
-            f"ranker backend {cfg.ranker_backend!r}: the MLP ranker is not ported yet "
-            "(ROADMAP Queue 1, \"The MLP ranker\"); use 'gbdt'")
-
-
 def run_streaming(
     train: Events,
     test: Events,
@@ -861,19 +871,19 @@ def run_streaming(
     skipped and the missing rankers train from the rows.
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
-    check_backend(cfg)
     check_work_dir(work_dir, cfg, n_aids, use_cache)
     retriever, _ = build_retriever(
         train, test, n_aids, device, cfg.w2vec, None, cfg.covis, cfg.popularity,
         cfg.retrieval, cfg.kmeans, report_dir=work_dir, cache_dir=work_dir,
         use_cache=use_cache)
     if labels is None:
-        preds = score_pass(retriever, test, load_rankers(work_dir), batch_sessions)
+        preds = score_pass(retriever, test, load_rankers(work_dir, cfg), batch_sessions)
         submit_and_eval(work_dir, preds, None)
         return {}
 
     pm_path = os.path.join(work_dir, "passA-metrics.json")
-    have_ranker = {t: use_cache and os.path.exists(_ranker_path(work_dir, t))
+    have_ranker = {t: use_cache and os.path.exists(
+                       _ranker_path(work_dir, t, cfg.ranker_backend))
                    for t in TYPES}
     if use_cache and os.path.exists(pm_path) and all(
             have_ranker[t] or os.path.exists(_rows_path(work_dir, t)) for t in TYPES):
@@ -885,7 +895,7 @@ def run_streaming(
                             skip_targets=[t for t in TYPES if have_ranker[t]])
     rankers = {
         t: train_ranker_cached(work_dir, t, lambda t=t: load_downsampled(work_dir, t),
-                               cfg.gbdt, device, use_cache)
+                               cfg, device, use_cache)
         for t in TYPES
     }
     preds = score_pass(retriever, test, rankers, batch_sessions)
@@ -914,8 +924,8 @@ class Pipeline:
     """otto_tpu's Pipeline on one device: `cfg`, the artifact `work_dir`,
     `n_aids`, `use_cache` (False: rebuild and overwrite every artifact)
     and `device` (default "cuda", which raises without a card; tests pass
-    "cpu"). Construction resolves the device, refuses a ranker backend
-    other than 'gbdt', and runs the work-dir guard (check_work_dir).
+    "cpu"). Construction resolves the device and runs the work-dir guard
+    (check_work_dir).
 
     `run_streaming` is the module's run_streaming; `run` is the batch
     runner, which keeps every retrieval batch on the device and evaluates
@@ -932,7 +942,6 @@ class Pipeline:
 
     def __post_init__(self):
         self.device = resolve(self.device)
-        check_backend(self.cfg)
         check_work_dir(self.work_dir, self.cfg, self.n_aids, self.use_cache)
         self.stage_log: List[Dict] = []
         self.build_report: Optional[BuildReport] = None
@@ -1053,10 +1062,10 @@ class Pipeline:
         self._log("score", t0)
         return self._submit_and_eval(preds, labels, metrics, t0)
 
-    def _train_ranker_cached(self, tname: str, rows_fn, t0: float) -> GBDTRanker:
-        ranker = train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg.gbdt,
+    def _train_ranker_cached(self, tname: str, rows_fn, t0: float):
+        ranker = train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg,
                                      self.device, self.use_cache)
-        self._log(f"ranker {tname} (gbdt)", t0)
+        self._log(f"ranker {tname} ({self.cfg.ranker_backend})", t0)
         return ranker
 
     def _submit_and_eval(self, preds, labels, metrics, t0):
@@ -1068,8 +1077,8 @@ class Pipeline:
             metrics.update(res)
         return metrics
 
-    def load_rankers(self) -> Dict[str, GBDTRanker]:
-        return load_rankers(self.work_dir)
+    def load_rankers(self) -> Dict[str, object]:
+        return load_rankers(self.work_dir, self.cfg)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -56,7 +56,7 @@ import chip_smoke  # noqa: E402
 
 def history(dev, smi, trees):
     """chip_smoke.py's phases 3 to 5, the rankers cut to `trees` trees."""
-    from otto_tpu_torch.config import TYPES, GBDTConfig, RankerConfig
+    from otto_tpu_torch.config import TYPES, Config, GBDTConfig, RankerConfig
     from otto_tpu_torch.pipeline.runner import load_downsampled, pass_a, score_pass, \
         train_ranker_cached
 
@@ -69,7 +69,8 @@ def history(dev, smi, trees):
         pass_a(retriever, sp.test, sp.labels, RankerConfig(), work,
                batch_sessions=chip_smoke.BATCH)
         rankers = {t: train_ranker_cached(work, t, lambda t=t: load_downsampled(work, t),
-                                          GBDTConfig(n_trees=trees), dev, use_cache=False)
+                                          Config(gbdt=GBDTConfig(n_trees=trees)), dev,
+                                          use_cache=False)
                    for t in TYPES}
         preds = score_pass(retriever, sp.test, rankers, chip_smoke.BATCH)
         n = len(preds["clicks"][0])

@@ -90,6 +90,32 @@ def test_synth_split_run_synthetic_then_rank(tmp_path, capsys):
         assert abs(got[k] - v) <= 1e-9, (k, got[k], v)
 
 
+def test_mlp_backend_run_synthetic_then_rank(tmp_path, capsys):
+    """--ranker-backend mlp: run-synthetic trains and serves three MLP
+    towers (otto_tpu's tiny tower); rank reads the backend from the work
+    dir's config.json and serves the same towers from the cache."""
+    ev_path, prefix, work = tmp_path / "events.parquet", str(tmp_path / "sp"), tmp_path / "work"
+    assert cli.main(["synth", *SMALL, "--out", str(ev_path)]) == 0
+    assert cli.main(["split", "--events", str(ev_path), "--out-prefix", prefix]) == 0
+    capsys.readouterr()
+    assert cli.main(["run-synthetic", "--tiny", "--device", "cpu", "--ranker-backend", "mlp",
+                     *SMALL, "--work-dir", str(work), "--batch-sessions", "64"]) == 0
+    metrics = json.loads(capsys.readouterr().out)
+    assert 0.0 < metrics["total"] <= metrics["ceiling_total"]
+    stored = json.load(open(work / "config.json"))
+    assert stored["ranker_backend"] == "mlp" and stored["ranker"]["hidden_dims"] == [32, 16]
+    towers = {f: os.stat(work / f).st_mtime_ns for f in os.listdir(work)
+              if f.startswith("ranker-")}
+    assert sorted(towers) == [f"ranker-mlp-{t}.npz" for t in ("carts", "clicks", "orders")]
+    sub = (work / "submission.csv").read_text()
+    os.remove(work / "submission.csv")
+    assert cli.main(["rank", "--train", prefix + "-train.parquet", "--test",
+                     prefix + "-test.parquet", "--work-dir", str(work), "--device", "cpu",
+                     "--batch-sessions", "64"]) == 0
+    assert (work / "submission.csv").read_text() == sub
+    assert towers == {f: os.stat(work / f).st_mtime_ns for f in towers}
+
+
 def test_ingest_jsonl(tmp_path):
     """OTTO JSONL -> parquet: the events and labels come back equal."""
     want = ref_generate(RefSpec(n_sessions=60, n_aids=200, seed=3))

@@ -50,9 +50,9 @@ def test_config_matches_reference():
 @pytest.mark.parametrize("name", ["GBDTConfig", "RankerConfig", "Word2VecConfig"])
 def test_training_config_defaults_match_reference(name):
     """Every field the port has, by name, type and default; the port leaves
-    out otto_tpu's trees_per_dispatch (a dispatch-deadline workaround), the
-    MLP tower's settings, and the SGD and MXU-padding fields of the
-    word2vec models."""
+    out otto_tpu's trees_per_dispatch (a dispatch-deadline workaround) and
+    the SGD and MXU-padding fields of the word2vec models, and has every
+    field of the ranker's (the MLP tower's and downsampling's)."""
     got, want = getattr(config, name)(), dataclasses.asdict(getattr(ref_config, name)())
     fields = [f.name for f in dataclasses.fields(got)]
     assert set(fields) <= set(want)
@@ -64,8 +64,7 @@ def test_training_config_defaults_match_reference(name):
     elif name == "Word2VecConfig":
         assert left_out == {"sgd_alpha", "sgd_min_alpha", "padded_dim"}
     else:
-        assert {"neg_to_pos_ratio", "max_neg_per_session", "device_select",
-                "seed"} == set(fields)
+        assert left_out == set()
 
 
 @pytest.mark.parametrize("name", ["CoVisConfig", "PopularityConfig", "DataConfig"])

@@ -4,8 +4,8 @@ pipelined_consume must hand the batches to the consumer in order, on a
 worker thread one batch behind, and give the sequential loop's results;
 an error in the consumer or in the producer is raised in the caller and
 leaves no thread behind. A Pipeline resolves its device (the card by
-default: without one it raises), refuses the unported MLP ranker and
-guards its work dir, as otto_tpu's does."""
+default: without one it raises), runs either ranker backend and guards
+its work dir, as otto_tpu's does."""
 import dataclasses
 import json
 import threading
@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from otto_tpu_torch import config
-from otto_tpu_torch.pipeline import runner
+from otto_tpu_torch.data.synthetic import SyntheticSpec
+from otto_tpu_torch.models.ranker import Ranker
+from otto_tpu_torch.pipeline import cli, runner
 
 
 class Batch:
@@ -122,9 +124,23 @@ def test_pipeline_guards(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             runner.Pipeline(cfg, str(tmp_path / "a"), 100)
         assert not (tmp_path / "a" / "config.json").exists()
-    with pytest.raises(NotImplementedError, match="MLP ranker is not ported"):
-        runner.Pipeline(dataclasses.replace(cfg, ranker_backend="mlp"), str(tmp_path / "b"),
-                        100, device="cpu")
+    # the MLP backend at a tiny size: trains three towers, serves them
+    mlp = dataclasses.replace(cli.tiny_config(), ranker_backend="mlp")
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        metrics = runner.run_synthetic(mlp, str(tmp_path / "b"),
+                                       SyntheticSpec(n_sessions=150, n_aids=120, seed=7),
+                                       batch_sessions=64, device="cpu")
+    finally:
+        torch.set_num_threads(torch_threads)
+    assert 0.0 < metrics["total"] <= metrics["ceiling_total"]
+    rankers = runner.Pipeline(mlp, str(tmp_path / "b"), 120, device="cpu").load_rankers()
+    assert set(rankers) == set(config.TYPES)
+    assert all(isinstance(r, Ranker) and r.cfg == mlp.ranker for r in rankers.values())
+    assert not list((tmp_path / "b").glob("ranker-gbdt-*"))
+    with pytest.raises(FileNotFoundError, match="no trained mlp ranker"):
+        runner.Pipeline(mlp, str(tmp_path / "d"), 100, device="cpu").load_rankers()
     pipe = runner.Pipeline(cfg, str(tmp_path / "c"), 100, device="cpu")
     assert pipe.device == torch.device("cpu") and pipe.stage_log == []
     assert json.load(open(tmp_path / "c" / "meta.json")) == {"n_aids": 100}

@@ -253,9 +253,127 @@ def test_resume_skips_pass_a_and_serves_without_labels(both, tmp_path):
                 port_gbdt.GBDTRanker.load(os.path.join(port_dir, f"ranker-gbdt-{t}.npz")).thr)
         assert port_runner.run_streaming(None, None, None, SPEC.n_aids, str(work),
                                          "cpu", cfg=cfg) == {}
-    with pytest.raises(NotImplementedError, match="MLP ranker is not ported"):
-        port_runner.run_streaming(None, None, None, SPEC.n_aids, str(work), "cpu",
-                                  cfg=dataclasses.replace(cfg, ranker_backend="mlp"))
+
+
+# ---------------------------------------------------------------------------
+# the MLP ranker (ranker_backend="mlp") on copies of both work dirs
+# ---------------------------------------------------------------------------
+MLP_CFG = CFG.replace(ranker_backend="mlp")
+# a score's tolerance (tests/test_torch_ranker.py): about two bfloat16 ulps
+SCORE_RTOL, SCORE_ATOL = 2.0 ** -6, 1e-3
+
+
+def _mlp_work_dir(src, dst, port):
+    """A copy of a work dir with pass A's metrics and rows and no ranker,
+    its config.json rewritten for MLP_CFG by the package that reads it."""
+    from otto_tpu.config import config_to_json as ref_config_to_json
+
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("ranker-*", "feat-importance-*",
+                                                           "submission.csv"))
+    if port:
+        port_config.config_to_json(
+            dataclasses.replace(port_cfg(src), ranker_backend="mlp"), str(dst / "config.json"))
+    else:
+        ref_config_to_json(MLP_CFG, str(dst / "config.json"))
+    return dst
+
+
+def inject_ref_init(mp):
+    """The port's towers start from otto_tpu's initial params (threefry)."""
+    from otto_tpu.models import ranker as ref_ranker
+    from otto_tpu_torch import convert
+    from otto_tpu_torch.models import ranker as port_ranker
+
+    def init(n_features, cfg, mean, std, seed=None, src_idx=None):
+        return convert.ranker_from_numpy(
+            ref_ranker.init_ranker(n_features, MLP_CFG.ranker, mean, std, seed, src_idx))
+
+    mp.setattr(port_ranker, "init_ranker", init)
+
+
+@pytest.fixture(scope="module")
+def mlp_runs(both, tmp_path_factory):
+    """run_streaming with ranker_backend="mlp" through the crash-resume
+    path (pass A's metrics and rows cached, no ranker): otto_tpu's Pipeline
+    on a copy of its work dir trains its towers and serves them; the port
+    then serves otto_tpu's towers from a copy of that dir, and trains its
+    own, from otto_tpu's initial params, on a copy of its own work dir."""
+    sp = both["split"]
+    root = tmp_path_factory.mktemp("mlp")
+    ref_work = _mlp_work_dir(both["ref"][1], root / "ref", port=False)
+    rows = {f: os.stat(ref_work / f).st_mtime_ns for f in os.listdir(ref_work)
+            if f.startswith("downsampled-")}
+    ref_m = Pipeline(cfg=MLP_CFG, work_dir=str(ref_work), n_aids=SPEC.n_aids
+                     ).run_streaming(sp.train, sp.test, sp.labels, batch_sessions=BATCH)
+    assert rows == {f: os.stat(ref_work / f).st_mtime_ns for f in rows}   # no pass A
+    train, test, labels = _port_split(sp)
+    serve_work = root / "serve"
+    shutil.copytree(ref_work, serve_work)
+    os.remove(serve_work / "submission.csv")
+    cfg = port_cfg(str(serve_work))
+    assert cfg.ranker_backend == "mlp" and cfg.ranker.hidden_dims == (32, 16)
+    own_work = _mlp_work_dir(both["port"][1], root / "port", port=True)
+    calls = []
+    with one_thread(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_runner, "pass_a", lambda *a, **k: calls.append(1))
+        served = port_runner.run_streaming(train, test, labels, SPEC.n_aids, str(serve_work),
+                                           "cpu", cfg=cfg, batch_sessions=BATCH)
+        inject_ref_init(mp)
+        own = port_runner.run_streaming(train, test, labels, SPEC.n_aids, str(own_work),
+                                        "cpu", cfg=cfg, batch_sessions=BATCH)
+    assert not calls, "pass A ran: the crash-resume path was not taken"
+    return {"ref": (ref_m, ref_work), "served": (served, serve_work), "own": (own, own_work),
+            "split": sp}
+
+
+def test_mlp_serving_from_reference_towers(mlp_runs):
+    """The port's top-20 from otto_tpu's own ranker-mlp-*.npz (read, not
+    retrained) equals otto_tpu's, but where the 20th and 21st scores lie
+    within a score's tolerance."""
+    from otto_tpu_torch.engine import rank as rank_engine
+
+    (_, ref_work), (got_m, work) = mlp_runs["ref"], mlp_runs["served"]
+    for t in TYPES:
+        assert (open(work / f"ranker-mlp-{t}.npz", "rb").read()
+                == open(ref_work / f"ranker-mlp-{t}.npz", "rb").read())
+    want = rank_engine.read_submission(str(ref_work / "submission.csv"))
+    got = rank_engine.read_submission(str(work / "submission.csv"))
+    cfg = port_cfg(str(work))
+    train, test, _ = _port_split(mlp_runs["split"])
+    with one_thread():
+        retriever, _ = port_runner.build_retriever(
+            train, test, SPEC.n_aids, "cpu", cfg.w2vec, None, cfg.covis, cfg.popularity,
+            cfg.retrieval, cfg.kmeans, cache_dir=str(work))
+        batches = retriever.run(test, batch_sessions=BATCH)
+    rankers = port_runner.load_rankers(str(work), cfg)
+    n_diff = 0
+    for t in TYPES:
+        assert got[t].keys() == want[t].keys()
+        sess, _, scores = rank_engine.score_and_topk(batches, rankers[t], top_k=21)
+        s20, s21 = dict(zip(sess, scores[:, 19])), dict(zip(sess, scores[:, 20]))
+        for s in want[t]:
+            if set(got[t][s]) == set(want[t][s]):
+                continue
+            n_diff += 1
+            assert abs(s20[s] - s21[s]) <= SCORE_RTOL * abs(s20[s]) + SCORE_ATOL, (t, s)
+    assert n_diff <= 0.02 * sum(len(want[t]) for t in TYPES), n_diff
+    for k in ("clicks", "carts", "orders", "total"):
+        assert abs(got_m[k] - mlp_runs["ref"][0][k]) <= 0.01, k
+
+
+def test_mlp_trained_in_the_port(mlp_runs):
+    """The port's own towers, trained from its rows and otto_tpu's initial
+    params: otto_tpu's `.npz` layout, and recall@20 within 0.01 of
+    otto_tpu's towers'."""
+    (want, ref_work), (got, work) = mlp_runs["ref"], mlp_runs["own"]
+    for t in TYPES:
+        z, zr = np.load(work / f"ranker-mlp-{t}.npz"), np.load(ref_work / f"ranker-mlp-{t}.npz")
+        assert sorted(z.files) == sorted(zr.files)
+        assert [z[f"w{i}"].shape for i in range(3)] == [(104, 32), (32, 16), (16, 1)]
+        assert not (work / f"feat-importance-{t}.csv").exists()
+    for k in ("clicks", "carts", "orders", "total"):
+        assert abs(got[k] - want[k]) <= 0.01, (k, got[k], want[k])
+    assert got["total"] > 0.2
 
 
 # ---------------------------------------------------------------------------
