@@ -99,8 +99,23 @@ Phases, each printed before the last line:
    (bit-identical); the MLP tower at full width and on a small case,
    pointwise and listwise: scores within two bfloat16 ulps and three
    AdamW steps within 1e-4.
+9. Multi-device (run before phase 6): the sharded stages on phase 4's
+   events and work dir, in ranks started by the spawn method, (a) one rank
+   over NCCL and (b) two ranks sharing the card over gloo (data=2, and
+   model=2 for SGNS), after a check of every collective they call on the
+   card: the sharded co-visitation counter (five tables bit-equal to phase
+   4's), kNN tables (K3) and session embeddings (K4) from phase 4's models
+   (bit-equal), dp k-means from kmeans_fit's start (labels bit-equal),
+   sharded popularity from phase 4's clusters (bit-equal), w2v-1-2
+   model-parallel in chunk steps for one epoch ((b) bit-equal to (a)), dp
+   GBDT for clicks from phase 4b's rows (its first 25 trees bit-equal to
+   phase 4b's), and data-sharded serving of every test session with phase
+   4b's rankers (K1, K2; top-20 and recall@20 bit-equal to phase 5's).
+   Prints seconds per stage beside the unsharded phases', each rank's K1-K4
+   launches and peak memory per stage; (b) shares one card, so its times
+   are no scaling figure.
 
-Phases 4, 4b, 5, 5b, 7 and 8 share one work dir; phase 6 runs last.
+Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase 6 runs last.
 Then one JSON line with the kernels' results and, last, the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and the result line is not printed.
@@ -186,6 +201,8 @@ SEEDED_W2V_RECALL = {"src_w2vec_all": (0.4054, 0.0164), "src_w2vec_1_2": (0.4222
 # K1 at the GBDT tree walk's shape (phase 3), and the walk's K1 launches
 # on the paths that run it (phases 4b and 5)
 WALK = {}
+# the unsharded stages' seconds (phases 4 and 5), beside phase 9's
+UNSHARDED = {}
 
 
 def zero_launch_counts():
@@ -636,6 +653,11 @@ def phase_table_build(dev, smi, work):
                      f"{2 * q * v * EMB_D / s / 1e12:.2f} TFLOP/s)")
         print(f"#   {stage}: {s:.3f} s, peak {rep.peak_bytes[stage] / 2**30:.2f} GiB{extra}")
     report_w2vec(rep, smi)
+    UNSHARDED["covis"] = rep.seconds["covis count"] + rep.seconds["covis tables"]
+    for stage in ("session_emb", "kmeans", "popularity"):
+        UNSHARDED[stage] = rep.seconds[stage]
+    for name in rep.w2vec:
+        UNSHARDED[f"knn {name}"] = rep.seconds[f"knn {name}"]
     cv = rep.covis
     print(f"# covis: {cv['host_seconds']:.3f} s of host dedup and packing, "
           f"{cv['microbatches']} microbatches, {cv['lanes']} grid lanes, "
@@ -856,6 +878,8 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    UNSHARDED["serving"] = dt
+    UNSHARDED["preds"] = preds
     print(f"# K1 launches on the serving path by shape (B, S, P, W): "
           f"{sorted(shapes.items(), key=lambda kv: (-kv[1], kv[0]))}")
     require(sum(shapes.values()) == launches["gather_rows"],
@@ -1196,6 +1220,298 @@ def phase_tool(smi, sp, root):
         runs.append(metrics)
     print(f"#   second run from the cache ({len(before)} artifacts untouched), metrics identical")
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 9: the multi-device paths
+# --------------------------------------------------------------------------
+# phase 9's settings: w2v-1-2 in chunk steps with the per-pair sampler (what
+# model-parallel training runs), one epoch; the first GBDT_TREES trees of
+# phase 4b's clicks ranker (a tree depends only on the ones before it)
+MESH_SGNS_EPOCHS = 1
+MESH_GBDT_TREES = 25
+MESH_GBDT_TARGET = "clicks"
+
+
+def digest(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a.cpu().numpy() if torch.is_tensor(a) else a)
+        h.update(str(a.dtype).encode() + str(a.shape).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+def check_collectives(mesh, dev):
+    """Every collective the sharded paths call, on this rank's device
+    tensors, against what it must give."""
+    import torch.distributed as dist
+
+    n, r = mesh.n_data, mesh.data_rank
+    g = mesh.data_group
+    x = torch.tensor([r + 1, -(r + 1)], dtype=torch.int64, device=dev)
+    dist.all_reduce(x, group=g)
+    s = n * (n + 1) // 2
+    require(x.tolist() == [s, -s], "all_reduce SUM (int64)")
+    y = torch.tensor([float(r)], device=dev)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=g)
+    require(y.item() == n - 1, "all_reduce MAX (float32)")
+    z = torch.full((3,), r, dtype=torch.uint8, device=dev)
+    require(mesh.gather_data(z).tolist() == [i for i in range(n) for _ in range(3)],
+            "all_gather (uint8)")
+    b = torch.tensor([7 + r], dtype=torch.int32, device=dev)
+    dist.broadcast(b, src=dist.get_global_rank(g, 0), group=g)
+    require(b.item() == 7, "broadcast (int32)")
+    send = torch.arange(n, dtype=torch.int32, device=dev) + 10 * r
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g)
+    require(recv.tolist() == [10 * i + r for i in range(n)], "all_to_all_single (int32)")
+
+
+def mesh_rank(rank, work, tag, world, device="cuda"):
+    """One rank of phase 9: every sharded stage on phase 4's events, each
+    held to phase 4 / 4b / 5's outputs on the same inputs, and its seconds,
+    K1-K4 launches and peak memory written to mesh-{tag}-rank{rank}.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from otto_tpu_torch.config import (
+        W2VEC_MODELS,
+        CoVisConfig,
+        Config,
+        KMeansConfig,
+        PopularityConfig,
+    )
+    from otto_tpu_torch.data.batching import pack_sessions
+    from otto_tpu_torch.device import pin_fp32
+    from otto_tpu_torch.engine.covis import ShardedCoVisCounter
+    from otto_tpu_torch.engine.popularity import compute_popularity
+    from otto_tpu_torch.engine.session_embed import (
+        build_knn_tables,
+        compute_session_embeddings,
+    )
+    from otto_tpu_torch.eval.recall import evaluate_topk
+    from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker, tree_draws
+    from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec_device
+    from otto_tpu_torch.ops.kmeans import init_centroids, kmeans_fit_dp
+    from otto_tpu_torch.parallel.mesh import make_mesh
+    from otto_tpu_torch.pipeline.runner import (
+        FEATURE_NAMES,
+        _event_clusters,
+        build_retriever,
+        load_downsampled,
+        load_rankers,
+        score_pass,
+    )
+
+    pin_fp32()
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+           else torch.device(device))
+    with open(os.path.join(work, "mesh-in.pkl"), "rb") as fh:
+        inp = pickle.load(fh)
+    sp = inp["split"]
+    full = sp.train.concat(sp.test)
+    out = {"seconds": {}, "launches": {}, "peak": {}, "digest": {}}
+    mesh = make_mesh(world, 1, device=dev)
+    check_collectives(mesh, dev)
+
+    def stage(name, fn):
+        dist.barrier()
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = launch_counts()
+        out["peak"][name] = torch.cuda.max_memory_allocated()
+        return res
+
+    # C7: the sharded counter -> phase 4's covis.pkl, bit for bit
+    def covis():
+        counter = ShardedCoVisCounter(CoVisConfig(), mesh)
+        try:
+            counter.update(sp.train)
+            counter.update(sp.test)
+            return counter.retrieval_tables(N_AIDS)
+        finally:
+            counter.close()
+
+    tables = stage("covis", covis)
+    with open(os.path.join(work, "covis.pkl"), "rb") as fh:
+        stored = pickle.load(fh)
+    for name, t in tables.items():
+        for f, a, b in zip(t._fields, t, stored[name]):
+            require(np.array_equal(a.cpu().numpy(), b), f"sharded covis {name}.{f} bit-equal")
+    del tables, stored
+
+    # C9 / C10: kNN tables (K3) and session embeddings (K4) from the cached models
+    names = list(W2VEC_MODELS)
+    models = {n: Word2Vec.load(os.path.join(work, f"w2v-{n}.npz"), W2VEC_MODELS[n])
+              for n in names}
+    for n in names:
+        kt = stage(f"knn {n}", lambda n=n: build_knn_tables(models[n], N_AIDS, dev,
+                                                            mesh_ctx=mesh))
+        z = np.load(os.path.join(work, f"knn-{n}.npz"))
+        require(np.array_equal(kt.neighbor.cpu().numpy(), z["neighbor"]),
+                f"sharded kNN {n}: neighbours bit-equal")
+        require(np.array_equal(kt.dist.cpu().numpy(), z["dist"]),
+                f"sharded kNN {n}: distances bit-equal")
+        del kt
+    aid_emb = torch.from_numpy(models[names[0]].embedding_by_aid(N_AIDS)).to(dev)
+    sess_ids, sess_emb = stage("session_emb", lambda: compute_session_embeddings(
+        pack_sessions(full), aid_emb, mesh_ctx=mesh))
+    z = np.load(os.path.join(work, "session_emb.npz"))
+    require(np.array_equal(sess_ids, z["session"]), "sharded session ids equal")
+    require(np.array_equal(sess_emb.cpu().numpy(), z["emb"]),
+            "sharded session embeddings bit-equal")
+
+    # C11: dp k-means from kmeans_fit's start
+    km = KMeansConfig()
+    g = torch.Generator(device=dev).manual_seed(km.seed)
+    init = init_centroids(sess_emb, km.n_clusters_to_find[0], 1 << 16, g)
+    _, labels, _, n_iter = stage("kmeans", lambda: kmeans_fit_dp(
+        sess_emb, km.n_clusters_to_find[0], mesh, km.max_iter, km.tol, km.seed, init=init))
+    stored_labels = np.load(os.path.join(work, "clusters.npz"))["cluster"]
+    require(np.array_equal(labels.cpu().numpy(), stored_labels),
+            "dp k-means labels bit-equal to phase 4's")
+    out["kmeans_iter"] = n_iter
+    del sess_emb
+
+    # C12: sharded popularity from phase 4's clusters -> phase 4's tables
+    ev_cl = _event_clusters(full.session, z["session"], stored_labels)
+    pops = stage("popularity", lambda: (
+        compute_popularity(full, ev_cl, N_CLUSTERS, N_AIDS, PopularityConfig(), dev,
+                           mesh_ctx=mesh),
+        compute_popularity(full, np.zeros(len(full), np.int32), 1, N_AIDS,
+                           PopularityConfig(), dev, mesh_ctx=mesh)))
+    for got, want, tag_ in ((pops[0].candidate, inp["pop"][0], "cl50 candidates"),
+                            (pops[0].ranks, inp["pop"][1], "cl50 ranks"),
+                            (pops[1].aid_rank, inp["pop"][2], "cl1 ranks")):
+        require(np.array_equal(got.cpu().numpy(), want), f"sharded popularity {tag_} bit-equal")
+    del pops
+
+    # C8: w2v-1-2 model-parallel (the model axis over every rank) in chunk steps
+    name = names[1]
+    wcfg = dataclasses.replace(W2VEC_MODELS[name], neg_sharing="chunk", block_k=0,
+                               epochs=MESH_SGNS_EPOCHS)
+    mp = make_mesh(1, world, device=dev)
+    model = stage(f"sgns {name}", lambda: train_word2vec_device(
+        full, wcfg, N_AIDS, device=dev, mesh_ctx=mp))
+    require(model.report.mode == "chunk" and np.isfinite(model.emb).all(),
+            f"model-parallel {name}: chunk steps, finite")
+    out["digest"]["sgns"] = digest(model.emb)
+    out["sgns_steps"] = model.report.steps_per_epoch
+    del model
+
+    # C16: dp GBDT for one target from 4b's rows, 4b's split and draws
+    cfg = dataclasses.replace(Config().gbdt, n_trees=MESH_GBDT_TREES)
+    feats, y, sess = load_downsampled(work, MESH_GBDT_TARGET)
+    u = np.unique(sess)
+    vmask = np.isin(sess, u[max(1, int(len(u) * 0.75)):])
+    valid = (feats[vmask], y[vmask], sess[vmask])
+    feats, y, sess = feats[~vmask], y[~vmask], sess[~vmask]
+    n_groups = int(np.unique(sess).size)
+    rows1 = -(-n_groups // cfg.group_chunk) * cfg.group_chunk * cfg.max_group
+    mult = cfg.group_chunk * world
+    rows_n = -(-n_groups // mult) * mult * cfg.max_group
+    base = tree_draws(cfg, feats.shape[1], rows1, dev)
+
+    def draws(t, shard):
+        # one device's bag, on the padded layout of `world` ranks
+        feat, bag = base(t)
+        bag = torch.cat([bag, bag.new_zeros(rows_n - rows1)])
+        share = rows_n // world
+        return feat, bag[shard * share:(shard + 1) * share]
+
+    ranker = stage("gbdt", lambda: train_gbdt_ranker(
+        feats, y, sess, FEATURE_NAMES, cfg, valid=valid, device=dev, draws=draws,
+        mesh_ctx=mesh))
+    ref = GBDTRanker.load(os.path.join(work, f"ranker-gbdt-{MESH_GBDT_TARGET}.npz"))
+    for f in ("gfeat", "thr", "leaf", "gains"):
+        require(np.array_equal(getattr(ranker, f), getattr(ref, f)[:MESH_GBDT_TREES]),
+                f"dp GBDT {MESH_GBDT_TARGET}: {f} of the first {MESH_GBDT_TREES} trees "
+                "bit-equal to phase 4b's")
+    out["gbdt_evals"] = ranker.eval_history
+
+    # serving: data-sharded retrieval (K1, K2) and scoring with 4b's rankers
+    retriever, _ = build_retriever(sp.train, sp.test, N_AIDS, dev, cache_dir=work,
+                                   mesh=mesh)
+    rankers = load_rankers(work)
+    preds = stage("serving", lambda: score_pass(retriever, sp.test, rankers, BATCH))
+    for t, (s, a) in preds.items():
+        s0, a0 = inp["preds"][t]
+        require(np.array_equal(s, s0) and np.array_equal(a, a0),
+                f"sharded serving {t}: sessions and top-20 bit-equal to phase 5's")
+    recall = evaluate_topk(preds, sp.labels)
+    require(recall == inp["recall"], f"sharded serving recall@20 equal: {recall}")
+    out["recall_total"] = recall["total"]
+    with open(os.path.join(work, f"mesh-{tag}-rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cuda"):
+    """Phase 9: the sharded paths on the card, (a) one rank over NCCL, (b)
+    two ranks sharing the card over gloo, each stage held to the unsharded
+    phases' outputs on the same inputs (device "cpu": a rehearsal, gloo
+    for both). -> K1-K4 launches, summed over the stages and ranks."""
+    import pickle
+
+    from otto_tpu_torch.config import W2VEC_MODELS
+    from otto_tpu_torch.parallel.distributed import spawn_ranks
+
+    with open(os.path.join(work, "mesh-in.pkl"), "wb") as fh:
+        pickle.dump({"split": sp, "pop": pop, "preds": preds, "recall": recall}, fh)
+    runs = {}
+    for tag, world, backend in (("a", 1, "nccl" if device == "cuda" else "gloo"),
+                                ("b", 2, "gloo")):
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_rank, world, args=(work, tag, world, device), device=device,
+                    backend=backend, store_path=os.path.join(work, f"mesh-{tag}.store"))
+        runs[tag] = []
+        for r in range(world):
+            with open(os.path.join(work, f"mesh-{tag}-rank{r}.pkl"), "rb") as fh:
+                runs[tag].append(pickle.load(fh))
+        print(f"# multi-device ({tag}) {world} rank(s) over {backend}: "
+              f"{time.perf_counter() - t0:.1f} s with start-up; every stage held to the "
+              f"unsharded phases")
+    a, b = runs["a"][0], runs["b"]
+    for r in b:
+        require(r["digest"]["sgns"] == a["digest"]["sgns"],
+                "model-parallel SGNS on two ranks bit-equal to one rank")
+        require(r["gbdt_evals"] == a["gbdt_evals"], "dp GBDT valid ndcg equal")
+    print(f"# multi-device k-means: labels bit-equal to phase 4's on one rank and on two "
+          f"({a['kmeans_iter']} and {b[0]['kmeans_iter']} iterations)")
+    print(f"# multi-device SGNS {list(W2VEC_MODELS)[1]}: {a['sgns_steps']} chunk steps an "
+          f"epoch, model-parallel on two ranks bit-equal to one rank")
+    print(f"# multi-device seconds by stage, unsharded / (a) NCCL, 1 rank / (b) gloo, "
+          f"2 ranks sharing the card (rank 0, rank 1) ({smi}); (b) shares one card, so "
+          f"its times are no scaling figure:")
+    for st in a["seconds"]:
+        u = unsharded.get(st)
+        print(f"#   {st}: {'-' if u is None else f'{u:.2f}'} / {a['seconds'][st]:.2f} / "
+              f"{b[0]['seconds'][st]:.2f}, {b[1]['seconds'][st]:.2f}")
+    print("# multi-device launches of K1 K2 K3 K4 and peak GiB allocated by stage, "
+          "(a) rank 0 / (b) rank 0; rank 1:")
+
+    def cell(run, st):
+        ln = run["launches"][st]
+        return (" ".join(str(ln[k]) for k in ("gather_rows", "segmented_scan", "mips_topk",
+                                              "gather_rows_hbm"))
+                + f", {run['peak'][st] / 2**30:.2f}")
+
+    for st in a["launches"]:
+        print(f"#   {st}: {cell(a, st)} / {cell(b[0], st)}; {cell(b[1], st)}")
+    for run in [a] + b if device == "cuda" else []:
+        ln = run["launches"]
+        require(all(ln[f"knn {n}"]["mips_topk"] > 0 for n in W2VEC_MODELS), "K3 launched in kNN")
+        require(ln["session_emb"]["gather_rows_hbm"] > 0, "K4 launched in session embeddings")
+        require(ln["serving"]["gather_rows"] > 0 and ln["serving"]["segmented_scan"] > 0,
+                "K1 and K2 launched in serving")
+        require(ln["gbdt"]["gather_rows"] > 0, "K1 launched in dp GBDT")
+    return {k: sum(run["launches"][st][k] for run in [a] + b for st in run["launches"])
+            for k in a["launches"]["serving"]}
 
 
 # --------------------------------------------------------------------------
@@ -1860,9 +2176,15 @@ def main():
                                                   serve_recall, base_recall)
         torch.cuda.empty_cache()
         batch_launches = phase_batch_runner(dev, smi, sp, retriever, work, serve_recall)
-        del retriever
+        ctx = retriever.ctx
+        pop = tuple(t.cpu().numpy() for t in (ctx.pop_cl50_cand, ctx.pop_cl50_ranks,
+                                              ctx.pop_cl1_rank))
+        del retriever, ctx
         torch.cuda.empty_cache()
         tool_launches = phase_tool(smi, sp, root)
+        torch.cuda.empty_cache()
+        mesh_launches = phase_multi_device(smi, sp, work, pop, UNSHARDED.pop("preds"),
+                                           serve_recall, UNSHARDED)
     phase_cross_check(dev)
 
     w = WALK
@@ -1873,10 +2195,11 @@ def main():
           f"{w['launches']['training']} ({smi})")
     # launches on the paths this script drives: the build (K3, K4), pass A,
     # training, serving, the MLP's training and serving, the batch runner
-    # (K1, K2) and the two CLI runs (all)
+    # (K1, K2), the two CLI runs (all) and the multi-device stages (all,
+    # every rank)
     paths = {k: sum(p[k] for p in (build_launches, pa_launches, tr_launches,
                                    serve_launches, mlp_tr_launches, mlp_launches,
-                                   batch_launches, tool_launches))
+                                   batch_launches, tool_launches, mesh_launches))
              for k in build_launches}
     sources = {
         # name: (source, TPU kernel it replaces)

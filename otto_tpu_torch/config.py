@@ -5,9 +5,9 @@ event types and recall weights, the co-visitation counting and
 popularity settings, the retrieval caps, negative downsampling, the GBDT
 ranker's trees and training, the MLP ranker's tower and training, the
 word2vec models (SGNS training and their kNN tables), k-means, the data
-split, and the root Config with its JSON round trip. Names and defaults
-are otto_tpu's; tests/test_torch_host.py holds them equal. The mesh
-comes with the multi-device paths.
+split, the device mesh, and the root Config with its JSON round trip.
+Names and defaults are otto_tpu's; tests/test_torch_host.py holds them
+equal.
 """
 from __future__ import annotations
 
@@ -288,10 +288,21 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: 'data' (sessions and batches split over ranks)
+    and 'model' (row-sharded embedding tables). data_parallel -1 puts every
+    rank the model axis leaves on the data axis."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
-    """The root configuration, with otto_tpu's section names. otto_tpu's
-    `mesh` section waits for the multi-device paths; its other TPU-only
-    fields are left out of their sections."""
+    """The root configuration, with otto_tpu's section names; otto_tpu's
+    TPU-only fields are left out of their sections."""
 
     work_dir: str = "artifacts"
     covis: CoVisConfig = dataclasses.field(default_factory=CoVisConfig)
@@ -306,6 +317,7 @@ class Config:
     # LambdaRank tower)
     ranker_backend: str = "gbdt"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 DEFAULT = Config()
@@ -347,16 +359,19 @@ def config_from_json(path: str) -> Config:
         gbdt=_section(GBDTConfig, d["gbdt"]),
         ranker_backend=d.get("ranker_backend", "gbdt"),
         data=_section(DataConfig, d["data"]),
+        mesh=_section(MeshConfig, d.get("mesh", {})),
     )
 
 
 def stale_sections(cfg: Config, stored: dict) -> List[str]:
-    """The sections of `cfg` (all but work_dir) that a stored config.json
-    (as loaded) does not hold: a field the port has must be stored with
-    the same value, and the w2vec models must be the same names in the
-    same order. Stored fields the port lacks are not compared."""
+    """The sections of `cfg` (all but work_dir and mesh, which shape no
+    artifact) that a stored config.json (as loaded) does not hold: a field
+    the port has must be stored with the same value, and the w2vec models
+    must be the same names in the same order. Stored fields the port lacks
+    are not compared."""
     cur = json.loads(json.dumps(dataclasses.asdict(cfg)))   # as stored: lists
     cur.pop("work_dir")
+    cur.pop("mesh")
 
     def same_fields(c, s):
         return isinstance(s, dict) and all(k in s and s[k] == v for k, v in c.items())

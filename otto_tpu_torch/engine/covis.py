@@ -28,6 +28,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from otto_tpu_torch.config import CoVisConfig
 from otto_tpu_torch.data.batching import (
@@ -162,7 +163,12 @@ class CountLadder:
     one run of level k + 1 (capacity arity^(k+1) * run_size). Runs past
     the top level spill losslessly to a host store (spill=True), first
     pruned per tag when they hold at least `prune_min_rows` rows, or fold
-    into a bounded device table pruned per tag on overflow (spill=False)."""
+    into a bounded device table pruned per tag on overflow (spill=False).
+
+    With a process `group` set (a sharded counter's data group, every rank
+    pushing one run per microbatch in lockstep), the prune decision reads a
+    spilled run's rows summed over the group: the rows of the same run on
+    one device, so every shard prunes where the single counter does."""
 
     def __init__(
         self,
@@ -177,6 +183,8 @@ class CountLadder:
         prune_min_rows: int = 0,
     ):
         self.run_size = run_size
+        self.squeeze_rows = run_size   # the granularity of _squeeze
+        self.group = None              # a sharded counter's data group
         self.arity = arity
         self.stride = stride
         self.device = resolve(device)
@@ -207,7 +215,7 @@ class CountLadder:
         if (
             self.prune_min_rows
             and any(m > 1 for m in self._min_in_part)
-            and int(run.n) >= self.prune_min_rows
+            and self._run_rows(run) >= self.prune_min_rows
         ):
             before = int(run.n)
             run = counts_ops.prune_tagged(run, self._min_in_part, self.stride)
@@ -221,6 +229,13 @@ class CountLadder:
                  "%.1fM pruned)", n / 1e6, self._store.rows_spilled / 1e6,
                  self.rows_pruned / 1e6)
 
+    def _run_rows(self, run: CountTable) -> int:
+        if self.group is None:
+            return int(run.n)
+        n = run.n.to(torch.int64).reshape(1).clone()
+        dist.all_reduce(n, group=self.group)
+        return int(n)
+
     def _fold_top(self, run: CountTable, compacted: bool) -> None:
         self._top = counts_ops.merge_bounded_tagged(
             self.top(), self._squeeze(run) if compacted else run,
@@ -229,6 +244,10 @@ class CountLadder:
     def push(self, run: CountTable) -> None:
         """Add one raw (unsorted, unit-count) run."""
         self._push(0, run)
+
+    def push_compacted(self, run: CountTable) -> None:
+        """Add one compacted run (uniques at the front, summed counts)."""
+        self._push(0, run, compacted=True)
 
     def _push(self, level: int, run: CountTable, compacted: bool = False) -> None:
         if level >= self.n_levels:
@@ -250,9 +269,9 @@ class CountLadder:
 
     def _squeeze(self, t: CountTable) -> CountTable:
         """Slice a compacted run down to the smallest power-of-two multiple
-        of run_size that holds its uniques (one device sync)."""
+        of squeeze_rows that holds its uniques (one device sync)."""
         n = int(t.n)
-        size = self.run_size
+        size = self.squeeze_rows
         while size < n:
             size *= 2
         if size >= t.capacity:
@@ -388,7 +407,7 @@ class CoVisCounter:
         out: Dict[str, CountTable] = {}
         stride = pairs_ops.AID_STRIDE
         if self.spill:
-            k1, k2, cnt = self._ladder.host_merged()
+            k1, k2, cnt = self._merged()
             for i, name in enumerate(self.cfg.names):
                 lo, hi = np.searchsorted(k1, [i * stride, (i + 1) * stride])
                 out[name] = CountTable(
@@ -403,6 +422,9 @@ class CoVisCounter:
             out[name] = counts_ops.extract_tag(
                 self._ladder.top(), i, stride, self.per_type_capacity)
         return out
+
+    def _merged(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self._ladder.host_merged()
 
     def finalize(self) -> Dict[str, CountTable]:
         """The global prune per count type; records (unique pairs before,
@@ -458,6 +480,56 @@ class CoVisCounter:
 
     def close(self) -> None:
         self._ladder.close()
+
+
+class ShardedCoVisCounter(CoVisCounter):
+    """Counting over the data ranks of a mesh (otto_tpu's
+    ShardedCoVisCounter): every rank runs update() on the same events; each
+    microbatch is the single counter's, its rows split over the data ranks
+    (mesh.data_slice), and each rank keeps the pairs of the aids it owns
+    (parallel/collectives.py): its own CountLadder, spill worker and host
+    run store. The microbatches, the ladder's merge schedule and the
+    spill-time prune (on a run's rows summed over the ranks) are the single
+    counter's, so each rank's store holds exactly the single counter's
+    rows of its aids.
+
+    The tables are built on every rank from replicated data: `tables`
+    gathers every rank's merged rows to every rank, and the global prune
+    (finalize) and the retrieval tables then run there as on one device.
+    Spill mode only. Call close() when done."""
+
+    def __init__(self, cfg: CoVisConfig, mesh, **kw):
+        super().__init__(cfg, mesh.device, spill=True, **kw)
+        self.mesh = mesh
+        self._ladder.group = mesh.data_group
+        # a rank's runs hold its owned share of a microbatch's pairs, often
+        # far below the pair budget: slice them to their content
+        self._ladder.squeeze_rows = 1 << 12
+
+    def update(self, events: Events) -> None:
+        from otto_tpu_torch.parallel.collectives import sharded_pair_run
+
+        t0 = time.perf_counter()
+        packed = pack_sessions_filled(dedup_events(events), self.bucket_lens)
+        self.host_seconds += time.perf_counter() - t0
+        for filled in packed:
+            L = filled.max_len
+            s_batch = pairs_ops.pair_budget_sessions(L, self.pair_budget)
+            for mb in iter_filled_microbatches(filled, s_batch):
+                run, n_pairs = sharded_pair_run(
+                    self.plan, self.mesh,
+                    *(torch.from_numpy(x).to(self.device)
+                      for x in (mb.aid, mb.ts, mb.type, mb.sess)))
+                self.n_microbatches += 1
+                sl = self.mesh.data_slice(mb.n_rows)
+                self.n_lanes += (sl.stop - sl.start) * L * L
+                self._pairs += n_pairs
+                self._ladder.push_compacted(run)
+
+    def _merged(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        from otto_tpu_torch.parallel.collectives import gather_owned
+
+        return gather_owned(self.mesh, *self._ladder.host_merged())
 
 
 def count_events(

@@ -13,6 +13,12 @@ with key (kind * n_clusters + cluster, aid) into the co-visitation
 counter's CountLadder, which spills its runs to host memory; ranks and
 tables are built on the host (numpy) from the merged counts and returned
 on the device.
+
+With a mesh, each data rank emits and combines its share of every
+microbatch (make_sharded_pop_emit); the shares' compacted runs are
+gathered to every rank, and every rank merges them in its own ladder and
+builds the tables from that replicated data: the same counts, so the same
+tables, at any number of ranks.
 """
 from __future__ import annotations
 
@@ -56,6 +62,25 @@ def _pop_emit_impl(cluster, aid, type_, ts, ts_7d: int, n_clusters: int) -> Coun
                     torch.where(recent, aid, seg.SENTINEL)])
     cnt = torch.cat([valid, recent]).to(torch.int32)
     return CountTable(k1, k2, cnt, cnt.sum(dtype=torch.int32))
+
+
+def make_sharded_pop_emit(mesh_ctx, n_clusters: int):
+    """-> emit(cluster, aid, type, ts, ts_7d) over a microbatch [P] (the
+    same events on every data rank, P a multiple of n_data): each rank
+    emits the lanes of its P / n events and sort-compresses them; -> the
+    n_data compacted runs [2P / n] of every rank, in rank order."""
+    n = mesh_ctx.n_data
+
+    def emit(cluster, aid, type_, ts, ts_7d: int):
+        sl = mesh_ctx.data_slice(aid.shape[0])
+        t = _pop_emit_impl(cluster[sl], aid[sl], type_[sl], ts[sl], ts_7d, n_clusters)
+        ua, ub, uc, nu = seg.sort_compress(t.aid, t.aid_next, t.count)
+        runs = mesh_ctx.gather_data(torch.stack([ua, ub, uc]))    # [3n, 2P/n]
+        nus = mesh_ctx.gather_data(nu.reshape(1))
+        return [CountTable(runs[3 * i], runs[3 * i + 1], runs[3 * i + 2], nus[i])
+                for i in range(n)]
+
+    return emit
 
 
 def _segment_starts(sorted_keys: np.ndarray) -> np.ndarray:
@@ -130,18 +155,27 @@ def compute_popularity(
     device,
     top_slots: int = 128,
     event_budget: int = 1 << 22,
+    mesh_ctx=None,
 ) -> PopularityTables:
     """The popularity tables of `events` on `device`. `session_cluster` is
     per event (join cluster-of-session on the host first). Microbatches of
     P events (the next power of two of the event count, at least 8, at
     most `event_budget`; the tail padded with aid -1) feed a spilling
-    CountLadder with runs of 2P rows."""
+    CountLadder with runs of 2P rows. With `mesh_ctx` (every data rank
+    calling with the same events), P rounds up to a multiple of n_data
+    and the ranks share each microbatch (make_sharded_pop_emit); every
+    rank returns the same tables."""
     dev = resolve(device)
     n = len(events.aid)
     ts_7d = (int(events.ts.max()) if n else 0) - cfg.recent_window
     P = min(event_budget, max(8, 1 << (n - 1).bit_length()) if n else 8)
+    n_dev = 1 if mesh_ctx is None else mesh_ctx.n_data
+    emit_sharded = None
+    if n_dev > 1:
+        P = -(-P // n_dev) * n_dev
+        emit_sharded = make_sharded_pop_emit(mesh_ctx, n_clusters)
     ladder = CountLadder(
-        run_size=2 * P,
+        run_size=2 * P // n_dev,
         top_capacity=8,
         min_in_part=(1,) * N_COUNTS,
         stride=n_clusters,
@@ -160,9 +194,13 @@ def compute_popularity(
                     x = np.pad(x, (0, pad), constant_values=fill)
                 return torch.from_numpy(x).to(dev)
 
-            ladder.push(_pop_emit_impl(
-                _p(cl, 0), _p(events.aid, -1), _p(events.type, 0),
-                _p(events.ts, 0), ts_7d, n_clusters))
+            args = (_p(cl, 0), _p(events.aid, -1), _p(events.type, 0), _p(events.ts, 0),
+                    ts_7d)
+            if emit_sharded is None:
+                ladder.push(_pop_emit_impl(*args, n_clusters))
+            else:
+                for run in emit_sharded(*args):
+                    ladder.push_compacted(run)
         k1, k2, cnt = ladder.host_merged()
     finally:
         ladder.close()

@@ -863,11 +863,19 @@ class SessionLookup:
 @dataclasses.dataclass
 class Retriever:
     """Host-side loop: streams padded session batches through
-    retrieve_batch on the context's device."""
+    retrieve_batch on the context's device.
+
+    With `mesh` (a parallel.mesh.MeshContext; every data rank iterating
+    the same sessions), the microbatches are dealt round-robin over the
+    data ranks, each retrieved whole: every batch has the shape it has on
+    one device, so a session's candidates and features are those of a
+    one-device run bit for bit (a share of a batch would put the float
+    features' products through the card's BLAS at another batch size)."""
 
     ctx: RetrievalContext
     cfg: RetrievalConfig
     sessions: SessionLookup              # session -> (cl50, embedding)
+    mesh: Optional[object] = None        # parallel.mesh.MeshContext
 
     def run(
         self,
@@ -888,9 +896,10 @@ class Retriever:
         keep_aids: Optional[int] = None,
         max_candidates: Optional[int] = None,
     ):
-        """Yield one RetrievedBatch per microbatch of each length bucket.
-        A bucket's tail batch is padded to the bucket's batch size with
-        session -1 rows, which `keep` filters out."""
+        """Yield one RetrievedBatch per microbatch of each length bucket
+        (with a mesh: those dealt to this data rank). A bucket's tail batch
+        is padded to the bucket's batch size with session -1 rows, which
+        `keep` filters out."""
         keep_aids = keep_aids or self.cfg.max_session_aids
         max_candidates = max_candidates or self.cfg.max_candidates
         dev = self.ctx.aid_emb.device
@@ -908,9 +917,14 @@ class Retriever:
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+        n_batches = 0
         for p in pack_sessions(test, cfg.session_len_buckets):
             size = min(batch_sessions, p.n_sessions)
             for mb in iter_microbatches(p, size):
+                n_batches += 1
+                if self.mesh is not None and (n_batches - 1) % self.mesh.n_data \
+                        != self.mesh.data_rank:
+                    continue
                 cluster, semb = self.sessions.lookup(mb.session)
                 cand, feats, ts_order = retrieve_batch(
                     (put(mb.aid), put(mb.ts), put(mb.type)),

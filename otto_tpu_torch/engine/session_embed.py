@@ -15,6 +15,12 @@ see the rounded values.
 The kNN tables are dense [n_aids, k]: for the `knn_first_n_aids` most
 frequent words, their k nearest words (squared L2, nearest first, the word
 itself included) as aids; -1 rows for every other aid.
+
+With a mesh, the microbatches are dealt round-robin over the data ranks;
+each rank runs K4 and the weighted means on its own, at one device's
+shapes, and the rounded results are gathered: every rank holds every
+session's embedding, bit-equal to one device's. The kNN search splits
+its query rows over the ranks (ops/knn.py).
 """
 from __future__ import annotations
 
@@ -63,7 +69,7 @@ def session_embedding_batch(
 
 def compute_session_embeddings(
     padded_batches: Sequence[PaddedSessions], emb_table: torch.Tensor,
-    lane_budget: int = 1 << 19,
+    lane_budget: int = 1 << 19, mesh_ctx=None,
 ) -> Tuple[np.ndarray, torch.Tensor]:
     """Bucketed sessions -> (session ids [N] sorted, embeddings [N, D]
     float32 on the table's device, float16-rounded).
@@ -71,39 +77,50 @@ def compute_session_embeddings(
     Each bucket runs in microbatches of about `lane_budget` [S, L] lanes
     (a power of two of rows, at least 8): the gathered [S, L, D] grid is
     ~400 B a lane at D = 100, so a whole bucket at once would need tens of
-    GB at OTTO scale."""
+    GB at OTTO scale. With `mesh_ctx` (every data rank calling with the
+    same sessions) each rank embeds the microbatches dealt to it
+    (round-robin); every rank returns all rows."""
     dev = emb_table.device
     sids, embs = [], []
+    n_mb = 0
     for p in padded_batches:
         L = p.aid.shape[1]
         rows = max(8, 1 << (max(1, lane_budget // L).bit_length() - 1))
         for mb in iter_microbatches(p, min(rows, 1 << 20)):
+            n_mb += 1
+            if mesh_ctx is not None and (n_mb - 1) % mesh_ctx.n_data != mesh_ctx.data_rank:
+                continue
             # one upload of the stacked (aid, ts, type) microbatch
             stk = torch.from_numpy(np.stack([mb.aid, mb.ts, mb.type])).to(dev)
             e = session_embedding_batch(stk[0], stk[1], stk[2], emb_table)
             keep = np.flatnonzero(mb.session >= 0)
             sids.append(mb.session[keep])
             e = e.index_select(0, torch.from_numpy(keep).to(dev))
-            embs.append(e.to(torch.float16).to(torch.float32))
-    session = np.concatenate(sids)
+            embs.append(e.to(torch.float16))
+    session = np.concatenate(sids) if sids else np.zeros(0, np.int32)
+    emb = torch.cat(embs) if embs else emb_table.new_zeros((0, emb_table.shape[1]),
+                                                           dtype=torch.float16)
+    if mesh_ctx is not None:
+        session = mesh_ctx.gather_arrays(session.astype(np.int32))[0]
+        emb = mesh_ctx.gather_varlen(emb)
     order = np.argsort(session)
-    emb = torch.cat(embs).index_select(0, torch.from_numpy(order).to(dev))
+    emb = emb.index_select(0, torch.from_numpy(order).to(dev)).to(torch.float32)
     return session[order], emb
 
 
 def build_knn_tables(
     model: Word2Vec, n_aids: int, device, k: Optional[int] = None,
-    first_n: Optional[int] = None,
+    first_n: Optional[int] = None, mesh_ctx=None,
 ) -> KnnTables:
     """Neighbours of the `first_n` most frequent words (default: the
     model's knn_first_n_aids) among all of the model's words, on
-    `device`."""
+    `device`; with `mesh_ctx`, the queries split over the data ranks."""
     cfg = model.cfg
     k = k or cfg.knn_k
     first_n = min(first_n or cfg.knn_first_n_aids, model.vocab.size)
     dev = torch.device(device)
     emb = torch.from_numpy(np.ascontiguousarray(model.emb, np.float32)).to(dev)
-    scores, idx = knn_search(emb[:first_n], emb, k, metric="l2")
+    scores, idx = knn_search(emb[:first_n], emb, k, metric="l2", mesh_ctx=mesh_ctx)
     aid_of_word = torch.from_numpy(
         np.ascontiguousarray(model.vocab.aid_of_word, np.int32)).to(dev)
     nbr_aid = torch.where(idx >= 0, aid_of_word[idx.clamp(min=0).long()], -1)

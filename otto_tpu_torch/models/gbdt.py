@@ -26,6 +26,17 @@ once to float32. Integer sums do not depend on the order of the adds, so
 the card's histograms equal the CPU's on the same inputs and a training
 on the card repeats bit for bit.
 
+Data-parallel training (`mesh_ctx`, otto_tpu's `_train_program_dp`):
+every rank bins, routes and sums a contiguous share of the session groups
+(their count padded to group_chunk x n_data), and the fixed-point scale
+(largest value and row count), the histograms and the leaf sums are
+all-reduced: int64 sums, so the trees do not depend on how the groups are
+split. The scores are all-gathered after each tree and every rank takes
+the lambda gradients of all groups in one device's chunks, then its own
+share: on the card a reduction's order can depend on the batch it runs
+in. Every rank grows the same trees from the same column subset; each
+draws its own row bag (`draws(t, shard)`).
+
 Prediction bins the raw features (bin = number of edges <= x), then walks
 all trees at once: node state is [M, T], and at every level the per-row
 feature-bin fetch is ONE row gather [M, F] -> [M, T] on kernel K1.
@@ -167,13 +178,19 @@ def _pow2(e: torch.Tensor) -> torch.Tensor:
     return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
-def _fixed_point(v: torch.Tensor):
+def _fixed_point(v: torch.Tensor, mesh_ctx=None):
     """v [N, K] f32 -> (q [N, K] int64, unit [K] f32) with v ~ q * unit:
     each column is scaled by a power of two so that its largest |v| takes
     62 - bit_length(N) bits, which leaves a sum of N values room in int64.
-    bfloat16 values down to 2^-30 of the column's largest are exact."""
-    headroom = 62 - max(1, v.shape[0]).bit_length()
-    _, e = torch.frexp(v.abs().amax(0))             # max |v| < 2^e
+    bfloat16 values down to 2^-30 of the column's largest are exact. With
+    `mesh_ctx`, N and the largest |v| are those of every rank's rows."""
+    n = v.shape[0]
+    amax = v.abs().amax(0) if n else v.new_zeros(v.shape[1:])   # a rank may hold no rows
+    if mesh_ctx is not None:
+        n = int(mesh_ctx.all_sum(torch.tensor(n, device=v.device)))
+        mesh_ctx.all_max(amax)
+    headroom = 62 - max(1, n).bit_length()
+    _, e = torch.frexp(amax)                         # max |v| < 2^e
     s = (headroom - e).clamp(-126, 126)
     q = torch.round(v * _pow2(s)).to(torch.int64)
     return q, _pow2(-s)
@@ -217,12 +234,14 @@ def _histograms(bins_sub, node, gh3, n_nodes_w, n_bins) -> torch.Tensor:
 # tree building
 # ---------------------------------------------------------------------------
 
-def _build_tree(bins_sub, grad, hess, cnt, cfg: GBDTConfig):
+def _build_tree(bins_sub, grad, hess, cnt, cfg: GBDTConfig, mesh_ctx=None):
     """One complete depth-D tree, level-wise.
 
     bins_sub [N, Fs] (feature-subsampled bins), grad/hess/cnt [N] f32 (0
     for bagged-out rows). Returns (feat_local [D, W], thr [D, W], gain
-    [D, W], leaf [2^D], node [N]); thr == n_bins is a no-op split."""
+    [D, W], leaf [2^D], node [N]); thr == n_bins is a no-op split. With
+    `mesh_ctx` the rows are this rank's, and histograms and leaf sums are
+    all-reduced over the data ranks."""
     depth, n_bins = cfg.max_depth, cfg.n_bins
     W = 1 << (depth - 1)
     n_leaves = 1 << depth
@@ -232,11 +251,14 @@ def _build_tree(bins_sub, grad, hess, cnt, cfg: GBDTConfig):
     feat_arr = torch.zeros((depth, W), dtype=torch.int64, device=dev)
     thr_arr = torch.full((depth, W), n_bins, dtype=torch.int64, device=dev)
     gain_arr = torch.zeros((depth, W), dtype=torch.float32, device=dev)
-    q, unit = _fixed_point(_bf16(torch.stack([grad, hess, cnt], dim=-1)))
+    q, unit = _fixed_point(_bf16(torch.stack([grad, hess, cnt], dim=-1)), mesh_ctx)
     slot = torch.arange(W, device=dev)
     l2 = cfg.lambda_l2
     for level in range(depth):
-        H = _histograms_fixed(bins_sub, node, q, W, n_bins).to(torch.float32) * unit
+        H = _histograms_fixed(bins_sub, node, q, W, n_bins)
+        if mesh_ctx is not None:
+            mesh_ctx.all_sum(H)
+        H = H.to(torch.float32) * unit
         cum = torch.cumsum(H, dim=1)                   # left stats for thr=b+1
         tot = cum[:, -1:, :, :]
         gl, hl, cl = cum[..., 0], cum[..., 1], cum[..., 2]
@@ -267,7 +289,10 @@ def _build_tree(bins_sub, grad, hess, cnt, cfg: GBDTConfig):
         row_bin = bins_sub.gather(1, bf[node][:, None].to(torch.int64))[:, 0]
         node = node * 2 + (row_bin.long() >= thr[node]).long()
 
-    sums = _cell_sums(node, q, n_leaves).to(torch.float32) * unit
+    sums = _cell_sums(node, q, n_leaves)
+    if mesh_ctx is not None:
+        mesh_ctx.all_sum(sums)
+    sums = sums.to(torch.float32) * unit
     leaf = torch.where(
         sums[:, 2] > 0,
         -sums[:, 0] / (sums[:, 1] + l2 + 1e-9) * cfg.learning_rate,
@@ -288,20 +313,25 @@ def _pad_axis0(x: np.ndarray, mult: int, fill=0) -> np.ndarray:
     return np.concatenate([x, np.full((pad, *x.shape[1:]), fill, x.dtype)])
 
 
-Draws = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
+Draws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 def tree_draws(cfg: GBDTConfig, n_features: int, n_rows: int, device) -> Draws:
-    """The default per-tree draws: t -> (feat_idx [Fs], bag [n_rows] bool),
-    a column subset of Fs = round(colsample * F) features and a Bernoulli
-    (subsample) row bag, from a torch.Generator on `device` seeded with
-    (cfg.seed, t). Other draws than otto_tpu's threefry stream."""
+    """The default per-tree draws: (t, shard=0) -> (feat_idx [Fs], bag
+    [n_rows] bool), a column subset of Fs = round(colsample * F) features
+    and a Bernoulli (subsample) row bag, from a torch.Generator on `device`
+    seeded with (cfg.seed, t); shard k > 0 (a data rank's groups) draws its
+    bag from a generator of its own, the same column subset. Other draws
+    than otto_tpu's threefry stream."""
     dev = torch.device(device)
     n_sub = max(1, int(round(cfg.colsample * n_features)))
 
-    def draws(t: int):
+    def draws(t: int, shard: int = 0):
         g = torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + int(t))
         feat_idx = torch.randperm(n_features, generator=g, device=dev)[:n_sub]
+        if shard:
+            g = torch.Generator(device=dev).manual_seed(
+                (cfg.seed * 1_000_003 + int(t)) * 65_537 + int(shard))
         bag = torch.rand(n_rows, generator=g, device=dev) < cfg.subsample
         return feat_idx, bag
 
@@ -309,7 +339,7 @@ def tree_draws(cfg: GBDTConfig, n_features: int, n_rows: int, device) -> Draws:
 
 
 def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, scores0=None,
-                tree_ids=None, draws: Optional[Draws] = None):
+                tree_ids=None, draws: Optional[Draws] = None, mesh_ctx=None):
     """bins [NG*G, F] uint8 (grouped-flat: row g*G+j <-> group g slot j),
     labels_g [NG, G] f32, mask_g [NG, G] bool, NG a multiple of
     cfg.group_chunk, all on one device. Grows the trees `tree_ids` (all
@@ -318,7 +348,12 @@ def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, scores0=None,
 
     `draws(t) -> (feat_idx [Fs], bag [NG*G])` gives tree t's column subset
     and row bag (default `tree_draws`). Padded slots take no part: they
-    have no gradient, so only real rows are binned, routed and summed."""
+    have no gradient, so only real rows are binned, routed and summed.
+
+    With `mesh_ctx`, labels_g / mask_g are every rank's groups, bins and
+    scores0 this data rank's share of them (NG / n_data groups), draws are
+    called as draws(t, data rank), and every rank returns the same trees
+    (and the scores of its own rows)."""
     NG, G = labels_g.shape
     N, F = bins.shape
     dev = bins.device
@@ -329,15 +364,18 @@ def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, scores0=None,
     chunk = CUDA_LAMBDA_GROUPS if dev.type == "cuda" else cfg.group_chunk
     lead = ((labels_g > 0) & mask_g).any(0).nonzero()
     n_lead = int(lead.max()) + 1 if len(lead) else 1
-    rows = mask_g.reshape(-1).nonzero()[:, 0]
+    own = slice(0, N)   # this rank's rows of the grouped-flat layout
+    if mesh_ctx is not None:
+        own = slice(mesh_ctx.data_rank * N, (mesh_ctx.data_rank + 1) * N)
+    rows = mask_g.reshape(-1)[own].nonzero()[:, 0]
     bins_r = bins[rows]
     scores = torch.zeros(N, device=dev) if scores0 is None else scores0.clone()
     if tree_ids is None:
         tree_ids = range(cfg.n_trees)
     gfeat, thr, gain, leaf = [], [], [], []
     for t in tree_ids:
-        feat_idx, bag = draws(t)
-        sc = scores.view(NG, G)
+        feat_idx, bag = draws(t) if mesh_ctx is None else draws(t, mesh_ctx.data_rank)
+        sc = (scores if mesh_ctx is None else mesh_ctx.gather_data(scores)).view(NG, G)
         grad = torch.empty((NG, G), device=dev)
         hess = torch.empty((NG, G), device=dev)
         for c0 in range(0, NG, chunk):
@@ -348,8 +386,8 @@ def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, scores0=None,
         bag_r = bag.to(dev)[rows].to(torch.float32)
         feat_idx = feat_idx.to(dev).long()
         f_l, th, gn, lf, node = _build_tree(
-            bins_r[:, feat_idx], grad.view(-1)[rows] * bag_r,
-            hess.view(-1)[rows] * bag_r, bag_r, cfg)
+            bins_r[:, feat_idx], grad.view(-1)[own][rows] * bag_r,
+            hess.view(-1)[own][rows] * bag_r, bag_r, cfg, mesh_ctx)
         scores[rows] += lf[node]
         gfeat.append(feat_idx[f_l])
         thr.append(th)
@@ -578,6 +616,7 @@ def train_gbdt_ranker(
     *,
     device,
     draws: Optional[Draws] = None,
+    mesh_ctx=None,
 ) -> GBDTRanker:
     """Bin the rows, group them by session and boost cfg.n_trees trees on
     `device`, as otto_tpu's train_gbdt_ranker does on one device.
@@ -588,7 +627,12 @@ def train_gbdt_ranker(
     last), from scores accumulated eval chunk by eval chunk; best_iter /
     best_score record the best point, and cfg.early_stopping_rounds > 0
     stops once it is that many trees behind and keeps the best trees.
-    `draws` replaces the per-tree column / row draws (see _train_core)."""
+    `draws` replaces the per-tree column / row draws (see _train_core).
+
+    With `mesh_ctx` (every data rank calling with the same rows), training
+    is data-parallel: the group count is padded to group_chunk x n_data,
+    each rank boosts on its contiguous share of the groups, and every rank
+    returns the same ranker (the valid set is scored on every rank)."""
     dev = torch.device(device)
     feats, labels, group_sessions = _cap_groups(
         feats, labels, group_sessions, cfg.max_train_groups, cfg.seed, "train")
@@ -596,8 +640,11 @@ def train_gbdt_ranker(
         valid = _cap_groups(*valid, cfg.max_valid_groups, cfg.seed, "valid")
     edges = compute_bin_edges(feats, cfg.n_bins, seed=cfg.seed)
     edges_d = torch.from_numpy(edges).to(dev)
+    n_dev = 1 if mesh_ctx is None else mesh_ctx.n_data
     bins, lg_d, mg_d = _grouped_bins(feats, labels, group_sessions, edges_d, cfg, dev,
-                                     group_mult=cfg.group_chunk)
+                                     group_mult=cfg.group_chunk * n_dev)
+    if n_dev > 1:   # this rank's share of the groups' rows
+        bins = bins[mesh_ctx.data_slice(bins.shape[0])]
 
     eval_every = cfg.eval_every if valid is not None and cfg.eval_every > 0 else 0
     chunk = eval_every or cfg.n_trees
@@ -615,7 +662,8 @@ def train_gbdt_ranker(
     for t0 in range(0, cfg.n_trees, chunk):
         tids = range(t0, min(t0 + chunk, cfg.n_trees))
         gf, th, gn, lf, scores = _train_core(
-            bins, lg_d, mg_d, cfg, scores0=scores, tree_ids=tids, draws=draws)
+            bins, lg_d, mg_d, cfg, scores0=scores, tree_ids=tids, draws=draws,
+            mesh_ctx=mesh_ctx)
         parts.append((gf, th, gn, lf))
         n_done = tids[-1] + 1
         if valid is None:

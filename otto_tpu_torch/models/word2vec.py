@@ -28,6 +28,15 @@ Row updates are deterministic on every device (`_add_rows`): a row's
 duplicate updates are summed exactly in int64 fixed point, then rounded
 once, never summed by float atomics. otto_tpu's XLA scatter adds them one
 by one in batch order, so the two agree to float32 rounding.
+
+Model-parallel training (`mesh_ctx` with a model axis > 1, otto_tpu's
+make_sgns_epoch_mp): the rows of every table split over the model ranks
+(padded to a multiple of them), each rank holding its rows plus one
+scratch row. Every rank draws the same index stream (chunk negatives,
+per-pair sampler); a gather is the model ranks' masked local gathers
+summed (all_reduce: one owner, so exact), and each rank adds only its
+own rows' updates, from the same fixed-point scale as one device: the
+tables equal one device's bit for bit.
 """
 from __future__ import annotations
 
@@ -38,11 +47,13 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from otto_tpu_torch.config import Word2VecConfig
 from otto_tpu_torch.data.schema import Events
 from otto_tpu_torch.device import resolve
+from otto_tpu_torch.parallel.mesh import gather_equal
 from otto_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 log = logging.getLogger(__name__)
@@ -365,15 +376,46 @@ def host_draws(gen: torch.Generator, batch: int, n_negs: int) -> Dict[str, torch
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
-def _fixed_sums(ids: torch.Tensor, rows: torch.Tensor, shape):
+class TableShard(NamedTuple):
+    """A model rank's rows [v0, v0 + vs) of every table, held as [vs + 1]
+    rows: the last one is scratch, where other ranks' ids land."""
+
+    v0: int
+    vs: int
+    group: object
+
+
+def _local_ids(ids: torch.Tensor, shard: Optional[TableShard]):
+    """-> (row of each id in this rank's table, owned mask or None)."""
+    if shard is None:
+        return ids, None
+    own = (ids >= shard.v0) & (ids < shard.v0 + shard.vs)
+    return torch.where(own, ids - shard.v0, shard.vs), own
+
+
+def _take(table: torch.Tensor, ids: torch.Tensor,
+          shard: Optional[TableShard] = None) -> torch.Tensor:
+    """table[ids]; on a shard, the model ranks' owned rows summed."""
+    loc, own = _local_ids(ids, shard)
+    rows = table[loc]
+    if shard is None:
+        return rows
+    rows = torch.where(own if rows.dim() == 1 else own[:, None], rows, 0.0)
+    dist.all_reduce(rows, group=shard.group)
+    return rows
+
+
+def _fixed_sums(ids: torch.Tensor, rows: torch.Tensor, shape,
+                shard: Optional[TableShard] = None):
     """Per-id sums of rows, exact, so in no particular order: the rows are
     scaled by one power of two into int64 fixed point (room for the sum of
     all of them) and added with integer index_add_, with no sort and no
-    host sync. -> (int64 sums of `shape`, the float32 scale)."""
+    host sync. -> (int64 sums of `shape`, the float32 scale). On a shard
+    the scale is that of all rows, and only owned ids are summed."""
     _, e = torch.frexp(rows.abs().amax() * ids.shape[0])
     scale = torch.ldexp(torch.ones((), device=rows.device), (62 - e).clamp(max=126))
     fixed = torch.zeros(shape, dtype=torch.int64, device=rows.device)
-    fixed.index_add_(0, ids, torch.round(rows * scale).to(torch.int64))
+    fixed.index_add_(0, _local_ids(ids, shard)[0], torch.round(rows * scale).to(torch.int64))
     return fixed, scale
 
 
@@ -384,26 +426,30 @@ def _row_sums(ids: torch.Tensor, rows: torch.Tensor, shape) -> torch.Tensor:
     return fixed.to(torch.float32) / scale
 
 
-def _add_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
+def _add_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+              shard: Optional[TableShard] = None) -> None:
     """table[ids] += rows, each id's rows summed exactly and rounded once
-    before the add (_fixed_sums): the same on every device, in any order."""
-    fixed, scale = _fixed_sums(ids, rows, table.shape)
+    before the add (_fixed_sums): the same on every device, in any order.
+    On a shard, other ranks' ids write the scratch row."""
+    fixed, scale = _fixed_sums(ids, rows, table.shape, shard)
+    loc = _local_ids(ids, shard)[0]
     # duplicate ids write the same value
-    table[ids] = table[ids] + fixed[ids].to(table.dtype) / scale
+    table[loc] = table[loc] + fixed[loc].to(table.dtype) / scale
 
 
-def _sparse_adagrad(p: SGNSParams, c_ids, g_c, out_ids, g_out, lr: float) -> None:
+def _sparse_adagrad(p: SGNSParams, c_ids, g_c, out_ids, g_out, lr: float,
+                    shard: Optional[TableShard] = None) -> None:
     """Per-row Adagrad on the touched rows: each row occurrence is scaled
     by its row's pre-step accumulator plus its own squared gradient mean,
     then the occurrences are summed into the tables."""
     gsq_c = torch.mean(g_c ** 2, dim=1)
     gsq_out = torch.mean(g_out ** 2, dim=1)
-    scale_c = lr * torch.rsqrt(p.acc_in[c_ids] + gsq_c + 1e-8)
-    scale_out = lr * torch.rsqrt(p.acc_out[out_ids] + gsq_out + 1e-8)
-    _add_rows(p.emb_in, c_ids, -scale_c[:, None] * g_c)
-    _add_rows(p.emb_out, out_ids, -scale_out[:, None] * g_out)
-    _add_rows(p.acc_in, c_ids, gsq_c)
-    _add_rows(p.acc_out, out_ids, gsq_out)
+    scale_c = lr * torch.rsqrt(_take(p.acc_in, c_ids, shard) + gsq_c + 1e-8)
+    scale_out = lr * torch.rsqrt(_take(p.acc_out, out_ids, shard) + gsq_out + 1e-8)
+    _add_rows(p.emb_in, c_ids, -scale_c[:, None] * g_c, shard)
+    _add_rows(p.emb_out, out_ids, -scale_out[:, None] * g_out, shard)
+    _add_rows(p.acc_in, c_ids, gsq_c, shard)
+    _add_rows(p.acc_out, out_ids, gsq_out, shard)
 
 
 def _sample_center_block(words, pos_info, keep_prob, k: int, d):
@@ -559,16 +605,19 @@ def _dense_step(p: SGNSParams, c_ids, x_ids, negs, valid, lr: float) -> torch.Te
 
 
 def _pair_step(p: SGNSParams, words, cum_len, neg_cdf, keep_prob, lr: float,
-               batch: int, n_negs: int, d, neg_mode: str) -> torch.Tensor:
-    """One pair- or chunk-mode step (otto_tpu's _sgns_step_body), in place
-    on p. -> the loss per valid pair."""
+               batch: int, n_negs: int, d, neg_mode: str,
+               shard: Optional[TableShard] = None) -> torch.Tensor:
+    """One pair- or chunk-mode step (otto_tpu's _sgns_step_body; on a
+    shard, chunk mode only: _sgns_step_body_mp), in place on p. -> the loss
+    per valid pair."""
     c_safe, x_safe, valid = _sample_pair_batch(words, cum_len, keep_prob, d)
     if neg_mode == "chunk":
         negs = torch.searchsorted(neg_cdf, d["neg_u"].reshape(-1))
         ids_out = torch.cat([x_safe, negs])
         g_c, g_out, loss, n_valid = _chunk_neg_grads(
-            p.emb_in[c_safe], p.emb_out[ids_out], valid, batch, n_negs)
-        _sparse_adagrad(p, c_safe, g_c, ids_out, g_out, lr)
+            _take(p.emb_in, c_safe, shard), _take(p.emb_out, ids_out, shard), valid,
+            batch, n_negs)
+        _sparse_adagrad(p, c_safe, g_c, ids_out, g_out, lr, shard)
         return loss / n_valid
     negs = torch.searchsorted(neg_cdf, d["neg_u"])
     loss = _dense_step(p, c_safe, x_safe, negs, valid, lr)
@@ -600,9 +649,10 @@ def train_word2vec_device(
     checkpoint_path: Optional[str] = None,
     draws: Optional[Draws] = None,
     start: Optional[np.ndarray] = None,
+    mesh_ctx=None,
 ) -> Word2Vec:
-    """Device-sampled SGNS training, as otto_tpu's train_word2vec_device
-    on one device: the flat corpus on `device`, ceil(positions * window /
+    """Device-sampled SGNS training, as otto_tpu's train_word2vec_device:
+    the flat corpus on `device`, ceil(positions * window /
     batch_size / steps_per_dispatch) * steps_per_dispatch steps per epoch
     at the constant Adagrad lr, the step kind from negative_mode and
     block_k (OTTO_W2V_BLOCK=0 turns the block sampler off).
@@ -612,7 +662,13 @@ def train_word2vec_device(
     OTTO_W2V_CKPT_EVERY=N saves one every N epochs but the last.
     `draws(epoch, step)` replaces the default draws (block_draws /
     pair_draws from a torch.Generator on `device`); `start` replaces
-    init_params' random table. -> Word2Vec with its TrainReport."""
+    init_params' random table. -> Word2Vec with its TrainReport.
+
+    With `mesh_ctx` and a model axis > 1 (every rank calling with the same
+    events), the tables split over the model ranks (TableShard) and the
+    steps are chunk steps with the per-pair sampler, as otto_tpu's
+    model-parallel training forces them; no checkpoint is kept. Every rank
+    returns the whole model."""
     dev = resolve(device)
     vocab = build_vocab(ev, cfg.types, cfg.min_count, n_aids)
     if vocab.size == 0:
@@ -626,7 +682,14 @@ def train_word2vec_device(
     chunk = max(1, cfg.steps_per_dispatch)
     n_steps = -(-steps_per_epoch // chunk) * chunk
     neg_mode = negative_mode(cfg, V, positions)
-    block = (neg_mode == "chunk" and cfg.block_k > 1
+    n_model = 1 if mesh_ctx is None else mesh_ctx.n_model
+    if n_model > 1:
+        if neg_mode != "chunk":
+            log.info("w2v[device] %s: model-parallel steps are chunk steps, not %s",
+                     cfg.name, neg_mode)
+        neg_mode = "chunk"
+        checkpoint_path = None
+    block = (neg_mode == "chunk" and cfg.block_k > 1 and n_model == 1
              and os.environ.get("OTTO_W2V_BLOCK", "1") != "0")
     mode = "block" if block else neg_mode
     log.info("w2v[device] %s: %s steps (V=%d, positions=%d)", cfg.name, mode, V,
@@ -646,6 +709,9 @@ def train_word2vec_device(
             params = SGNSParams(**state)
             log.info("w2v[device] %s resumed at epoch %d", cfg.name, start_epoch)
 
+    shard = None
+    if n_model > 1:
+        params, shard = _shard_params(params, n_model, mesh_ctx)
     words = torch.from_numpy(words_np).to(dev).long()
     keep_prob = torch.from_numpy(keep_probs(vocab.counts, cfg.subsample_t)).to(dev)
     lr = cfg.learning_rate
@@ -680,7 +746,7 @@ def train_word2vec_device(
 
         def step(d):
             return _pair_step(params, words, cum_d, neg_cdf, keep_prob, lr, B,
-                              cfg.negatives, d, neg_mode)
+                              cfg.negatives, d, neg_mode, shard)
 
     if draws is None:
         def draws(epoch, i):
@@ -700,7 +766,26 @@ def train_word2vec_device(
             save_checkpoint(checkpoint_path, _state(params, gen), epoch + 1, meta=meta)
 
     report = TrainReport(mode, V, positions, n_steps, len(losses), pairs_per_step, losses)
-    return Word2Vec(cfg, vocab, params.emb_in.cpu().numpy(), report)
+    emb = params.emb_in
+    if shard is not None:
+        emb = gather_equal(emb[:shard.vs], shard.group, n_model)[:V]
+    return Word2Vec(cfg, vocab, emb.cpu().numpy(), report)
+
+
+def _shard_params(p: SGNSParams, n_model: int, mesh_ctx) -> Tuple[SGNSParams, TableShard]:
+    """This model rank's rows of every table (rows padded to a multiple of
+    n_model, accumulators with 1e-6) plus the scratch row."""
+    V = p.emb_in.shape[0]
+    vs = -(-V // n_model)
+    v0 = mesh_ctx.model_rank * vs
+
+    def rows(x, fill):
+        pad = x.new_full((vs * n_model + 1 - V,) + x.shape[1:], fill)
+        return torch.cat([x, pad])[v0:v0 + vs + 1].clone()
+
+    return (SGNSParams(rows(p.emb_in, 0.0), rows(p.emb_out, 0.0), rows(p.acc_in, 1e-6),
+                       rows(p.acc_out, 1e-6)),
+            TableShard(v0, vs, mesh_ctx.model_group))
 
 
 def train_word2vec(

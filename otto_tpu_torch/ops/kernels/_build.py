@@ -21,6 +21,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -101,12 +102,12 @@ def build() -> Path:
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
-def build_host(src: Path) -> Path:
+def build_host(src: Path, flags: Tuple[str, ...] = ()) -> Path:
     """Compile one C++ source with the host compiler (`$CXX`, else g++ or
-    c++) into a shared library in BUILD_DIR, unless a library for this
-    source and these flags exists. Raises RuntimeError when no compiler is
-    found or the compile fails."""
-    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    c++) and HOST_FLAGS plus `flags` into a shared library in BUILD_DIR,
+    unless a library for this source and these flags exists. Raises
+    RuntimeError when no compiler is found or the compile fails."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS + tuple(flags)).encode())
     h.update(src.read_bytes())
     lib = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
     if lib.exists():
@@ -117,7 +118,7 @@ def build_host(src: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = os.path.join(tmp, "lib.so")
-        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", out, str(src)],
+        proc = subprocess.run([cxx, *HOST_FLAGS, *flags, "-o", out, str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
         if proc.returncode:

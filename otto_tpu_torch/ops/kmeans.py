@@ -4,11 +4,14 @@ Counterpart of otto_tpu/ops/kmeans.py (`assign`, `lloyd_step`, the
 k-means++ init, `kmeans_fit`), on the points' device:
 
   * distances are |x|^2 + |c|^2 - 2 x.c, with the product by
-    `torch.matmul` (TF32 off: `device.pin_fp32`); the label is the first
-    nearest centroid on a tie, as `jnp.argmin` gives;
-  * a centroid is the mean of its points, summed as one-hot x points
-    products in blocks of rows (deterministic, unlike atomic adds); an
-    empty cluster keeps its centroid;
+    `torch.matmul` (TF32 off: `device.pin_fp32`) over blocks of ROW_BLOCK
+    points, the last one padded: every product has one shape, so a point's
+    distances do not depend on which points share its block; the label is
+    the first nearest centroid on a tie, as `jnp.argmin` gives;
+  * a centroid is the mean of its points, summed in int64 fixed point (one
+    power-of-two scale for all coordinates, room for every point) and
+    rounded once: the sums do not depend on the order of the adds, nor on
+    how the points are split; an empty cluster keeps its centroid;
   * the fit stops, as sklearn's does, when the squared Frobenius norm of
     the centroid shift is at most tol x the mean per-feature variance, or
     after max_iter iterations;
@@ -16,14 +19,27 @@ k-means++ init, `kmeans_fit`), on the points' device:
     from a `torch.Generator` seeded with `seed`. Its draws differ from
     otto_tpu's (jax's threefry), so `init_centroids` is its own function,
     and a test can put otto_tpu's centroids in its place.
+
+`kmeans_fit_dp` is otto_tpu's data-parallel fit over a mesh's data ranks:
+each rank holds a contiguous share of the points, and the fixed-point
+scale, the per-cluster sums and counts and the inertia are all-reduced,
+so every rank steps through the same centroids, those of one device from
+the same start; the k-means++ subsample is drawn per rank and
+all-gathered (as otto_tpu draws it per shard), and the seeding continues
+data rank 0's generator on every rank: on one rank the fit is
+kmeans_fit's.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-ROW_BLOCK = 1 << 20   # rows per block of the [N, K] distance and one-hot grids
+ROW_BLOCK = 1 << 16   # points per block of the [N, K] distance grid
+# replicas of every cluster's sum on the card (point n adds into replica
+# n % SUM_REPLICAS), so that the few hot cells do not serialise the adds
+SUM_REPLICAS = 32
 
 
 def assign(
@@ -37,31 +53,63 @@ def assign(
     labels, best = [], []
     for i in range(0, x.shape[0], ROW_BLOCK):
         xb = x[i:i + ROW_BLOCK]
+        n = xb.shape[0]
+        if n < ROW_BLOCK:
+            xb = torch.cat([xb, xb.new_zeros((ROW_BLOCK - n, xb.shape[1]))])
         x_sq = (xb * xb).sum(dim=1, keepdim=True)
-        d = x_sq + c_sq - 2.0 * torch.matmul(xb, centroids.t())
+        d = (x_sq + c_sq - 2.0 * torch.matmul(xb, centroids.t()))[:n]
         m = d.min(dim=1).values
         # first index among the minima
         labels.append(torch.where(d == m[:, None], ks, K).amin(dim=1).to(torch.int32))
         best.append(m.clamp(min=0.0))
+    if not labels:
+        return (torch.zeros(0, dtype=torch.int32, device=x.device),
+                torch.zeros(0, device=x.device))
     return torch.cat(labels), torch.cat(best)
 
 
+def _cluster_sums(x: torch.Tensor, labels: torch.Tensor, K: int, mesh_ctx=None):
+    """Per-cluster sums of x's rows [K, D] float64 and counts [K] int64, in
+    int64 fixed point: x scaled by one power of two so that the largest
+    |x| takes 62 - bit_length(N) bits (N and the largest of every rank's
+    points with `mesh_ctx`, whose sums are all-reduced)."""
+    dev = x.device
+    n = torch.tensor(x.shape[0], device=dev)
+    amax = x.abs().amax() if x.shape[0] else x.new_zeros(())
+    if mesh_ctx is not None:
+        mesh_ctx.all_sum(n)
+        mesh_ctx.all_max(amax)
+    _, e = torch.frexp(amax)
+    s = (62 - max(1, int(n)).bit_length() - e).clamp(-126, 126)
+    q = torch.round(torch.ldexp(x, s)).to(torch.int64)
+    reps = SUM_REPLICAS if dev.type == "cuda" else 1
+    cell = labels.long() * reps + torch.arange(x.shape[0], device=dev) % reps
+    sums = torch.zeros((K * reps, x.shape[1]), dtype=torch.int64, device=dev)
+    sums.index_add_(0, cell, q)
+    sums = sums.view(K, reps, -1).sum(1)
+    cnts = torch.bincount(labels.long(), minlength=K)
+    if mesh_ctx is not None:
+        mesh_ctx.all_sum(sums)
+        mesh_ctx.all_sum(cnts)
+    return torch.ldexp(sums.to(torch.float64), (-s).to(torch.float64)), cnts
+
+
 def lloyd_step(
-    x: torch.Tensor, centroids: torch.Tensor
+    x: torch.Tensor, centroids: torch.Tensor, mesh_ctx=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Lloyd iteration -> (new centroids, inertia of the assignment it
     made, squared Frobenius norm of the shift); the last two are 0-d
-    tensors."""
-    K, D = centroids.shape
+    tensors. With `mesh_ctx`, x is this data rank's share of the points
+    and the sums, counts and inertia are all-reduced over the data ranks."""
+    K = centroids.shape[0]
     labels, dists = assign(x, centroids)
-    ks = torch.arange(K, dtype=torch.int32, device=x.device)
-    sums = torch.zeros((K, D), dtype=torch.float32, device=x.device)
-    for i in range(0, x.shape[0], ROW_BLOCK):
-        onehot = (labels[i:i + ROW_BLOCK, None] == ks[None, :]).to(torch.float32)
-        sums += torch.matmul(onehot.t(), x[i:i + ROW_BLOCK])
-    cnts = torch.bincount(labels, minlength=K).to(torch.float32)[:, None]
-    new = torch.where(cnts > 0, sums / cnts.clamp(min=1.0), centroids)
-    return new, dists.sum(), ((new - centroids) ** 2).sum()
+    sums, cnts = _cluster_sums(x, labels, K, mesh_ctx)
+    inertia = dists.to(torch.float64).sum()
+    if mesh_ctx is not None:
+        mesh_ctx.all_sum(inertia)
+    cnts = cnts[:, None]
+    new = torch.where(cnts > 0, (sums / cnts.clamp(min=1)).to(torch.float32), centroids)
+    return new, inertia.to(torch.float32), ((new - centroids) ** 2).sum()
 
 
 def init_centroids(
@@ -90,15 +138,17 @@ def init_centroids(
 
 def lloyd_fit(
     x: torch.Tensor, centroids: torch.Tensor, max_iter: int = 100,
-    tol: float = 1e-3,
+    tol: float = 1e-3, mesh_ctx=None, x_all: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, float, int]:
     """Lloyd's iterations from `centroids` until the tol rule stops them
     -> (centroids, labels [N] int32, inertia of the last iteration, number
-    of iterations)."""
-    tol_thresh = float(tol * x.var(dim=0, unbiased=False).mean())
+    of iterations). With `mesh_ctx`, x is this data rank's share of the
+    points `x_all` (which give the tol threshold) and the labels are those
+    of this rank's points."""
+    tol_thresh = float(tol * (x if x_all is None else x_all).var(dim=0, unbiased=False).mean())
     inertia, shift, n_iter = float("inf"), float("inf"), 0
     while n_iter < max_iter and shift > tol_thresh:
-        centroids, inertia_t, shift_t = lloyd_step(x, centroids)
+        centroids, inertia_t, shift_t = lloyd_step(x, centroids, mesh_ctx)
         inertia, shift = float(inertia_t), float(shift_t)
         n_iter += 1
     labels, _ = assign(x, centroids)
@@ -119,3 +169,40 @@ def kmeans_fit(
     g = torch.Generator(device=x.device).manual_seed(seed)
     centroids = init_centroids(x, n_clusters, init_sample, g)
     return lloyd_fit(x, centroids, max_iter, tol)
+
+
+def kmeans_fit_dp(
+    x: torch.Tensor,
+    n_clusters: int,
+    mesh_ctx,
+    max_iter: int = 100,
+    tol: float = 1e-3,
+    seed: int = 42,
+    init_sample: int = 1 << 16,
+    init: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, float, int]:
+    """kmeans_fit over the data ranks: every rank passes all of x [N, D]
+    and fits on its mesh_ctx.data_slice(N) of the rows. k-means++ seeds on
+    the all-gathered per-rank subsamples of init_sample // n_data points
+    (each drawn by a generator seeded (seed, data rank)), from data rank
+    0's generator state; `init` [K, D] replaces the seeding. -> (centroids,
+    labels [N] of every point, inertia, n_iter), the same on every rank."""
+    x = x.to(torch.float32)
+    dev = x.device
+    xs = x[mesh_ctx.data_slice(x.shape[0])]
+    if init is None:
+        r = mesh_ctx.data_rank
+        g = torch.Generator(device=dev).manual_seed(seed if r == 0 else seed * 1_000_003 + r)
+        per_rank = max(1, init_sample // mesh_ctx.n_data)
+        pick = xs
+        if per_rank < xs.shape[0]:
+            pick = xs[torch.randperm(xs.shape[0], generator=g, device=dev)[:per_rank]]
+        x_init = mesh_ctx.gather_varlen(pick)
+        state = g.get_state().to(dev)
+        dist.broadcast(state, group=mesh_ctx.data_group,
+                       src=dist.get_global_rank(mesh_ctx.data_group, 0))
+        g.set_state(state.cpu())
+        init = init_centroids(x_init, n_clusters, 0, g)
+    centroids, labels, inertia, n_iter = lloyd_fit(xs, init.to(dev), max_iter, tol, mesh_ctx,
+                                                   x_all=x)
+    return centroids, mesh_ctx.gather_varlen(labels), inertia, n_iter

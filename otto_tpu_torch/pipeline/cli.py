@@ -10,6 +10,14 @@ artifacts and their reuse live in otto_tpu_torch.pipeline.runner.
 `mlp`); `rank` serves with the backend of the work dir's config.json.
 `synth`, `ingest`, `split`, `run` and `rank` read or write parquet, which
 needs pyarrow; `run-synthetic` needs nothing but the port.
+
+`--mesh data=N,model=M` runs the pipeline's mesh branches on N x M ranks,
+one process each, started by torchrun:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m otto_tpu_torch.pipeline.cli run-synthetic --tiny --device cpu --mesh data=4
+
+Rank 0 writes the work dir and prints the metrics.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import os
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from otto_tpu_torch.config import (
     DEFAULT,
@@ -51,7 +60,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device of the pipeline: cuda (default), cuda:N or cpu")
     p.add_argument("--mesh", default=None, metavar="data=N,model=M",
-                   help="device mesh; only a single device runs yet")
+                   help="rank mesh: every stage sharded over N x M ranks (data, model), "
+                        "one process each under torchrun --nproc-per-node N*M; "
+                        "data=-1 means every rank the model axis leaves")
 
 
 def parse_mesh_spec(spec):
@@ -74,21 +85,39 @@ def parse_mesh_spec(spec):
     return out
 
 
-def check_mesh(args) -> None:
-    """--mesh may name one device only: the multi-device paths are not
-    ported."""
+def build_mesh(args):
+    """--mesh -> MeshContext, or None when unset or 1x1 (the unsharded
+    path). Starts this rank from torchrun's environment (init_distributed
+    on --device) and lays the mesh over every rank; a world size other
+    than data x model raises, naming both."""
     kw = parse_mesh_spec(getattr(args, "mesh", None))
     if kw is None:
-        return
-    import torch
+        return None
+    from otto_tpu_torch.parallel.distributed import global_mesh, init_distributed
+    from otto_tpu_torch.parallel.mesh import make_mesh
 
-    data = kw["data_parallel"]
-    if data == -1:
-        data = torch.cuda.device_count() if args.device.startswith("cuda") else 1
-    if data * kw["model_parallel"] != 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device paths are not ported yet (ROADMAP "
-            "Queue 1, \"The multi-device paths on torch.distributed\"); run on one device")
+    dev = init_distributed(args.device)
+    world = dist.get_world_size() if dev is not None else 1
+    data, model = kw["data_parallel"], kw["model_parallel"]
+    want = data * model if data != -1 else model
+    if (data != -1 and want != world) or world % model:
+        raise ValueError(
+            f"--mesh {args.mesh} wants {want} ranks but the world size is {world}; "
+            f"run it under python -m torch.distributed.run --nproc-per-node {want}")
+    if world == 1:
+        log.info("--mesh resolved to a single device; running unsharded")
+        return None
+    ctx = (global_mesh(model, device=dev) if data == -1
+           else make_mesh(data, model, device=dev))
+    log.info("mesh: %d ranks (data=%d, model=%d), rank %d on %s", ctx.n_devices,
+             ctx.n_data, ctx.n_model, dist.get_rank(), ctx.device)
+    return ctx
+
+
+def _emit(metrics) -> None:
+    """Print the metrics JSON (rank 0 only under a mesh)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(metrics, indent=2))
 
 
 def _with_backend(cfg: Config, args) -> Config:
@@ -139,14 +168,14 @@ def _pipeline(args, cfg: Config, train: Events, test: Events) -> Pipeline:
     """A Pipeline over --work-dir for these events: n_aids as the work
     dir's meta.json stores it (a run on generated data keeps the
     generator's), else the largest aid + 1."""
-    check_mesh(args)
+    mesh = build_mesh(args)
     n_aids = int(max(train.aid.max(), test.aid.max())) + 1
     mpath = os.path.join(args.work_dir, "meta.json")
     if not args.no_cache and os.path.exists(mpath):
         with open(mpath) as fh:
             n_aids = max(n_aids, json.load(fh).get("n_aids", 0))
     return Pipeline(cfg=cfg, work_dir=args.work_dir, n_aids=n_aids,
-                    use_cache=not args.no_cache, device=args.device)
+                    use_cache=not args.no_cache, device=args.device, mesh=mesh)
 
 
 def cmd_run(args) -> int:
@@ -156,8 +185,7 @@ def cmd_run(args) -> int:
     labels = Labels.from_parquet(args.labels) if args.labels else None
     pipe = _pipeline(args, _with_backend(DEFAULT, args), train, test)
     runner = pipe.run_streaming if _use_streaming(args, test) else pipe.run
-    print(json.dumps(runner(train, test, labels, batch_sessions=args.batch_sessions),
-                     indent=2))
+    _emit(runner(train, test, labels, batch_sessions=args.batch_sessions))
     return 0
 
 
@@ -202,14 +230,14 @@ def tiny_config() -> Config:
 
 def cmd_run_synthetic(args) -> int:
     """Full pipeline on generated data (demo / smoke)."""
-    check_mesh(args)
+    mesh = build_mesh(args)
     spec = SyntheticSpec(n_sessions=args.sessions, n_aids=args.aids, seed=args.seed)
     streaming = True if args.streaming else (None if not args.no_streaming else False)
     cfg = _with_backend(tiny_config() if args.tiny else DEFAULT, args)
     metrics = run_synthetic(cfg, args.work_dir, spec,
                             batch_sessions=args.batch_sessions, streaming=streaming,
-                            device=args.device)
-    print(json.dumps(metrics, indent=2))
+                            device=args.device, mesh=mesh)
+    _emit(metrics)
     return 0
 
 
@@ -274,7 +302,11 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     setup_logging(getattr(args, "work_dir", None))
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,7 +21,16 @@ functions:
   guard (`check_work_dir`) and crash-resume fast path.
 
 `pass_a` and `score_pass` overlap each batch's consumer work with the
-next batch's retrieval (`pipelined_consume`). `Pipeline` is otto_tpu's
+next batch's retrieval (`pipelined_consume`).
+
+Every stage takes an optional `mesh` (parallel.mesh.MeshContext): one
+process per rank, every rank calling with the same events, as otto_tpu's
+Pipeline(mesh=...) runs its stages sharded. Work otto_tpu's controller
+does once on the host runs on every rank from replicated data: the
+co-visitation prune and tables, the popularity ladder, the k-means
+seeding, the rankers' rows and the metrics. Only rank 0 writes files, in
+the formats and with the bytes of a one-rank run; the other ranks read
+the artifact cache as it stood when the stage began. `Pipeline` is otto_tpu's
 class over a work dir: its streaming runner calls `run_streaming`, and
 its batch runner (`run`) keeps every retrieval batch on the device, with
 the host-side C14 eval. `run_synthetic` runs it on generated sessions.
@@ -40,8 +49,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from otto_tpu_torch.config import (
+    KEEP_TOP_K,
     TYPE2ID,
     TYPES,
     W2VEC_MODELS,
@@ -61,7 +72,7 @@ from otto_tpu_torch.data.split import split_events
 from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
 from otto_tpu_torch.device import resolve
 from otto_tpu_torch.engine import rank as rank_engine
-from otto_tpu_torch.engine.covis import CoVisCounter, CoVisTables
+from otto_tpu_torch.engine.covis import CoVisCounter, CoVisTables, ShardedCoVisCounter
 from otto_tpu_torch.engine.popularity import compute_popularity
 from otto_tpu_torch.engine.retrieval import (
     FEATURE_NAMES,
@@ -88,7 +99,7 @@ from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
 from otto_tpu_torch.models.ranker import Ranker, train_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
-from otto_tpu_torch.ops.kmeans import kmeans_fit
+from otto_tpu_torch.ops.kmeans import kmeans_fit, kmeans_fit_dp
 from otto_tpu_torch.utils.reports import report_name
 
 log = logging.getLogger(__name__)
@@ -180,6 +191,7 @@ def build_retriever(
     report_dir: Optional[str] = None,
     cache_dir: Optional[str] = None,
     use_cache: bool = True,
+    mesh=None,
 ) -> Tuple[Retriever, BuildReport]:
     """Stages C7-C12 and the retrieval context, on `device`, as otto_tpu's
     Pipeline.build_retriever runs them:
@@ -208,6 +220,13 @@ def build_retriever(
     word2vec training then keeps its epoch checkpoint in
     `w2v-{name}.ckpt` (resumed from when present), removed once the .npz
     is written. Popularity is recomputed every time, as in otto_tpu.
+
+    With `mesh`, otto_tpu's mesh branches: C7 a ShardedCoVisCounter (data
+    axis > 1), C8 model-parallel SGNS (model axis > 1; no checkpoint), C9
+    and C10 split their rows over the data ranks, C11 kmeans_fit_dp (data
+    axis > 1), C12 the sharded popularity emission, and the Retriever
+    retrieves each rank's share of a batch. Every rank returns the same
+    tables; rank 0 alone writes the cache and the reports.
     -> (Retriever, BuildReport)."""
     dev = torch.device(device)
     names = list(w2vec)
@@ -217,6 +236,13 @@ def build_retriever(
     unknown = sorted(set(models) - set(names))
     if unknown:
         raise ValueError(f"build_retriever: models {unknown} are not in w2vec {names}")
+    main = mesh is None or mesh.is_main
+    n_data = 1 if mesh is None else mesh.n_data
+    if mesh is not None:
+        dist.barrier()
+    # the cache as it stands now: later writes (rank 0's) are not read back
+    present = (set(os.listdir(cache_dir))
+               if cache_dir is not None and use_cache and os.path.isdir(cache_dir) else set())
     loaded: List[str] = []
     written: List[str] = []
     seconds: Dict[str, float] = {}
@@ -240,15 +266,15 @@ def build_retriever(
 
     def cached(name: str) -> Optional[str]:
         """The artifact's path when the cache holds it (and is used)."""
-        path = os.path.join(cache_dir, name) if cache_dir is not None else None
-        if use_cache and path is not None and os.path.exists(path):
+        if name in present:
             loaded.append(name)
-            return path
+            return os.path.join(cache_dir, name)
         return None
 
     def save(name: str, write: Callable[[str], None]) -> None:
-        """write(path) the artifact into the cache, timed as "write {name}"."""
-        if cache_dir is not None:
+        """write(path) the artifact into the cache (rank 0), timed as
+        "write {name}"."""
+        if cache_dir is not None and main:
             write(os.path.join(cache_dir, name))
             written.append(name)
             lap(f"write {name}")
@@ -262,7 +288,8 @@ def build_retriever(
         covis_rep = {"cached": "covis.pkl"}
         lap("load covis.pkl")
     else:
-        counter = CoVisCounter(covis, dev)
+        counter = (ShardedCoVisCounter(covis, mesh) if n_data > 1
+                   else CoVisCounter(covis, dev))
         try:
             counter.update(train)
             counter.update(test)
@@ -291,10 +318,11 @@ def build_retriever(
             lap(f"load {mfile}")
             continue
         ckpt = (os.path.join(cache_dir, f"w2v-{name}.ckpt")
-                if cache_dir is not None and use_cache and wcfg.sampler == "device" else None)
+                if cache_dir is not None and use_cache and wcfg.sampler == "device"
+                and mesh is None else None)
         if wcfg.sampler == "device":
             models[name] = train_word2vec_device(full, wcfg, n_aids, device=dev,
-                                                 checkpoint_path=ckpt)
+                                                 checkpoint_path=ckpt, mesh_ctx=mesh)
         else:
             models[name] = train_word2vec(full, wcfg, n_aids, device=dev)
         trained[name] = models[name].report
@@ -316,7 +344,7 @@ def build_retriever(
             knns[name] = KnnTables(put(z["neighbor"]), put(z["dist"]))
             lap(f"load {kfile}")
             continue
-        knns[name] = build_knn_tables(models[name], n_aids, dev)
+        knns[name] = build_knn_tables(models[name], n_aids, dev, mesh_ctx=mesh)
         lap(f"knn {name}")
         kt = knns[name]
         save(kfile, lambda p: np.savez_compressed(p, neighbor=kt.neighbor.cpu().numpy(),
@@ -326,7 +354,7 @@ def build_retriever(
     for name in names:
         overlap[name] = w2vec_covis_overlap(knns[name].neighbor.cpu().numpy(), co_nbr)
         log.info("w2vec overlap %s: %s", name, overlap[name])
-        if report_dir is not None:
+        if report_dir is not None and main:
             write_overlap_report(
                 os.path.join(report_dir, f"stats_w2vec_x_co_click-{name}.csv"),
                 overlap[name])
@@ -340,7 +368,8 @@ def build_retriever(
         sess_ids, sess_emb = z["session"], put(z["emb"])
         lap("load session_emb.npz")
     else:
-        sess_ids, sess_emb = compute_session_embeddings(pack_sessions(full), aid_emb)
+        sess_ids, sess_emb = compute_session_embeddings(pack_sessions(full), aid_emb,
+                                                        mesh_ctx=mesh)
         lap("session_emb")
         # uncompressed: the [n_sessions, D] grid is large
         save("session_emb.npz",
@@ -354,16 +383,21 @@ def build_retriever(
         labels = np.load(path)["cluster"]
         lap("load clusters.npz")
     else:
-        _, labels, inertia, n_iter = kmeans_fit(
-            sess_emb, n_clusters, max_iter=kmeans.max_iter, tol=kmeans.tol,
-            seed=kmeans.seed)
+        if n_data > 1:
+            _, labels, inertia, n_iter = kmeans_fit_dp(
+                sess_emb, n_clusters, mesh, max_iter=kmeans.max_iter, tol=kmeans.tol,
+                seed=kmeans.seed)
+        else:
+            _, labels, inertia, n_iter = kmeans_fit(
+                sess_emb, n_clusters, max_iter=kmeans.max_iter, tol=kmeans.tol,
+                seed=kmeans.seed)
         labels = labels.cpu().numpy()
         km = {"inertia": inertia, "n_iter": n_iter, "n_points": len(labels),
               "n_nonempty": int(np.unique(labels).size)}
         log.info("kmeans %s", km)
         lap("kmeans")
         save("clusters.npz", lambda p: np.savez_compressed(p, session=sess_ids, cluster=labels))
-        if cache_dir is not None:
+        if cache_dir is not None and main:
             with open(os.path.join(cache_dir, "kmeans-inertia.csv"), "a") as fh:
                 if fh.tell() == 0:
                     fh.write("n_clusters,inertia,n_iter,n_points\n")
@@ -372,9 +406,9 @@ def build_retriever(
     # ---- C12 popularity ----------------------------------------------------
     pop50 = compute_popularity(
         full, _event_clusters(full.session, sess_ids, labels), n_clusters,
-        n_aids, popularity, dev)
+        n_aids, popularity, dev, mesh_ctx=mesh)
     pop1 = compute_popularity(
-        full, np.zeros(len(full), np.int32), 1, n_aids, popularity, dev)
+        full, np.zeros(len(full), np.int32), 1, n_aids, popularity, dev, mesh_ctx=mesh)
     pop_rep = {"cl50": _popularity_report(pop50), "cl1": _popularity_report(pop1)}
     log.info("popularity %s", pop_rep)
     lap("popularity")
@@ -391,12 +425,15 @@ def build_retriever(
     retriever = Retriever(
         ctx=ctx, cfg=retrieval,
         sessions=SessionLookup.build(sess_ids, labels, sess_emb.cpu().numpy()),
+        mesh=mesh,
     )
     lap("context")
     cache = {}
     if cache_dir is not None:
         files = [os.path.join(cache_dir, f.format(n))
                  for f in CACHE_FILES for n in (names if "{}" in f else [None])]
+        if mesh is not None:
+            dist.barrier()   # rank 0's writes are on disk
         cache = {"loaded": loaded, "written": written,
                  "write_seconds": sum(seconds[f"write {n}"] for n in written),
                  "bytes": sum(os.path.getsize(f) for f in files if os.path.exists(f))}
@@ -426,8 +463,9 @@ def score_pass(
     """One scoring pass: retrieve, score all three targets per batch on the
     device, pull one stacked [3, S, 20] aid array per batch; with
     `overlap`, a batch is scored and pulled while the next one retrieves
-    (pipelined_consume). -> {type name: (sessions [N] sorted, top-20 aids
-    [N, 20])}."""
+    (pipelined_consume). With the retriever's mesh, each data rank scores
+    its own batches and the top-20s are gathered to every rank.
+    -> {type name: (sessions [N] sorted, top-20 aids [N, 20])}."""
     for tname in TYPES:
         check_serving_features(tname, rankers[tname])
     pieces = {t: ([], []) for t in TYPES}
@@ -443,11 +481,18 @@ def score_pass(
                       overlap=overlap)
     preds = {}
     for tname in TYPES:
-        s = np.concatenate(pieces[tname][0])
-        a = np.concatenate(pieces[tname][1])
+        s = _cat_rows(pieces[tname][0], (0,), np.int32)
+        a = _cat_rows(pieces[tname][1], (0, KEEP_TOP_K), np.int32)
+        if getattr(retriever, "mesh", None) is not None:
+            s, a = retriever.mesh.gather_arrays(s.astype(np.int32), a.astype(np.int32))
         order = np.argsort(s, kind="stable")
         preds[tname] = (s[order], a[order])
     return preds
+
+
+def _cat_rows(parts: list, empty_shape, dtype) -> np.ndarray:
+    """np.concatenate, or an empty array for a rank that had no batch."""
+    return np.concatenate(parts) if parts else np.zeros(empty_shape, dtype)
 
 
 def pipelined_consume(batch_iter, consume, pack=None, overlap: bool = True
@@ -567,6 +612,15 @@ def submit_and_eval(
     return res
 
 
+def _submit_on_main(work_dir: str, preds, labels: Optional[Labels], mesh):
+    """submit_and_eval on rank 0, its result broadcast to every rank."""
+    if mesh is None:
+        return submit_and_eval(work_dir, preds, labels)
+    res = [submit_and_eval(work_dir, preds, labels) if mesh.is_main else None]
+    dist.broadcast_object_list(res, src=0)
+    return res[0]
+
+
 def _load_ranker(path: str, cfg: Config):
     """A saved ranker of cfg.ranker_backend's class."""
     if cfg.ranker_backend == "gbdt":
@@ -648,12 +702,20 @@ def pass_a(
     `eval_retrieved_sources.json` (the per-source report),
     `passA-metrics.json`, and for each target not in skip_targets its rows
     as `downsampled-{t}.npz` (feats f16, y int8, session; session-sorted).
+
+    With the retriever's mesh, each data rank runs its own batches, with
+    its own rng streams (data rank 0: the seeds above); the
+    eval counters are all-reduced and the rows gathered to every rank,
+    and rank 0 writes the files.
     -> (metrics: ceiling_{type,total}, cand_per_session_{mean,min,max};
     PassAReport)."""
     dev = retriever.ctx.aid_emb.device
+    mesh = getattr(retriever, "mesh", None)
+    n_data, r = (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
+    main = mesh is None or mesh.is_main
     t0 = time.perf_counter()
     lab_keys = label_keys_device(labels, dev)
-    rngs = {t: np.random.default_rng(42) for t in TYPES}
+    rngs = {t: np.random.default_rng(42 if r == 0 else [42, r]) for t in TYPES}
     rows = {t: [] for t in TYPES}
     dev_eval = None
     n_sessions = n_batches = 0
@@ -664,7 +726,7 @@ def pass_a(
         nonlocal dev_eval, n_sessions, n_batches
         if ranker_cfg.device_select:
             gen = torch.Generator(device=dev).manual_seed(
-                ranker_cfg.seed * 1_000_003 + n_batches)
+                (ranker_cfg.seed * 1_000_003 + n_batches) * n_data + r)
             meta, tbits_d = b.pack_meta_labels_select(
                 lab_keys, gen, ranker_cfg.neg_to_pos_ratio,
                 ranker_cfg.max_neg_per_session)
@@ -717,7 +779,17 @@ def pass_a(
                                 consume, pack=pack, overlap=overlap)
     while pend:
         flush()
-    if dev_eval is None:
+    if mesh is not None:
+        counts = torch.tensor([n_sessions, n_batches, 0 if dev_eval is None else
+                               dev_eval.n_cols], dtype=torch.int64, device=dev)
+        mesh.all_sum(counts[:2])
+        mesh.all_max(counts[2:])
+        n_sessions, n_batches, n_cols = (int(x) for x in counts)
+        if n_sessions:
+            dev_eval = dev_eval or DeviceSourceEval(n_cols, dev)
+            mesh.all_sum(dev_eval.hits)
+            mesh.all_sum(dev_eval.hist)
+    if not n_sessions:
         raise ValueError("pass A: no test sessions")
     t = time.perf_counter()
     phases = {"retrieve + device programs": seconds["produce"],
@@ -726,10 +798,11 @@ def pass_a(
 
     report = dev_eval.finalize(labels)
     ceiling = report.pop("_ceiling")
-    with open(os.path.join(work_dir, "eval_retrieved.json"), "w") as fh:
-        json.dump(ceiling, fh, indent=2)
-    with open(os.path.join(work_dir, "eval_retrieved_sources.json"), "w") as fh:
-        json.dump(report, fh, indent=2)
+    if main:
+        with open(os.path.join(work_dir, "eval_retrieved.json"), "w") as fh:
+            json.dump(ceiling, fh, indent=2)
+        with open(os.path.join(work_dir, "eval_retrieved_sources.json"), "w") as fh:
+            json.dump(report, fh, indent=2)
     log.info("per-source recall:\n%s", format_report(report))
     metrics: Dict[str, float] = {
         f"ceiling_{k}": ceiling[k]["topall"] for k in ("clicks", "carts", "orders", "total")}
@@ -737,8 +810,9 @@ def pass_a(
     metrics["cand_per_session_mean"] = anyc["mean"]
     metrics["cand_per_session_min"] = anyc["min"]
     metrics["cand_per_session_max"] = anyc["max"]
-    with open(os.path.join(work_dir, "passA-metrics.json"), "w") as fh:
-        json.dump(metrics, fh, indent=2)
+    if main:
+        with open(os.path.join(work_dir, "passA-metrics.json"), "w") as fh:
+            json.dump(metrics, fh, indent=2)
 
     # every target's rows persisted before any training: a crash in
     # training resumes from them
@@ -747,14 +821,18 @@ def pass_a(
         parts, rows[tname] = rows[tname], None
         if tname in skip_targets:
             continue
-        if not parts:
+        feats = _cat_rows([p[0] for p in parts], (0, len(FEATURE_NAMES)), np.float16)
+        y = _cat_rows([p[1] for p in parts], (0,), np.float32)
+        sess = _cat_rows([p[2] for p in parts], (0,), np.int32)
+        if mesh is not None:
+            feats, y, sess = mesh.gather_arrays(feats, y.astype(np.float32),
+                                                sess.astype(np.int32))
+        if not len(y):
             raise ValueError(f"no positive sessions for {tname}")
-        feats = np.concatenate([r[0] for r in parts])
-        y = np.concatenate([r[1] for r in parts])
-        sess = np.concatenate([r[2] for r in parts])
         order = np.argsort(sess, kind="stable")
-        np.savez(_rows_path(work_dir, tname), feats=feats[order],
-                 y=y[order].astype(np.int8), session=sess[order])
+        if main:
+            np.savez(_rows_path(work_dir, tname), feats=feats[order],
+                     y=y[order].astype(np.int8), session=sess[order])
         n_rows[tname] = len(y)
         n_pos_sessions[tname] = int(np.unique(sess).size)
     phases["eval + persist"] = time.perf_counter() - t
@@ -773,6 +851,7 @@ def train_ranker_cached(
     cfg: Config,
     device,
     use_cache: bool = True,
+    mesh=None,
 ):
     """One target's ranker of cfg.ranker_backend's class:
     `ranker-{backend}-{t}.npz` from work_dir when cached; else rows_fn() ->
@@ -780,9 +859,20 @@ def train_ranker_cached(
     into train / valid (no valid set with fewer than 8 valid sessions),
     trained on `device` (train_gbdt_ranker with cfg.gbdt, or train_ranker
     on float32 rows with cfg.ranker), then saved to work_dir; a GBDT also
-    writes its gain importance (`feat-importance-{t}.csv`)."""
+    writes its gain importance (`feat-importance-{t}.csv`).
+
+    With `mesh` (every rank calling with the same rows) a GBDT trains
+    data-parallel over the data ranks (train_gbdt_ranker(mesh_ctx=...)),
+    an MLP on every rank alike; every rank returns the same ranker and
+    rank 0 writes the files."""
     path = _ranker_path(work_dir, tname, cfg.ranker_backend)
-    if use_cache and os.path.exists(path):
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        dist.barrier()   # every rank sees the cache as it stands now
+    cached = use_cache and os.path.exists(path)
+    if mesh is not None:
+        dist.barrier()
+    if cached:
         return _load_ranker(path, cfg)
     feats, y, sess = rows_fn()
     u_sess = np.unique(sess)
@@ -795,19 +885,22 @@ def train_ranker_cached(
     if cfg.ranker_backend != "gbdt":
         ranker = train_ranker(feats.astype(np.float32, copy=False), y, sess, FEATURE_NAMES,
                               cfg.ranker, valid=valid, device=device)
-        ranker.save(path)
+        if main:
+            ranker.save(path)
         log.info("ranker %s (mlp): %d rows, %d steps, best epoch %d, valid ndcg %s",
                  tname, len(y), ranker.steps, ranker.best_epoch,
                  [h[2] for h in ranker.history])
         return ranker
+    dp = mesh if mesh is not None and mesh.n_data > 1 else None
     ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, cfg.gbdt,
-                               valid=valid, device=device)
-    ranker.save(path)
-    imp = ranker.feature_importance("gain")
-    with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
-        fh.write("feature,gain_importance\n")
-        for i in np.argsort(-imp):
-            fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
+                               valid=valid, device=device, mesh_ctx=dp)
+    if main:
+        ranker.save(path)
+        imp = ranker.feature_importance("gain")
+        with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
+            fh.write("feature,gain_importance\n")
+            for i in np.argsort(-imp):
+                fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
     log.info("ranker %s: %d rows, valid ndcg %s", tname, len(y), ranker.eval_history)
     return ranker
 
@@ -849,6 +942,16 @@ def check_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool) -> 
             json.dump({"n_aids": n_aids}, fh)
 
 
+def guard_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool,
+                   mesh=None) -> None:
+    """check_work_dir, on rank 0 alone when there is a mesh (the other
+    ranks wait for it)."""
+    if mesh is None or mesh.is_main:
+        check_work_dir(work_dir, cfg, n_aids, use_cache)
+    if mesh is not None:
+        dist.barrier()
+
+
 def run_streaming(
     train: Events,
     test: Events,
@@ -859,6 +962,7 @@ def run_streaming(
     cfg: Config = Config(),
     batch_sessions: int = 512,
     use_cache: bool = True,
+    mesh=None,
 ) -> Dict[str, float]:
     """The pipeline from events to recall@20 on `device`, as otto_tpu's
     Pipeline.run_streaming: check_work_dir, build_retriever with work_dir
@@ -869,16 +973,19 @@ def run_streaming(
     Crash-resume: with use_cache, when `passA-metrics.json` and, for every
     target, its ranker or its persisted rows are in work_dir, pass A is
     skipped and the missing rankers train from the rows.
+
+    With `mesh`, every stage runs its mesh branch on `device` (this rank's),
+    and every rank returns the same metrics.
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
-    check_work_dir(work_dir, cfg, n_aids, use_cache)
+    guard_work_dir(work_dir, cfg, n_aids, use_cache, mesh)
     retriever, _ = build_retriever(
         train, test, n_aids, device, cfg.w2vec, None, cfg.covis, cfg.popularity,
         cfg.retrieval, cfg.kmeans, report_dir=work_dir, cache_dir=work_dir,
-        use_cache=use_cache)
+        use_cache=use_cache, mesh=mesh)
     if labels is None:
         preds = score_pass(retriever, test, load_rankers(work_dir, cfg), batch_sessions)
-        submit_and_eval(work_dir, preds, None)
+        _submit_on_main(work_dir, preds, None, mesh)
         return {}
 
     pm_path = os.path.join(work_dir, "passA-metrics.json")
@@ -895,11 +1002,11 @@ def run_streaming(
                             skip_targets=[t for t in TYPES if have_ranker[t]])
     rankers = {
         t: train_ranker_cached(work_dir, t, lambda t=t: load_downsampled(work_dir, t),
-                               cfg, device, use_cache)
+                               cfg, device, use_cache, mesh)
         for t in TYPES
     }
     preds = score_pass(retriever, test, rankers, batch_sessions)
-    metrics.update(submit_and_eval(work_dir, preds, labels))
+    metrics.update(_submit_on_main(work_dir, preds, labels, mesh))
     return metrics
 
 
@@ -921,7 +1028,7 @@ def _host_rss_gb() -> float:
 
 @dataclasses.dataclass
 class Pipeline:
-    """otto_tpu's Pipeline on one device: `cfg`, the artifact `work_dir`,
+    """otto_tpu's Pipeline: `cfg`, the artifact `work_dir`,
     `n_aids`, `use_cache` (False: rebuild and overwrite every artifact)
     and `device` (default "cuda", which raises without a card; tests pass
     "cpu"). Construction resolves the device and runs the work-dir guard
@@ -932,17 +1039,22 @@ class Pipeline:
     C14 on the host. Both give the same metrics from the same work dir.
     `stage_log` collects one entry a stage: elapsed seconds since the
     calling method began, host RSS and, on CUDA, the peak device memory
-    allocated so far."""
+    allocated so far.
+
+    `mesh` (a parallel.mesh.MeshContext; not part of the cache key) runs
+    every stage's mesh branch on this rank's device (mesh.device), and
+    `run` is then the streaming runner."""
 
     cfg: Config
     work_dir: str
     n_aids: int
     use_cache: bool = True
     device: object = "cuda"
+    mesh: Optional[object] = None
 
     def __post_init__(self):
-        self.device = resolve(self.device)
-        check_work_dir(self.work_dir, self.cfg, self.n_aids, self.use_cache)
+        self.device = resolve(self.device if self.mesh is None else self.mesh.device)
+        guard_work_dir(self.work_dir, self.cfg, self.n_aids, self.use_cache, self.mesh)
         self.stage_log: List[Dict] = []
         self.build_report: Optional[BuildReport] = None
 
@@ -967,7 +1079,10 @@ class Pipeline:
             batch_sessions: int = 256) -> Dict[str, float]:
         """The batch runner: retrieve_with_features, then with labels
         rank_and_eval; without labels the work dir's rankers score every
-        batch and the submission is written (metrics stay empty)."""
+        batch and the submission is written (metrics stay empty). With a
+        mesh, the streaming runner."""
+        if self.mesh is not None:
+            return self.run_streaming(train, test, labels, batch_sessions)
         batches, targets, metrics = self.retrieve_with_features(
             train, test, labels, batch_sessions=batch_sessions)
         if labels is not None:
@@ -986,7 +1101,8 @@ class Pipeline:
         features on the device at a time."""
         t0 = time.time()
         metrics = run_streaming(train, test, labels, self.n_aids, self.work_dir,
-                                self.device, self.cfg, batch_sessions, self.use_cache)
+                                self.device, self.cfg, batch_sessions, self.use_cache,
+                                self.mesh)
         self._log("run_streaming", t0)
         return metrics
 
@@ -998,7 +1114,7 @@ class Pipeline:
         retriever, self.build_report = build_retriever(
             train, test, self.n_aids, self.device, cfg.w2vec, None, cfg.covis,
             cfg.popularity, cfg.retrieval, cfg.kmeans, report_dir=self.work_dir,
-            cache_dir=self.work_dir, use_cache=self.use_cache)
+            cache_dir=self.work_dir, use_cache=self.use_cache, mesh=self.mesh)
         cache = self.build_report.cache
         self._log("context built", t0, f"cache: loaded {cache['loaded']}, wrote "
                   f"{cache['written']}")
@@ -1092,12 +1208,14 @@ def run_synthetic(
     batch_sessions: int = 256,
     streaming: Optional[bool] = None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, float]:
     """otto_tpu's generated events (data.synthetic.generate), split as
-    cfg.data says, through a Pipeline on `device`: the streaming runner
-    past 50k test sessions (or as `streaming` says), else the batch
-    runner. -> its metrics."""
-    pipe = Pipeline(cfg=cfg, work_dir=work_dir, n_aids=spec.n_aids, device=device)
+    cfg.data says, through a Pipeline on `device` (with `mesh`, on every
+    rank): the streaming runner past 50k test sessions (or as `streaming`
+    says, or with a mesh), else the batch runner. -> its metrics."""
+    pipe = Pipeline(cfg=cfg, work_dir=work_dir, n_aids=spec.n_aids, device=device,
+                    mesh=mesh)
     sp = split_events(generate(spec), cfg.data.test_days, cfg.data.seed)
     if streaming is None:
         streaming = len(np.unique(sp.test.session)) > 50_000

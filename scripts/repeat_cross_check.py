@@ -31,7 +31,17 @@ calling thread's share of the rows (the first 1/threads) and the rest.
 CPU runs (8 blocks along the first dimension) and prints the ops whose
 outputs differ, in order. The calling thread's CPU math state (threads, oneDNN and float32
 precision settings, CPU capability, autocast and grad modes, MXCSR) is
-printed before and after the history.
+printed before and after the history, and so are the MXCSR and
+fegetround() of every thread of an OpenMP parallel region as wide as
+torch's intra-op pool (scripts/thread_fp_state.cc, built with -fopenmp by
+ops/kernels/_build.py::build_host; the line names the libgomp that served
+the region, torch's when it is the one in torch/lib). The first check
+always keeps the input and output of every CPU float32 `torch.sqrt` of
+its two CPU runs (the tail of eucl_dist_ses_aid: `n_s**2 + n_c**2 -
+2*dot` after the clamp, then the root) and, when the first run differs
+from the second, recomputes the root of the kept input on the spot: it
+prints whether the input to sqrt differed between the runs or the root
+of an equal input did.
 """
 import argparse
 import contextlib
@@ -99,8 +109,35 @@ def _mxcsr():
         return f"0x{fn():04x}"
 
 
+def thread_fp_state():
+    """{"library": libgomp path, "threads": [(tid, MXCSR, fegetround)]} of
+    every thread of one OpenMP parallel region of torch.get_num_threads()
+    threads; None without a host compiler."""
+    from pathlib import Path
+
+    from otto_tpu_torch.ops.kernels import _build
+
+    try:
+        lib = ctypes.CDLL(str(_build.build_host(
+            Path(__file__).with_name("thread_fp_state.cc"), ("-fopenmp",))))
+    except RuntimeError:
+        return None
+    n = torch.get_num_threads()
+    mx, rd, tid = (ctypes.c_uint * n)(), (ctypes.c_int * n)(), (ctypes.c_long * n)()
+    lib.otto_thread_fp_state.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint),
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_long)]
+    lib.otto_thread_fp_state.restype = ctypes.c_int
+    seen = lib.otto_thread_fp_state(n, mx, rd, tid)
+    lib.otto_omp_library.argtypes = []
+    lib.otto_omp_library.restype = ctypes.c_char_p
+    return {"library": lib.otto_omp_library().decode(), "seen": seen,
+            "threads": [(tid[i], f"0x{mx[i]:04x}", rd[i]) for i in range(n)]}
+
+
 def math_state(when):
-    """Print the calling thread's CPU math state."""
+    """Print the calling thread's CPU math state and that of every thread
+    of an OpenMP region as wide as torch's intra-op pool."""
     mk = torch.backends.mkldnn
     state = {
         "threads": torch.get_num_threads(), "interop_threads": torch.get_num_interop_threads(),
@@ -116,6 +153,66 @@ def math_state(when):
         "flush_denormal_mxcsr": _mxcsr(),
     }
     print(f"# math state {when}: {json.dumps(state, default=str)}", flush=True)
+    print(f"# worker threads' fp state {when} (tid, MXCSR, fegetround): "
+          f"{json.dumps(thread_fp_state())}", flush=True)
+
+
+class KeepTail:
+    """Keeps the input and output of every CPU float32 torch.sqrt in the
+    first two CPU retrieve_batch calls (the first check's two CPU runs):
+    the tail of eucl_dist_ses_aid. report() says, for a first run that
+    differed, whether sqrt's input differed or its root of an equal input,
+    recomputing the root of the kept input now."""
+
+    def __init__(self):
+        from otto_tpu_torch.engine import retrieval
+
+        self.retrieval = retrieval
+        self.inner = (torch.sqrt, retrieval.retrieve_batch)
+        self.runs = []
+        self.armed = False
+
+    def __enter__(self):
+        sqrt, retrieve = self.inner
+
+        def kept_sqrt(x, *a, **k):
+            out = sqrt(x, *a, **k)
+            if self.armed and x.device.type == "cpu" and x.dtype == torch.float32:
+                self.runs[-1].append((x.clone(), out.clone()))
+            return out
+
+        def cpu_runs(*a, **k):
+            self.armed = len(self.runs) < 2 and a[0][0].device.type == "cpu"
+            if self.armed:
+                self.runs.append([])
+            try:
+                return retrieve(*a, **k)
+            finally:
+                self.armed = False
+        torch.sqrt = kept_sqrt
+        self.retrieval.retrieve_batch = cpu_runs
+        return self
+
+    def __exit__(self, *exc):
+        torch.sqrt, self.retrieval.retrieve_batch = self.inner
+
+    def report(self):
+        if len(self.runs) < 2:
+            return
+        for k, ((x1, y1), (x2, y2)) in enumerate(zip(*self.runs)):
+            d_in = x1 != x2
+            d_out = y1 != y2
+            again = torch.sqrt(x1)
+            rows = d_out.reshape(d_out.shape[0], -1).any(1).nonzero()[:, 0].tolist()
+            print(f"# tail sqrt {k} {tuple(x1.shape)}: inputs differ between the runs in "
+                  f"{int(d_in.sum())} entries (max {float((x1 - x2).abs().max()):.3g}), "
+                  f"roots in {int(d_out.sum())} (rows {rows[:40]}); the first run's roots "
+                  f"against the root of its own input taken now: "
+                  f"{int((y1 != again).sum())} differ (max "
+                  f"{float((y1 - again).abs().max()):.3g}); roots of equal inputs that "
+                  f"differ: {int((d_out & ~d_in).sum())} -> "
+                  f"{'sqrt wrong' if bool((d_out & ~d_in).any()) else 'input to sqrt wrong' if bool(d_in.any()) else 'no difference here'}",
+                  flush=True)
 
 
 class Locate:
@@ -264,6 +361,7 @@ def main():
         threads = torch.get_num_threads()
         try:
             with contextlib.ExitStack() as stack:
+                tail = stack.enter_context(KeepTail()) if i == 0 else None
                 if i == 0 and args.locate:
                     stack.enter_context(Locate())
                 if i == 0 and args.trace_ops:
@@ -272,6 +370,8 @@ def main():
                     torch.set_num_threads(args.first_threads)
                     stack.callback(torch.set_num_threads, threads)
                 first_run = chip_smoke.cross_check_retrieval(dev, seed, quiet=True)[-1]
+            if first_run is not None and tail is not None:
+                tail.report()
             if first_run is not None:
                 failures.append({"seed": seed, "message": first_run})
         except RuntimeError as e:

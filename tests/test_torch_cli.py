@@ -154,11 +154,14 @@ def test_device_defaults_to_the_card(tmp_path):
 @pytest.mark.parametrize("mesh,ok", [("data=1", True), ("data=1,model=1", True),
                                      ("data=2", False), ("data=1,model=2", False)])
 def test_mesh_names_one_device_only(mesh, ok):
+    """In one process (no torchrun) a 1x1 mesh runs unsharded; a larger one
+    raises, naming the world size (tests/test_torch_pipeline_mesh.py runs
+    the ranks)."""
     args = argparse.Namespace(mesh=mesh, device="cpu")
     if ok:
-        cli.check_mesh(args)
+        assert cli.build_mesh(args) is None
     else:
-        with pytest.raises(NotImplementedError, match="multi-device paths"):
-            cli.check_mesh(args)
+        with pytest.raises(ValueError, match="the world size is 1"):
+            cli.build_mesh(args)
     with pytest.raises(ValueError):
         cli.parse_mesh_spec("rows=2")

@@ -2,6 +2,7 @@
 packing, the train / test split and recall@20 must agree exactly; the
 on-device session generator must keep otto_tpu's schema and structure."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -45,6 +46,26 @@ def test_config_matches_reference():
     assert (got.n_trees, got.max_depth, got.n_bins) == (7, 3, 16)
     default = dataclasses.asdict(ref_config.GBDTConfig())
     assert config.GBDTConfig.from_dict(default) == config.GBDTConfig()
+
+
+@pytest.mark.parametrize("mesh", [
+    {}, dict(data_parallel=4, model_parallel=2),
+    dict(data_parallel=-1, model_parallel=4, data_axis="d", model_axis="m")])
+def test_mesh_config_round_trips_with_reference(tmp_path, mesh):
+    """The `mesh` section: otto_tpu's config.json reads into the port's
+    MeshConfig, the port's into otto_tpu's, field for field; a work dir
+    written under another mesh is not stale (the mesh shapes no artifact)."""
+    ref = ref_config.Config(mesh=ref_config.MeshConfig(**mesh))
+    ref_config.config_to_json(ref, str(tmp_path / "ref.json"))
+    got = config.config_from_json(str(tmp_path / "ref.json"))
+    assert dataclasses.asdict(got.mesh) == dataclasses.asdict(ref.mesh)
+    assert dataclasses.asdict(config.MeshConfig()) == dataclasses.asdict(ref_config.MeshConfig())
+    config.config_to_json(config.Config(mesh=config.MeshConfig(**mesh)),
+                          str(tmp_path / "port.json"))
+    back = ref_config.config_from_json(str(tmp_path / "port.json"))
+    assert dataclasses.asdict(back.mesh) == dataclasses.asdict(ref.mesh)
+    with open(tmp_path / "ref.json") as fh:
+        assert config.stale_sections(config.Config(), json.load(fh)) == []
 
 
 @pytest.mark.parametrize("name", ["GBDTConfig", "RankerConfig", "Word2VecConfig"])

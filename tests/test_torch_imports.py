@@ -59,7 +59,8 @@ def test_every_module_imports_without_jax():
         "otto_tpu_torch.eval.per_source", "otto_tpu_torch.models.ranker",
         "otto_tpu_torch.utils.checkpoint", "otto_tpu_torch.utils.reports",
         "otto_tpu_torch.utils.timing", "otto_tpu_torch.data.jsonl",
-        "otto_tpu_torch.pipeline.cli",
+        "otto_tpu_torch.pipeline.cli", "otto_tpu_torch.parallel.mesh",
+        "otto_tpu_torch.parallel.distributed", "otto_tpu_torch.parallel.collectives",
     } <= names
 
 
