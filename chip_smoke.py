@@ -109,8 +109,11 @@ Phases, each printed before the last line:
    sharded popularity from phase 4's clusters (bit-equal), w2v-1-2
    model-parallel in chunk steps for one epoch ((b) bit-equal to (a)), dp
    GBDT for clicks from phase 4b's rows (its first 25 trees bit-equal to
-   phase 4b's), and data-sharded serving of every test session with phase
-   4b's rankers (K1, K2; top-20 and recall@20 bit-equal to phase 5's).
+   phase 4b's), data-sharded serving of every test session with phase
+   4b's rankers (K1, K2; top-20 and recall@20 bit-equal to phase 5's), and
+   pass A over the sharded retriever (K1, K2; metrics equal to phase
+   4b's, reports equal to 4b's and (b)'s to (a)'s, rows bit-equal on one
+   rank, on two the same sessions, row counts and positive rows).
    Prints seconds per stage beside the unsharded phases', each rank's K1-K4
    launches and peak memory per stage; (b) shares one card, so its times
    are no scaling figure.
@@ -201,7 +204,7 @@ SEEDED_W2V_RECALL = {"src_w2vec_all": (0.4054, 0.0164), "src_w2vec_1_2": (0.4222
 # K1 at the GBDT tree walk's shape (phase 3), and the walk's K1 launches
 # on the paths that run it (phases 4b and 5)
 WALK = {}
-# the unsharded stages' seconds (phases 4 and 5), beside phase 9's
+# the unsharded stages' seconds (phases 4, 4b and 5), beside phase 9's
 UNSHARDED = {}
 
 
@@ -767,6 +770,7 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
                           batch_sessions=batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    UNSHARDED["pass A"] = dt
     pa_launches = launch_counts()
     print(f"# pass A (overlapped): {rep.sessions} sessions in {rep.batches} batches, "
           f"{dt:.2f} s = {rep.sessions / dt:.1f} sessions/s, peak "
@@ -1276,11 +1280,13 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
     import torch.distributed as dist
 
     from otto_tpu_torch.config import (
+        TYPES,
         W2VEC_MODELS,
         CoVisConfig,
         Config,
         KMeansConfig,
         PopularityConfig,
+        RankerConfig,
     )
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.device import pin_fp32
@@ -1301,6 +1307,7 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
         build_retriever,
         load_downsampled,
         load_rankers,
+        pass_a,
         score_pass,
     )
 
@@ -1447,6 +1454,38 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
     recall = evaluate_topk(preds, sp.labels)
     require(recall == inp["recall"], f"sharded serving recall@20 equal: {recall}")
     out["recall_total"] = recall["total"]
+
+    # pass A over the sharded retriever (each rank's batches, its own rng
+    # streams; the eval counters all-reduced, the rows gathered) -> phase
+    # 4b's reports and metrics; its rows bit-equal on one rank, and on two
+    # the same sessions and row counts with the same positive rows (the
+    # negatives are rank 1's own draws)
+    pa_dir = os.path.join(work, f"mesh-{tag}-passA")
+    os.makedirs(pa_dir, exist_ok=True)
+    metrics, _ = stage("pass A", lambda: pass_a(retriever, sp.test, sp.labels, RankerConfig(),
+                                                pa_dir, batch_sessions=BATCH))
+    with open(os.path.join(work, "passA-metrics.json")) as fh:
+        require(metrics == json.load(fh), "sharded pass A: metrics equal to phase 4b's")
+    dist.barrier()   # rank 0's files are written
+    # phase 7 rewrote the work dir's reports from its host eval (within
+    # 1e-9 of pass A's device report); (a) and (b) are held equal byte for
+    # byte in phase_multi_device
+    for name in ("eval_retrieved.json", "eval_retrieved_sources.json"):
+        with open(os.path.join(work, name)) as fa, open(os.path.join(pa_dir, name)) as fb:
+            close(json.load(fa), json.load(fb), f"sharded pass A {name}")
+    for t in TYPES:
+        za = np.load(os.path.join(work, f"downsampled-{t}.npz"))
+        zb = np.load(os.path.join(pa_dir, f"downsampled-{t}.npz"))
+        if world == 1:
+            require(all(za[k].tobytes() == zb[k].tobytes() for k in ("feats", "y", "session")),
+                    f"sharded pass A {t}: rows bit-equal to phase 4b's")
+        else:
+            pa, pb = za["y"] > 0, zb["y"] > 0
+            require(np.array_equal(za["session"], zb["session"])
+                    and np.array_equal(za["session"][pa], zb["session"][pb])
+                    and za["feats"][pa].tobytes() == zb["feats"][pb].tobytes(),
+                    f"sharded pass A {t}: sessions, row counts and positive rows equal "
+                    "to phase 4b's")
     with open(os.path.join(work, f"mesh-{tag}-rank{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
 
@@ -1477,6 +1516,10 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cud
               f"{time.perf_counter() - t0:.1f} s with start-up; every stage held to the "
               f"unsharded phases")
     a, b = runs["a"][0], runs["b"]
+    for name in ("eval_retrieved.json", "eval_retrieved_sources.json", "passA-metrics.json"):
+        with open(os.path.join(work, "mesh-a-passA", name)) as fa, \
+                open(os.path.join(work, "mesh-b-passA", name)) as fb:
+            require(fa.read() == fb.read(), f"sharded pass A: {name} of (b) equal to (a)'s")
     for r in b:
         require(r["digest"]["sgns"] == a["digest"]["sgns"],
                 "model-parallel SGNS on two ranks bit-equal to one rank")
@@ -1505,6 +1548,8 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cud
         print(f"#   {st}: {cell(a, st)} / {cell(b[0], st)}; {cell(b[1], st)}")
     for run in [a] + b if device == "cuda" else []:
         ln = run["launches"]
+        require(ln["pass A"]["gather_rows"] > 0 and ln["pass A"]["segmented_scan"] > 0,
+                "K1 and K2 launched in pass A")
         require(all(ln[f"knn {n}"]["mips_topk"] > 0 for n in W2VEC_MODELS), "K3 launched in kNN")
         require(ln["session_emb"]["gather_rows_hbm"] > 0, "K4 launched in session embeddings")
         require(ln["serving"]["gather_rows"] > 0 and ln["serving"]["segmented_scan"] > 0,

@@ -346,6 +346,7 @@ class CoVisCounter:
         self.bucket_lens = tuple(bucket_lens)
         self.arity = arity
         self.spill = cfg.host_spill if spill is None else spill
+        self._host_tables = self.spill   # tables() from _merged()'s host arrays
         self.n_microbatches = 0
         self.n_lanes = 0
         self.host_seconds = 0.0   # dedup and packing
@@ -406,7 +407,7 @@ class CoVisCounter:
         in spill mode; device tables of per_type_capacity rows otherwise."""
         out: Dict[str, CountTable] = {}
         stride = pairs_ops.AID_STRIDE
-        if self.spill:
+        if self._host_tables:
             k1, k2, cnt = self._merged()
             for i, name in enumerate(self.cfg.names):
                 lo, hi = np.searchsorted(k1, [i * stride, (i + 1) * stride])
@@ -432,7 +433,7 @@ class CoVisCounter:
         out = {}
         for name, t in self.tables.items():
             min_c = self.cfg.min_count_to_save.get(name, 1)
-            if self.spill:
+            if self._host_tables:
                 a, b, c = counts_ops.host_finalize(
                     t.aid, t.aid_next, t.count, min_c, self.cfg.max_pairs_to_save)
                 out[name] = CountTable(a, b, c, np.int32(len(a)))
@@ -453,7 +454,7 @@ class CoVisCounter:
         for name in self.cfg.names:
             first_n = self.cfg.retrieval_first_n[name]
             t = final[name]
-            if not self.spill:
+            if not self._host_tables:
                 out[name] = build_retrieval_tables(t, n_aids, first_n)
                 continue
             n = int(t.n)
@@ -487,24 +488,49 @@ class ShardedCoVisCounter(CoVisCounter):
     ShardedCoVisCounter): every rank runs update() on the same events; each
     microbatch is the single counter's, its rows split over the data ranks
     (mesh.data_slice), and each rank keeps the pairs of the aids it owns
-    (parallel/collectives.py): its own CountLadder, spill worker and host
-    run store. The microbatches, the ladder's merge schedule and the
-    spill-time prune (on a run's rows summed over the ranks) are the single
-    counter's, so each rank's store holds exactly the single counter's
-    rows of its aids.
+    (parallel/collectives.py).
 
-    The tables are built on every rank from replicated data: `tables`
-    gathers every rank's merged rows to every rank, and the global prune
+    With cfg.host_spill (the default) each rank has its own CountLadder,
+    spill worker and host run store. The microbatches, the ladder's merge
+    schedule and the spill-time prune (on a run's rows summed over the
+    ranks) are the single counter's, so each rank's store holds exactly the
+    single counter's rows of its aids.
+
+    With host_spill=False, otto_tpu's bounded form: each rank merges its
+    owned pairs of every microbatch into its shard of the tagged table
+    (make_sharded_covis_update; `capacity_per_shard` rows, default
+    max(2^16, ceil(capacity / n_data))), and the shards are gathered
+    (gather_tagged_table). The single counter's bounded table prunes when
+    it overflows, a choice over every key that the shards cannot repeat;
+    so when the single table would have pruned (the shards' rows together
+    past its capacity, or one type's past per_type_capacity) or a shard
+    filled up, `tables` raises ValueError rather than return other tables.
+
+    Either way the tables are built on every rank from replicated data:
+    `tables` gathers every rank's rows to every rank, and the global prune
     (finalize) and the retrieval tables then run there as on one device.
-    Spill mode only. Call close() when done."""
+    Call close() when done."""
 
-    def __init__(self, cfg: CoVisConfig, mesh, **kw):
-        super().__init__(cfg, mesh.device, spill=True, **kw)
+    def __init__(self, cfg: CoVisConfig, mesh, capacity_per_shard: Optional[int] = None,
+                 **kw):
+        from otto_tpu_torch.parallel.collectives import (
+            make_sharded_covis_update,
+            make_sharded_table,
+        )
+
+        super().__init__(cfg, mesh.device, **kw)
         self.mesh = mesh
-        self._ladder.group = mesh.data_group
-        # a rank's runs hold its owned share of a microbatch's pairs, often
-        # far below the pair budget: slice them to their content
-        self._ladder.squeeze_rows = 1 << 12
+        self._host_tables = True
+        if self.spill:
+            self._ladder.group = mesh.data_group
+            # a rank's runs hold its owned share of a microbatch's pairs,
+            # often far below the pair budget: slice them to their content
+            self._ladder.squeeze_rows = 1 << 12
+        else:
+            self.capacity_per_shard = capacity_per_shard or max(
+                1 << 16, -(-self.capacity // mesh.n_data))
+            self._update_shard = make_sharded_covis_update(self.plan, mesh)
+            self._shard = make_sharded_table(self.capacity_per_shard, mesh)
 
     def update(self, events: Events) -> None:
         from otto_tpu_torch.parallel.collectives import sharded_pair_run
@@ -516,20 +542,47 @@ class ShardedCoVisCounter(CoVisCounter):
             L = filled.max_len
             s_batch = pairs_ops.pair_budget_sessions(L, self.pair_budget)
             for mb in iter_filled_microbatches(filled, s_batch):
-                run, n_pairs = sharded_pair_run(
-                    self.plan, self.mesh,
-                    *(torch.from_numpy(x).to(self.device)
-                      for x in (mb.aid, mb.ts, mb.type, mb.sess)))
+                cols = [torch.from_numpy(x).to(self.device)
+                        for x in (mb.aid, mb.ts, mb.type, mb.sess)]
+                if self.spill:
+                    run, n_pairs = sharded_pair_run(self.plan, self.mesh, *cols)
+                    self._ladder.push_compacted(run)
+                else:
+                    self._shard, n_pairs = self._update_shard(self._shard, *cols)
                 self.n_microbatches += 1
                 sl = self.mesh.data_slice(mb.n_rows)
                 self.n_lanes += (sl.stop - sl.start) * L * L
                 self._pairs += n_pairs
-                self._ladder.push_compacted(run)
 
     def _merged(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         from otto_tpu_torch.parallel.collectives import gather_owned
 
         return gather_owned(self.mesh, *self._ladder.host_merged())
+
+    @property
+    def tables(self) -> Dict[str, CountTable]:
+        """Per-type untagged count tables, numpy-backed, of exact occupancy,
+        gathered from every rank (ValueError where the bounded table of one
+        device would have pruned)."""
+        from otto_tpu_torch.parallel.collectives import gather_tagged_table
+
+        if self.spill:
+            return super().tables
+        full = torch.tensor([int(self._shard.n) >= self.capacity_per_shard],
+                            dtype=torch.int64, device=self.device)
+        self.mesh.all_max(full)
+        by_type = gather_tagged_table(self._shard, self.cfg.names, self.mesh)
+        rows = {name: len(t[0]) for name, t in by_type.items()}
+        if int(full) or sum(rows.values()) > self.capacity or max(
+                rows.values()) > self.per_type_capacity:
+            raise ValueError(
+                f"sharded bounded co-visitation table: rows by type {rows}, a shard "
+                f"{'full' if int(full) else 'within'} its {self.capacity_per_shard} rows; "
+                f"one device's bounded table ({self.capacity} rows, "
+                f"{self.per_type_capacity} a type) would have pruned, and the shards do "
+                "not prune as it does: raise accumulator_capacity or use host_spill=True")
+        return {name: CountTable(a, b, c, np.int32(len(a)))
+                for name, (a, b, c) in by_type.items()}
 
 
 def count_events(

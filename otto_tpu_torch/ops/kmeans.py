@@ -4,10 +4,12 @@ Counterpart of otto_tpu/ops/kmeans.py (`assign`, `lloyd_step`, the
 k-means++ init, `kmeans_fit`), on the points' device:
 
   * distances are |x|^2 + |c|^2 - 2 x.c, with the product by
-    `torch.matmul` (TF32 off: `device.pin_fp32`) over blocks of ROW_BLOCK
-    points, the last one padded: every product has one shape, so a point's
-    distances do not depend on which points share its block; the label is
-    the first nearest centroid on a tie, as `jnp.argmin` gives;
+    `torch.matmul` (TF32 off: `device.pin_fp32`) over blocks of
+    `row_block(N)` points, N the points of the whole fit, the last block
+    padded: every product has one shape, so a point's distances do not
+    depend on which points share its block, nor on how the fit's points
+    are split over ranks; the label is the first nearest centroid on a
+    tie, as `jnp.argmin` gives;
   * a centroid is the mean of its points, summed in int64 fixed point (one
     power-of-two scale for all coordinates, room for every point) and
     rounded once: the sums do not depend on the order of the adds, nor on
@@ -36,26 +38,33 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-ROW_BLOCK = 1 << 16   # points per block of the [N, K] distance grid
+ROW_BLOCK = 1 << 16   # most points a block of the [N, K] distance grid holds
 # replicas of every cluster's sum on the card (point n adds into replica
 # n % SUM_REPLICAS), so that the few hot cells do not serialise the adds
 SUM_REPLICAS = 32
 
 
+def row_block(n_points: int) -> int:
+    """Points a distance block holds for a fit over n_points points (every
+    rank's together): ROW_BLOCK, or the power of two that holds them all."""
+    return min(ROW_BLOCK, 1 << max(0, n_points - 1).bit_length())
+
+
 def assign(
-    x: torch.Tensor, centroids: torch.Tensor
+    x: torch.Tensor, centroids: torch.Tensor, block: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (labels [N] int32, squared distance to the chosen centroid [N],
-    clamped at 0)."""
+    clamped at 0), in blocks of `block` points (default row_block(N))."""
     K = centroids.shape[0]
+    block = block or row_block(x.shape[0])
     c_sq = (centroids * centroids).sum(dim=1)[None, :]
     ks = torch.arange(K, dtype=torch.int32, device=x.device)
     labels, best = [], []
-    for i in range(0, x.shape[0], ROW_BLOCK):
-        xb = x[i:i + ROW_BLOCK]
+    for i in range(0, x.shape[0], block):
+        xb = x[i:i + block]
         n = xb.shape[0]
-        if n < ROW_BLOCK:
-            xb = torch.cat([xb, xb.new_zeros((ROW_BLOCK - n, xb.shape[1]))])
+        if n < block:
+            xb = torch.cat([xb, xb.new_zeros((block - n, xb.shape[1]))])
         x_sq = (xb * xb).sum(dim=1, keepdim=True)
         d = (x_sq + c_sq - 2.0 * torch.matmul(xb, centroids.t()))[:n]
         m = d.min(dim=1).values
@@ -95,14 +104,15 @@ def _cluster_sums(x: torch.Tensor, labels: torch.Tensor, K: int, mesh_ctx=None):
 
 
 def lloyd_step(
-    x: torch.Tensor, centroids: torch.Tensor, mesh_ctx=None
+    x: torch.Tensor, centroids: torch.Tensor, mesh_ctx=None, block: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Lloyd iteration -> (new centroids, inertia of the assignment it
     made, squared Frobenius norm of the shift); the last two are 0-d
     tensors. With `mesh_ctx`, x is this data rank's share of the points
-    and the sums, counts and inertia are all-reduced over the data ranks."""
+    and the sums, counts and inertia are all-reduced over the data ranks
+    (`block`: assign's, from the points of every rank)."""
     K = centroids.shape[0]
-    labels, dists = assign(x, centroids)
+    labels, dists = assign(x, centroids, block)
     sums, cnts = _cluster_sums(x, labels, K, mesh_ctx)
     inertia = dists.to(torch.float64).sum()
     if mesh_ctx is not None:
@@ -145,13 +155,15 @@ def lloyd_fit(
     of iterations). With `mesh_ctx`, x is this data rank's share of the
     points `x_all` (which give the tol threshold) and the labels are those
     of this rank's points."""
-    tol_thresh = float(tol * (x if x_all is None else x_all).var(dim=0, unbiased=False).mean())
+    x_all = x if x_all is None else x_all
+    tol_thresh = float(tol * x_all.var(dim=0, unbiased=False).mean())
+    block = row_block(x_all.shape[0])
     inertia, shift, n_iter = float("inf"), float("inf"), 0
     while n_iter < max_iter and shift > tol_thresh:
-        centroids, inertia_t, shift_t = lloyd_step(x, centroids, mesh_ctx)
+        centroids, inertia_t, shift_t = lloyd_step(x, centroids, mesh_ctx, block)
         inertia, shift = float(inertia_t), float(shift_t)
         n_iter += 1
-    labels, _ = assign(x, centroids)
+    labels, _ = assign(x, centroids, block)
     return centroids, labels, inertia, n_iter
 
 

@@ -11,6 +11,11 @@ is the concatenation of theirs.
 The send buffers are fixed [n, E] blocks (E = the emission length, padded
 with SENTINEL keys and zero counts), so no split sizes cross the host; the
 three columns travel stacked in one all_to_all_single.
+
+engine/covis.py::ShardedCoVisCounter takes a rank's compacted runs from
+`sharded_pair_run` into its ladder when it spills to the host (the
+default), and keeps otto_tpu's bounded table (`make_sharded_table`,
+`make_sharded_covis_update`, `gather_tagged_table`) with host_spill=False.
 """
 from __future__ import annotations
 
@@ -73,17 +78,17 @@ def sharded_pair_run(plan: pairs_ops.CoVisPlan, mesh: MeshContext, aid, ts, type
 
 
 def make_sharded_covis_update(plan: pairs_ops.CoVisPlan, mesh: MeshContext
-                              ) -> Callable[..., CountTable]:
-    """-> update(table, aid, ts, type, sess) -> table: this rank's bounded
+                              ) -> Callable[..., Tuple[CountTable, torch.Tensor]]:
+    """-> update(table, aid, ts, type, sess) -> (this rank's bounded
     CountTable (make_sharded_table) with the microbatch's owned pairs merged
-    in (merge_into: on overflow the smallest counts go). Every data rank
-    calls it with the same microbatch."""
+    in (merge_into: on overflow the smallest counts go), the pairs its rows
+    emitted). Every data rank calls it with the same microbatch."""
     if not pairs_ops.plan_types_disjoint(plan):
         raise ValueError("tagged sharded counting requires disjoint count types")
 
-    def update(table: CountTable, aid, ts, type_, sess=None) -> CountTable:
-        run, _ = sharded_pair_run(plan, mesh, aid, ts, type_, sess)
-        return counts_ops.merge_into(table, run.aid, run.aid_next, run.count)
+    def update(table: CountTable, aid, ts, type_, sess=None):
+        run, n_pairs = sharded_pair_run(plan, mesh, aid, ts, type_, sess)
+        return counts_ops.merge_into(table, run.aid, run.aid_next, run.count), n_pairs
 
     return update
 

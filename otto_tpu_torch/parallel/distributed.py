@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from otto_tpu_torch.parallel.mesh import MeshContext, make_mesh
+from otto_tpu_torch.parallel.mesh import MeshContext, make_mesh, set_rank_device
 
 log = logging.getLogger(__name__)
 
@@ -79,7 +79,8 @@ def init_distributed(
     RANK / WORLD_SIZE (its MASTER_ADDR / MASTER_PORT give the rendezvous);
     with `store_path` the ranks meet in a FileStore there instead. Without
     either, a single process: no-op, returns None. Otherwise returns this
-    rank's device (set as the current CUDA device)."""
+    rank's device (set as the current CUDA device, and the default device
+    of make_mesh / global_mesh)."""
     rank = _env_int("RANK") if rank is None else rank
     world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
     if rank is None and world_size is None:
@@ -99,6 +100,7 @@ def init_distributed(
         else:
             dist.init_process_group(backend, init_method="env://", rank=rank,
                                     world_size=world_size)
+    set_rank_device(dev)
     log.info("torch.distributed: rank %d/%d, backend %s, device %s", rank,
              world_size, backend, dev)
     return dev

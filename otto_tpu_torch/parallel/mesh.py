@@ -151,6 +151,28 @@ def gather_varlen(t: torch.Tensor, group, n: int) -> torch.Tensor:
     return torch.cat(parts)
 
 
+# (the world group, the device init_distributed started this rank on)
+_started_on: Optional[tuple] = None
+
+
+def set_rank_device(device: torch.device) -> None:
+    """Record the device this rank's process group was started for."""
+    global _started_on
+    _started_on = (dist.group.WORLD, torch.device(device))
+
+
+def rank_device_default() -> torch.device:
+    """This rank's device when the caller names none: the one
+    init_distributed started the current process group on, else the
+    current CUDA device (raises without a card: the port never picks the
+    CPU on its own)."""
+    from otto_tpu_torch.device import resolve
+
+    if _started_on is not None and _started_on[0] is dist.group.WORLD:
+        return _started_on[1]
+    return resolve("cuda")
+
+
 def make_mesh(
     data_parallel: int = -1,
     model_parallel: int = 1,
@@ -161,7 +183,8 @@ def make_mesh(
     """A (data, model) mesh over every rank of the initialised process
     group (init_distributed first). data_parallel = -1 means every rank the
     model axis leaves; a 1x1 mesh is valid. `device`: this rank's device
-    (default: the current CUDA device under NCCL, else the CPU)."""
+    (default: the one init_distributed started this rank on, else the
+    current CUDA device, whatever the backend)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -174,9 +197,9 @@ def make_mesh(
     if data_parallel * model_parallel != n:
         raise ValueError(f"mesh {data_parallel}x{model_parallel} != {n} devices")
     nccl = dist.get_backend() == "nccl"
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device()) if nccl
-                  else torch.device("cpu"))
+    device = rank_device_default() if device is None else torch.device(device)
+    if nccl and device.type != "cuda":
+        raise ValueError(f"make_mesh: an NCCL mesh needs a CUDA device, not {device}")
     mesh = init_device_mesh("cuda" if nccl else "cpu", (data_parallel, model_parallel),
                             mesh_dim_names=(data_axis, model_axis))
     return MeshContext(mesh=mesh, device=torch.device(device), data_axis=data_axis,

@@ -228,6 +228,7 @@ def build_retriever(
     retrieves each rank's share of a batch. Every rank returns the same
     tables; rank 0 alone writes the cache and the reports.
     -> (Retriever, BuildReport)."""
+    check_mesh_device(device, mesh)
     dev = torch.device(device)
     names = list(w2vec)
     models = dict(models or {})
@@ -942,6 +943,19 @@ def check_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool) -> 
             json.dump({"n_aids": n_aids}, fh)
 
 
+def check_mesh_device(device, mesh) -> None:
+    """A stage given a mesh runs on the mesh's device: a `device` of
+    another type, or another card, is the caller's error (never a quiet
+    switch to the mesh's)."""
+    if mesh is None:
+        return
+    dev, md = torch.device(device), mesh.device
+    if dev.type != md.type or (dev.index is not None and md.index is not None
+                               and dev.index != md.index):
+        raise ValueError(f"device {dev} is not the mesh's device {md}; pass "
+                         f"device={str(md)!r}, or build the mesh on {dev}")
+
+
 def guard_work_dir(work_dir: str, cfg: Config, n_aids: int, use_cache: bool,
                    mesh=None) -> None:
     """check_work_dir, on rank 0 alone when there is a mesh (the other
@@ -978,6 +992,7 @@ def run_streaming(
     and every rank returns the same metrics.
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
+    check_mesh_device(device, mesh)
     guard_work_dir(work_dir, cfg, n_aids, use_cache, mesh)
     retriever, _ = build_retriever(
         train, test, n_aids, device, cfg.w2vec, None, cfg.covis, cfg.popularity,
@@ -1042,8 +1057,9 @@ class Pipeline:
     allocated so far.
 
     `mesh` (a parallel.mesh.MeshContext; not part of the cache key) runs
-    every stage's mesh branch on this rank's device (mesh.device), and
-    `run` is then the streaming runner."""
+    every stage's mesh branch on this rank's device (mesh.device, which
+    `device` must name: ValueError otherwise), and `run` is then the
+    streaming runner."""
 
     cfg: Config
     work_dir: str
@@ -1053,6 +1069,7 @@ class Pipeline:
     mesh: Optional[object] = None
 
     def __post_init__(self):
+        check_mesh_device(self.device, self.mesh)
         self.device = resolve(self.device if self.mesh is None else self.mesh.device)
         guard_work_dir(self.work_dir, self.cfg, self.n_aids, self.use_cache, self.mesh)
         self.stage_log: List[Dict] = []

@@ -8,8 +8,17 @@ Builds a work dir as phases 4, 4b and 5 do (4,000 generated sessions,
 phase 9 on it: (a) one rank (NCCL on the card, gloo on the CPU) and (b)
 two ranks over gloo, every stage held to the unsharded outputs. On the
 CPU the card's memory readings are stubbed and no kernel launch is
-required (the kernels' plain twins run there). ~80 s on the CPU.
+required (the kernels' plain twins run there). Then the tool on two
+ranks: `python -m otto_tpu_torch.pipeline.cli run-synthetic --tiny
+--streaming` (the runner a mesh runs) in one process and under `torch.distributed.run --nproc-per-node 2` with
+`--mesh data=2` (on the card the two ranks share it, over gloo): the
+whole sharded Pipeline (build from nothing, pass A, dp GBDT training,
+serving), its artifacts byte-equal to the one-process run's, its ceilings
+within 1e-12 and its ranked recalls within 0.12 (each rank draws its own
+negatives and bags). ~2 min on the CPU.
 """
+import json
+import subprocess
 import dataclasses
 import os
 import sys
@@ -72,8 +81,53 @@ def main():
         print(f"# work dir built in {time.time() - t0:.1f} s", flush=True)
         smi = DEVICE if DEVICE == "cpu" else cs.phase_device()
         cs.phase_multi_device(smi, sp, work, pop, preds, recall, {}, device=DEVICE)
+    tool_on_two_ranks()
     print(f"# done in {time.time() - t0:.1f} s")
     return 0
+
+
+# the work-dir files that do not depend on a rank's own draws (the
+# rankers' rows and bags do)
+TOOL_ARTIFACTS = ("covis.pkl", "w2v-", "knn-", "session_emb.npz", "clusters.npz",
+                  "eval_retrieved", "passA-metrics.json", "config.json", "meta.json")
+
+
+def tool_on_two_ranks():
+    """run-synthetic --tiny in one process and on two ranks (--mesh
+    data=2 under torch.distributed.run), on DEVICE: the same artifacts and
+    ceilings, ranked recalls within 0.12."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    args = ["-m", "otto_tpu_torch.pipeline.cli", "run-synthetic", "--tiny", "--device", DEVICE,
+            "--sessions", "4000", "--aids", "3000", "--batch-sessions", "256", "--streaming"]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for tag, launch in (("one", []), ("two", ["-m", "torch.distributed.run", "--standalone",
+                                                  "--nproc-per-node", "2"])):
+            work = os.path.join(tmp, tag)
+            t0 = time.time()
+            out = subprocess.run([sys.executable] + launch + args
+                                 + (["--mesh", "data=2"] if launch else []) + ["--work-dir", work],
+                                 capture_output=True, text=True, env=env, timeout=600)
+            cs.require(out.returncode == 0, f"the tool ({tag}): exit {out.returncode}\n"
+                       + out.stderr[-4000:])
+            runs[tag] = json.loads(out.stdout)
+            print(f"# the tool, {tag} rank(s): {time.time() - t0:.1f} s with start-up, "
+                  f"metrics {runs[tag]}", flush=True)
+        one, two = runs["one"], runs["two"]
+        for k in ("ceiling_clicks", "ceiling_carts", "ceiling_orders", "ceiling_total"):
+            cs.require(abs(one[k] - two[k]) < 1e-12, f"the tool on two ranks: {k} equal")
+        for k in ("clicks", "carts", "orders", "total"):
+            cs.require(abs(one[k] - two[k]) < 0.12, f"the tool on two ranks: {k} within 0.12")
+        cs.require(two["total"] > 0.2, "the tool on two ranks: recall@20 total > 0.2")
+        names = sorted(n for n in os.listdir(os.path.join(tmp, "one"))
+                       if n.startswith(TOOL_ARTIFACTS))
+        cs.require(len(names) >= 11, f"the tool's artifacts: {names}")
+        for name in names:
+            with open(os.path.join(tmp, "one", name), "rb") as fa, \
+                    open(os.path.join(tmp, "two", name), "rb") as fb:
+                cs.require(fa.read() == fb.read(), f"the tool on two ranks: {name} byte-equal")
+    print("# the tool on two ranks (--mesh data=2): artifacts byte-equal to one "
+          "process's, ceilings equal, ranked recalls within 0.12")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ against otto_tpu's mesh on 4 of its virtual CPU devices.
 Mirrors tests/test_sharded_covis.py and tests/test_mesh_stages.py case
 for case (the mesh-spec parser and the CLI run are in
 test_torch_pipeline_mesh.py), plus one case per ported module: the
-sharded co-visitation counter (with and without the spill-time prune),
+sharded co-visitation counter (with and without the spill-time prune,
+and its bounded table),
 dp k-means, dp GBDT and data-sharded retrieval.
 
 Four ranks start once, over gloo with a FileStore (no ports), and run
@@ -319,6 +320,51 @@ def test_sharded_covis_counter_matches_single(world, mesh, prune):
     # (each model column of ranks counts the same)
     n_model = 4 // N_DATA[mesh]
     assert sum(out[r][mesh][key][1] for r in RANKS) == pruned * n_model
+
+
+def single_bounded(inp, kw):
+    """One device's bounded counter (host_spill=False) on the counter's
+    events -> (finalized tables, retrieval tables, rows it pruned)."""
+    single = CoVisCounter(CoVisConfig(**kw), CPU, bucket_lens=(8, 32))
+    try:
+        single.update(Events(**inp["counter_ev"]))
+        rows = {k: int(t.n) for k, t in single.tables.items()}
+        want = single.finalize()
+        tables = single.retrieval_tables(300)
+        top = int(single.ladder.top().n)
+    finally:
+        single.close()
+    return want, tables, rows, top
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_bounded_counter_matches_single(world, mesh):
+    """host_spill=False: the shards' bounded tables (otto_tpu's sharded
+    form) gathered give one device's bounded table where it does not prune:
+    the finalized tables and the dense retrieval tables bit-equal."""
+    inp, out = world
+    want, tables, rows, top = single_bounded(inp, ranks.BOUNDED_COVIS)
+    cap = ranks.BOUNDED_COVIS["accumulator_capacity"]
+    assert max(rows.values()) < cap and top == sum(rows.values())   # no prune
+    for r in RANKS:
+        got, got_tables = out[r][mesh]["counter_bounded"]
+        for name in CoVisConfig().names:
+            n = int(want[name].n)
+            assert len(got[name][0]) == n, name
+            for g, w in zip(got[name], want[name][:3]):
+                np.testing.assert_array_equal(g, np.asarray(w)[:n], err_msg=name)
+            for f, g, w in zip(tables[name]._fields, got_tables[name], tables[name]):
+                np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{name}.{f}")
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_bounded_counter_raises_where_one_device_prunes(world, mesh):
+    inp, out = world
+    _, _, rows, _ = single_bounded(inp, ranks.BOUNDED_FULL_COVIS)
+    assert max(rows.values()) == ranks.BOUNDED_FULL_COVIS["accumulator_capacity"]  # pruned
+    for r in RANKS:
+        msg = out[r][mesh]["counter_bounded_full"]
+        assert msg is not None and "would have pruned" in msg
 
 
 # ---------------------------------------------------------------------------

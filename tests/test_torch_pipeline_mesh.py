@@ -19,8 +19,10 @@ import os
 import pickle
 import subprocess
 import sys
+import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -176,6 +178,69 @@ def test_model_axis_stays_on_one_host():
     here) before any mesh is made."""
     with pytest.raises(ValueError, match="must divide local device count 1"):
         distributed.global_mesh(2)
+
+
+# ---------------------------------------------------------------------------
+# a mesh's device is the caller's, never a quiet switch
+# ---------------------------------------------------------------------------
+MISMATCHES = [("cuda", "cpu"), ("cpu", "cuda:0"), ("cuda:1", "cuda:0")]
+
+
+@pytest.mark.parametrize("device,mesh_device", MISMATCHES)
+@pytest.mark.parametrize("entry", ["Pipeline", "run_streaming", "build_retriever"])
+def test_device_other_than_the_mesh_raises(tmp_path, entry, device, mesh_device):
+    """A stage given a mesh on one device and `device` naming another
+    raises before any work (a rank started on the card would otherwise run
+    on the mesh's CPU with `device` still reading "cuda")."""
+    from otto_tpu_torch.pipeline import runner
+
+    mesh = types.SimpleNamespace(device=torch.device(mesh_device), is_main=True)
+    ev = ranks.ev_of({k: np.zeros(0, np.int64) for k in ("session", "aid", "ts", "type")})
+    with pytest.raises(ValueError, match="is not the mesh's device"):
+        if entry == "Pipeline":
+            Pipeline(cfg=ranks.pipeline_cfg(), work_dir=str(tmp_path), n_aids=10,
+                     device=device, mesh=mesh)
+        elif entry == "run_streaming":
+            runner.run_streaming(ev, ev, None, 10, str(tmp_path), device, mesh=mesh)
+        else:
+            runner.build_retriever(ev, ev, 10, device, mesh=mesh)
+    assert not any(tmp_path.iterdir())   # nothing written
+
+
+@pytest.mark.parametrize("device,mesh_device", [("cpu", "cpu"), ("cuda", "cuda:0"),
+                                                ("cuda:0", "cuda:0")])
+def test_device_of_the_mesh_accepted(device, mesh_device):
+    from otto_tpu_torch.pipeline.runner import check_mesh_device
+
+    check_mesh_device(device, types.SimpleNamespace(device=torch.device(mesh_device)))
+
+
+def test_make_mesh_defaults_to_the_started_device(tmp_path):
+    """make_mesh() takes the device init_distributed started the rank on;
+    for a process group started otherwise, the current CUDA device, never
+    the CPU on its own (here, without a card: an error)."""
+    import torch.distributed as dist
+
+    from otto_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.init_distributed("cpu", rank=0, world_size=1,
+                                 store_path=str(tmp_path / "store1"))
+    try:
+        assert make_mesh().device == torch.device("cpu")
+        assert distributed.global_mesh().device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store2"), 1),
+                            rank=0, world_size=1)
+    try:
+        if torch.cuda.is_available():
+            assert make_mesh().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make_mesh()
+        assert make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_backend_follows_the_device():

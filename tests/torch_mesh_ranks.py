@@ -57,6 +57,10 @@ GBDT_CFG = dict(n_trees=4, max_depth=3, n_bins=16, colsample=0.5, subsample=0.8,
                 eval_every=2)
 COUNTER_COVIS = dict(pair_budget=1 << 16)
 PRUNE_COVIS = dict(pair_budget=1 << 12, max_run_rows=1 << 14, spill_prune_min_rows=64)
+# the bounded device table (host_spill=False): large enough that one
+# device does not prune, and small enough that it does
+BOUNDED_COVIS = dict(pair_budget=1 << 16, host_spill=False, accumulator_capacity=1 << 14)
+BOUNDED_FULL_COVIS = dict(BOUNDED_COVIS, accumulator_capacity=1 << 11)
 RETRIEVAL_CAPS = dict(max_session_aids=16, max_candidates=64, session_len_buckets=(8, 32))
 
 
@@ -109,14 +113,14 @@ def data_cases(mesh, inp) -> dict:
     (padded,) = pack_sessions(ev_of(inp["covis_ev"]), bucket_lens=(32,))
     (mb,) = list(iter_microbatches(padded, 256))
     update = make_sharded_covis_update(plan, mesh)
-    table = update(make_sharded_table(1 << 14, mesh), _t(mb.aid), _t(mb.ts), _t(mb.type),
-                   torch.zeros(mb.aid.shape, dtype=torch.int32))
+    table, _ = update(make_sharded_table(1 << 14, mesh), _t(mb.aid), _t(mb.ts), _t(mb.type),
+                      torch.zeros(mb.aid.shape, dtype=torch.int32))
     res["covis_update"] = gather_tagged_table(table, CoVisConfig().names, mesh)
 
     (padded,) = pack_sessions(ev_of(inp["owner_ev"]), bucket_lens=(16,))
     (mb,) = list(iter_microbatches(padded, 128))
-    table = update(make_sharded_table(1 << 13, mesh), _t(mb.aid), _t(mb.ts), _t(mb.type),
-                   torch.zeros(mb.aid.shape, dtype=torch.int32))
+    table, _ = update(make_sharded_table(1 << 13, mesh), _t(mb.aid), _t(mb.ts), _t(mb.type),
+                      torch.zeros(mb.aid.shape, dtype=torch.int32))
     res["owner"] = (table.aid.numpy(), table.count.numpy())
 
     # the sharded counter, without and with the spill-time prune
@@ -130,6 +134,26 @@ def data_cases(mesh, inp) -> dict:
                          counter.ladder.rows_pruned)
         finally:
             counter.close()
+    # the bounded table: its finalized and retrieval tables where one device
+    # does not prune, the error where it does
+    counter = ShardedCoVisCounter(CoVisConfig(**BOUNDED_COVIS), mesh, bucket_lens=(8, 32))
+    try:
+        counter.update(ev_of(inp["counter_ev"]))
+        final = counter.finalize()
+        res["counter_bounded"] = (
+            {k: tuple(np.asarray(x) for x in t[:3]) for k, t in final.items()},
+            {k: tuple(x.numpy() for x in t) for k, t in counter.retrieval_tables(300).items()})
+    finally:
+        counter.close()
+    counter = ShardedCoVisCounter(CoVisConfig(**BOUNDED_FULL_COVIS), mesh, bucket_lens=(8, 32))
+    try:
+        counter.update(ev_of(inp["counter_ev"]))
+        counter.finalize()
+        res["counter_bounded_full"] = None
+    except ValueError as e:
+        res["counter_bounded_full"] = str(e)
+    finally:
+        counter.close()
 
     # session embeddings, popularity, kNN
     packs = pack_sessions(ev_of(inp["emb_ev"]), bucket_lens=(8, 32))
