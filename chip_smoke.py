@@ -75,7 +75,8 @@ Phases, each printed before the last line:
    4's, the host ceiling and per-source report within 1e-9 of pass A's
    device report, recall@20 within 1e-9 of phase 5's, the submission's
    re-parse agreeing; prints cache-load, retrieval, host-eval and scoring
-   seconds and the peak memory.
+   seconds and the peak memory; keeps its C14 reports and submission for
+   phase 9.
 8. The tool: phase 4's test events and labels written as OTTO JSONL and
    read back by the native parser (equal), then `python -m
    otto_tpu_torch.pipeline.cli run-synthetic --tiny` twice in a
@@ -105,18 +106,23 @@ Phases, each printed before the last line:
    model=2 for SGNS), after a check of every collective they call on the
    card: the sharded co-visitation counter (five tables bit-equal to phase
    4's), kNN tables (K3) and session embeddings (K4) from phase 4's models
-   (bit-equal), dp k-means from kmeans_fit's start (labels bit-equal),
+   (bit-equal), dp k-means seeded as kmeans_fit seeds (labels bit-equal),
    sharded popularity from phase 4's clusters (bit-equal), w2v-1-2
    model-parallel in chunk steps for one epoch ((b) bit-equal to (a)), dp
-   GBDT for clicks from phase 4b's rows (its first 25 trees bit-equal to
-   phase 4b's), data-sharded serving of every test session with phase
-   4b's rankers (K1, K2; top-20 and recall@20 bit-equal to phase 5's), and
-   pass A over the sharded retriever (K1, K2; metrics equal to phase
-   4b's, reports equal to 4b's and (b)'s to (a)'s, rows bit-equal on one
-   rank, on two the same sessions, row counts and positive rows).
-   Prints seconds per stage beside the unsharded phases', each rank's K1-K4
-   launches and peak memory per stage; (b) shares one card, so its times
-   are no scaling figure.
+   GBDT for clicks from phase 4b's rows with its default draws (one
+   device's: its first 25 trees bit-equal to phase 4b's), data-sharded
+   serving of every test session with phase 4b's rankers (K1, K2; top-20
+   and recall@20 bit-equal to phase 5's), pass A over the sharded
+   retriever (K1, K2; each batch's negatives drawn where one device draws
+   them: metrics equal to phase 4b's, reports equal to 4b's and (b)'s to
+   (a)'s, rows bit-equal to 4b's on one rank and on two), and the batch
+   runner on the mesh, Pipeline(mesh=).run, on a work dir holding phase
+   4's tables and phase 4b's GBDT rankers (K1, K2; every test session at
+   production width, each rank keeping its own batches: C14 reports and
+   submission byte-equal to phase 7's, metrics equal). Prints seconds per
+   stage beside the unsharded phases', the batch runner's seconds by step
+   beside phase 7's, each rank's K1-K4 launches and peak memory per
+   stage; (b) shares one card, so its times are no scaling figure.
 
 Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase 6 runs last.
 Then one JSON line with the kernels' results and, last, the result line
@@ -1056,11 +1062,39 @@ def close(x, y, path="", tol=1e-9):
         require(abs(x - y) <= tol, f"{path}: {x} vs {y}")
 
 
+# what phase 9's batch runner on the mesh holds byte for byte to phase 7's
+BATCH_OUTPUTS = ("eval_retrieved.json", "eval_retrieved_sources.json", "submission.csv")
+
+
+def batch_steps(stage_log):
+    """A batch runner's seconds by step from its Pipeline.stage_log (seconds
+    since retrieve_with_features began: build, retrieve, eval; since
+    rank_and_eval began: score, submit)."""
+    log = {e["stage"]: e["elapsed_s"] for e in stage_log}
+    return {"build (cache load + popularity)": log["context built"],
+            "retrieval": log["retrieve"] - log["context built"],
+            "host C14 eval": log["eval per-source"] - log["retrieve"],
+            "scoring": log["score"],
+            "submit": log["submit"] - log["score"]}
+
+
+def keep_batch_outputs(work, metrics, steps):
+    """Copy a batch run's BATCH_OUTPUTS into work/batch-ref (the work dir's
+    own are rewritten by later runs) -> what phase 9 holds its run to."""
+    import shutil
+
+    keep = os.path.join(work, "batch-ref")
+    os.makedirs(keep, exist_ok=True)
+    for name in BATCH_OUTPUTS:
+        shutil.copyfile(os.path.join(work, name), os.path.join(keep, name))
+    return {"dir": keep, "metrics": metrics, "steps": steps}
+
+
 def phase_batch_runner(dev, smi, sp, retriever, work, serve_recall, batch=BATCH):
     """Pipeline.run (the batch runner) on phase 4's work dir: tables from
     the cache bit-equal to phase 4's, phase 4b's rankers, the host C14
     eval equal to pass A's device report and recall@20 equal to phase 5's.
-    -> launches."""
+    -> (launches, keep_batch_outputs(...))."""
     from otto_tpu_torch.config import Config, RetrievalConfig
     from otto_tpu_torch.eval.recall import evaluate_submission_file
     from otto_tpu_torch.pipeline.runner import Pipeline
@@ -1108,22 +1142,16 @@ def phase_batch_runner(dev, smi, sp, retriever, work, serve_recall, batch=BATCH)
     res2 = evaluate_submission_file(os.path.join(work, "submission.csv"), sp.labels)
     require(all(abs(res2[k] - metrics[k]) <= 1e-9 for k in res2), "submission re-parse agrees")
 
-    # stage_log: seconds since retrieve_with_features began (build, retrieve,
-    # eval) or since rank_and_eval began (score, submit)
-    log = {e["stage"]: e["elapsed_s"] for e in pipe.stage_log}
     load_s = sum(v for k, v in rep.seconds.items() if k.startswith("load "))
-    steps = {"build (cache load + popularity)": log["context built"],
-             "retrieval": log["retrieve"] - log["context built"],
-             "host C14 eval": log["eval per-source"] - log["retrieve"],
-             "scoring": log["score"],
-             "submit": log["submit"] - log["score"]}
+    steps = batch_steps(pipe.stage_log)
     print(f"# batch runner: {len(np.unique(sp.test.session))} sessions in {dt:.2f} s, cache "
           f"load {load_s:.2f} s, seconds {json.dumps({k: round(v, 2) for k, v in steps.items()})}, "
           f"peak {peak / 2**30:.2f} GiB allocated, launches {launches} ({smi})")
     print("#   tables from the cache bit-equal to phase 4's; host ceiling and per-source "
           "report within 1e-9 of pass A's device report; recall@20 within 1e-9 of phase "
           f"5's streaming run: {json.dumps({k: metrics[k] for k in ('clicks', 'carts', 'orders', 'total')})}")
-    return launches
+    UNSHARDED["batch runner"] = dt
+    return launches, keep_batch_outputs(work, metrics, steps)
 
 
 # --------------------------------------------------------------------------
@@ -1287,6 +1315,7 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
         KMeansConfig,
         PopularityConfig,
         RankerConfig,
+        config_from_json,
     )
     from otto_tpu_torch.data.batching import pack_sessions
     from otto_tpu_torch.device import pin_fp32
@@ -1297,12 +1326,13 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
         compute_session_embeddings,
     )
     from otto_tpu_torch.eval.recall import evaluate_topk
-    from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker, tree_draws
+    from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
     from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec_device
-    from otto_tpu_torch.ops.kmeans import init_centroids, kmeans_fit_dp
+    from otto_tpu_torch.ops.kmeans import kmeans_fit_dp
     from otto_tpu_torch.parallel.mesh import make_mesh
     from otto_tpu_torch.pipeline.runner import (
         FEATURE_NAMES,
+        Pipeline,
         _event_clusters,
         build_retriever,
         load_downsampled,
@@ -1374,12 +1404,10 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
     require(np.array_equal(sess_emb.cpu().numpy(), z["emb"]),
             "sharded session embeddings bit-equal")
 
-    # C11: dp k-means from kmeans_fit's start
+    # C11: dp k-means, seeded as kmeans_fit seeds
     km = KMeansConfig()
-    g = torch.Generator(device=dev).manual_seed(km.seed)
-    init = init_centroids(sess_emb, km.n_clusters_to_find[0], 1 << 16, g)
     _, labels, _, n_iter = stage("kmeans", lambda: kmeans_fit_dp(
-        sess_emb, km.n_clusters_to_find[0], mesh, km.max_iter, km.tol, km.seed, init=init))
+        sess_emb, km.n_clusters_to_find[0], mesh, km.max_iter, km.tol, km.seed))
     stored_labels = np.load(os.path.join(work, "clusters.npz"))["cluster"]
     require(np.array_equal(labels.cpu().numpy(), stored_labels),
             "dp k-means labels bit-equal to phase 4's")
@@ -1419,22 +1447,9 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
     vmask = np.isin(sess, u[max(1, int(len(u) * 0.75)):])
     valid = (feats[vmask], y[vmask], sess[vmask])
     feats, y, sess = feats[~vmask], y[~vmask], sess[~vmask]
-    n_groups = int(np.unique(sess).size)
-    rows1 = -(-n_groups // cfg.group_chunk) * cfg.group_chunk * cfg.max_group
-    mult = cfg.group_chunk * world
-    rows_n = -(-n_groups // mult) * mult * cfg.max_group
-    base = tree_draws(cfg, feats.shape[1], rows1, dev)
-
-    def draws(t, shard):
-        # one device's bag, on the padded layout of `world` ranks
-        feat, bag = base(t)
-        bag = torch.cat([bag, bag.new_zeros(rows_n - rows1)])
-        share = rows_n // world
-        return feat, bag[shard * share:(shard + 1) * share]
-
+    # its default draws are one device's (gbdt.one_device_draws)
     ranker = stage("gbdt", lambda: train_gbdt_ranker(
-        feats, y, sess, FEATURE_NAMES, cfg, valid=valid, device=dev, draws=draws,
-        mesh_ctx=mesh))
+        feats, y, sess, FEATURE_NAMES, cfg, valid=valid, device=dev, mesh_ctx=mesh))
     ref = GBDTRanker.load(os.path.join(work, f"ranker-gbdt-{MESH_GBDT_TARGET}.npz"))
     for f in ("gfeat", "thr", "leaf", "gains"):
         require(np.array_equal(getattr(ranker, f), getattr(ref, f)[:MESH_GBDT_TREES]),
@@ -1455,17 +1470,19 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
     require(recall == inp["recall"], f"sharded serving recall@20 equal: {recall}")
     out["recall_total"] = recall["total"]
 
-    # pass A over the sharded retriever (each rank's batches, its own rng
-    # streams; the eval counters all-reduced, the rows gathered) -> phase
-    # 4b's reports and metrics; its rows bit-equal on one rank, and on two
-    # the same sessions and row counts with the same positive rows (the
-    # negatives are rank 1's own draws)
+    # pass A over the sharded retriever (each rank's batches, each drawn
+    # from where its draws begin in one device's rng stream, on two ranks
+    # the draw counts shared a round of batches; the eval counters
+    # all-reduced, the rows gathered) -> phase 4b's metrics, reports and
+    # rows, bit for bit
     pa_dir = os.path.join(work, f"mesh-{tag}-passA")
     os.makedirs(pa_dir, exist_ok=True)
-    metrics, _ = stage("pass A", lambda: pass_a(retriever, sp.test, sp.labels, RankerConfig(),
-                                                pa_dir, batch_sessions=BATCH))
+    metrics, rep = stage("pass A", lambda: pass_a(retriever, sp.test, sp.labels,
+                                                  RankerConfig(), pa_dir, batch_sessions=BATCH))
+    out["passA_phases"] = rep.phases
     with open(os.path.join(work, "passA-metrics.json")) as fh:
         require(metrics == json.load(fh), "sharded pass A: metrics equal to phase 4b's")
+    del retriever
     dist.barrier()   # rank 0's files are written
     # phase 7 rewrote the work dir's reports from its host eval (within
     # 1e-9 of pass A's device report); (a) and (b) are held equal byte for
@@ -1476,32 +1493,68 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
     for t in TYPES:
         za = np.load(os.path.join(work, f"downsampled-{t}.npz"))
         zb = np.load(os.path.join(pa_dir, f"downsampled-{t}.npz"))
-        if world == 1:
-            require(all(za[k].tobytes() == zb[k].tobytes() for k in ("feats", "y", "session")),
-                    f"sharded pass A {t}: rows bit-equal to phase 4b's")
-        else:
-            pa, pb = za["y"] > 0, zb["y"] > 0
-            require(np.array_equal(za["session"], zb["session"])
-                    and np.array_equal(za["session"][pa], zb["session"][pb])
-                    and za["feats"][pa].tobytes() == zb["feats"][pb].tobytes(),
-                    f"sharded pass A {t}: sessions, row counts and positive rows equal "
-                    "to phase 4b's")
+        require(all(za[k].tobytes() == zb[k].tobytes() for k in ("feats", "y", "session")),
+                f"sharded pass A {t}: rows bit-equal to phase 4b's")
+
+    # the batch runner on the mesh (Pipeline(mesh=).run: each rank keeps its
+    # own batches, C14 over every rank's in one device's order, the top-20s
+    # gathered) from a work dir holding phase 4's tables and phase 4b's GBDT
+    # rankers -> phase 7's C14 reports, submission and metrics
+    bdir = os.path.join(work, f"mesh-{tag}-batch")
+    if mesh.is_main:
+        seed_work_dir(work, bdir)
+    dist.barrier()
+    pipe = Pipeline(config_from_json(os.path.join(bdir, "config.json")), bdir, N_AIDS,
+                    device=dev, mesh=mesh)
+    batch_ref = inp["batch_ref"]
+    metrics = stage("batch runner", lambda: pipe.run(sp.train, sp.test, sp.labels,
+                                                     batch_sessions=BATCH))
+    dist.barrier()   # rank 0's files are written
+    for name in BATCH_OUTPUTS:
+        with open(os.path.join(bdir, name), "rb") as fa, \
+                open(os.path.join(batch_ref["dir"], name), "rb") as fb:
+            require(fa.read() == fb.read(),
+                    f"batch runner on the mesh: {name} byte-equal to phase 7's")
+    require(metrics == batch_ref["metrics"], "batch runner on the mesh: metrics (ceilings, "
+            f"recall@20) equal to phase 7's: {metrics} vs {batch_ref['metrics']}")
+    out["batch_steps"] = batch_steps(pipe.stage_log)
     with open(os.path.join(work, f"mesh-{tag}-rank{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
 
 
-def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cuda"):
+def seed_work_dir(src, dst):
+    """A work dir at dst holding src's table artifacts and GBDT rankers
+    (hard links where the file system allows, else copies: the runner
+    only reads them), so a Pipeline there reads every table and ranker
+    from the cache."""
+    import shutil
+
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        if name in ("covis.pkl", "session_emb.npz", "clusters.npz", "config.json",
+                    "meta.json") or (name.endswith(".npz") and name.startswith(
+                        ("w2v-", "knn-", "ranker-gbdt-"))):
+            try:
+                os.link(os.path.join(src, name), os.path.join(dst, name))
+            except OSError:
+                shutil.copyfile(os.path.join(src, name), os.path.join(dst, name))
+
+
+def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, batch_ref,
+                       device="cuda"):
     """Phase 9: the sharded paths on the card, (a) one rank over NCCL, (b)
     two ranks sharing the card over gloo, each stage held to the unsharded
-    phases' outputs on the same inputs (device "cpu": a rehearsal, gloo
-    for both). -> K1-K4 launches, summed over the stages and ranks."""
+    phases' outputs on the same inputs (batch_ref: phase 7's batch run,
+    keep_batch_outputs; device "cpu": a rehearsal, gloo for both). -> K1-K4
+    launches, summed over the stages and ranks."""
     import pickle
 
     from otto_tpu_torch.config import W2VEC_MODELS
     from otto_tpu_torch.parallel.distributed import spawn_ranks
 
     with open(os.path.join(work, "mesh-in.pkl"), "wb") as fh:
-        pickle.dump({"split": sp, "pop": pop, "preds": preds, "recall": recall}, fh)
+        pickle.dump({"split": sp, "pop": pop, "preds": preds, "recall": recall,
+                     "batch_ref": batch_ref}, fh)
     runs = {}
     for tag, world, backend in (("a", 1, "nccl" if device == "cuda" else "gloo"),
                                 ("b", 2, "gloo")):
@@ -1535,6 +1588,10 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cud
         u = unsharded.get(st)
         print(f"#   {st}: {'-' if u is None else f'{u:.2f}'} / {a['seconds'][st]:.2f} / "
               f"{b[0]['seconds'][st]:.2f}, {b[1]['seconds'][st]:.2f}")
+    print(f"# multi-device pass A seconds by phase, (a) / (b) rank 0 / (b) rank 1 ({smi}):")
+    for ph in a["passA_phases"]:
+        print(f"#   {ph}: {a['passA_phases'][ph]:.3f} / {b[0]['passA_phases'][ph]:.3f} / "
+              f"{b[1]['passA_phases'][ph]:.3f}")
     print("# multi-device launches of K1 K2 K3 K4 and peak GiB allocated by stage, "
           "(a) rank 0 / (b) rank 0; rank 1:")
 
@@ -1546,6 +1603,15 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cud
 
     for st in a["launches"]:
         print(f"#   {st}: {cell(a, st)} / {cell(b[0], st)}; {cell(b[1], st)}")
+    print(f"# multi-device batch runner (Pipeline(mesh=).run), seconds by step, phase 7 / "
+          f"(a) / (b) rank 0, rank 1 ({smi}); C14 reports, submission and metrics equal to "
+          f"phase 7's on (a) and (b):")
+    for k, v in batch_ref["steps"].items():
+        print(f"#   {k}: {v:.2f} / {a['batch_steps'][k]:.2f} / {b[0]['batch_steps'][k]:.2f}, "
+              f"{b[1]['batch_steps'][k]:.2f}")
+    print(f"#   peak GiB allocated a rank: (a) {a['peak']['batch runner'] / 2**30:.2f}, (b) "
+          f"{b[0]['peak']['batch runner'] / 2**30:.2f} and "
+          f"{b[1]['peak']['batch runner'] / 2**30:.2f}")
     for run in [a] + b if device == "cuda" else []:
         ln = run["launches"]
         require(ln["pass A"]["gather_rows"] > 0 and ln["pass A"]["segmented_scan"] > 0,
@@ -1555,6 +1621,8 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, device="cud
         require(ln["serving"]["gather_rows"] > 0 and ln["serving"]["segmented_scan"] > 0,
                 "K1 and K2 launched in serving")
         require(ln["gbdt"]["gather_rows"] > 0, "K1 launched in dp GBDT")
+        require(ln["batch runner"]["gather_rows"] > 0 and ln["batch runner"]["segmented_scan"] > 0,
+                "K1 and K2 launched in the batch runner on the mesh")
     return {k: sum(run["launches"][st][k] for run in [a] + b for st in run["launches"])
             for k in a["launches"]["serving"]}
 
@@ -2220,7 +2288,8 @@ def main():
         mlp_tr_launches, mlp_launches = phase_mlp(dev, smi, sp, retriever, work, pa_metrics,
                                                   serve_recall, base_recall)
         torch.cuda.empty_cache()
-        batch_launches = phase_batch_runner(dev, smi, sp, retriever, work, serve_recall)
+        batch_launches, batch_ref = phase_batch_runner(dev, smi, sp, retriever, work,
+                                                       serve_recall)
         ctx = retriever.ctx
         pop = tuple(t.cpu().numpy() for t in (ctx.pop_cl50_cand, ctx.pop_cl50_ranks,
                                               ctx.pop_cl1_rank))
@@ -2229,7 +2298,7 @@ def main():
         tool_launches = phase_tool(smi, sp, root)
         torch.cuda.empty_cache()
         mesh_launches = phase_multi_device(smi, sp, work, pop, UNSHARDED.pop("preds"),
-                                           serve_recall, UNSHARDED)
+                                           serve_recall, UNSHARDED, batch_ref)
     phase_cross_check(dev)
 
     w = WALK

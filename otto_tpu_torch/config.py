@@ -319,6 +319,10 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
+    def replace(self, **kw) -> "Config":
+        """A copy with the named sections or fields replaced."""
+        return dataclasses.replace(self, **kw)
+
 
 DEFAULT = Config()
 

@@ -35,6 +35,10 @@ class PaddedSessions(NamedTuple):
     def max_len(self) -> int:
         return self.aid.shape[1]
 
+    def valid_mask(self) -> np.ndarray:
+        """[S, L] bool: the lanes that hold an event."""
+        return np.arange(self.max_len)[None, :] < self.length[:, None]
+
 
 def _session_spans(ev: Events) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(session_ids, start, end) over a session-sorted event table."""

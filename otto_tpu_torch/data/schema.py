@@ -30,6 +30,16 @@ class Events:
     def __len__(self) -> int:
         return len(self.session)
 
+    @property
+    def n_sessions(self) -> int:
+        """Distinct session ids."""
+        return len(np.unique(self.session))
+
+    @property
+    def n_aids(self) -> int:
+        """One past the largest aid (0 for an empty table)."""
+        return int(self.aid.max()) + 1 if len(self.aid) else 0
+
     def select(self, rows: np.ndarray) -> "Events":
         """The rows picked by a boolean mask or an index array."""
         return Events(self.session[rows], self.aid[rows], self.ts[rows],

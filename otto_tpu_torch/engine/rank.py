@@ -10,13 +10,13 @@ otto_tpu's (whose module imports jax); tests pin them to the reference's.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from otto_tpu_torch.config import RankerConfig
-from otto_tpu_torch.engine.retrieval import RetrievedBatch
+from otto_tpu_torch.engine.retrieval import FEATURE_NAMES, RetrievedBatch
 
 
 def downsample_select(
@@ -27,16 +27,15 @@ def downsample_select(
     rng: np.random.Generator,
 ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """The rows (si, ci) to keep for one type and their labels, or None
-    when no session of the batch has a positive. Draws from rng only in
-    the positive case, so one rng per type fed the batches in order gives
-    the same rows as `downsample` over all of them."""
+    when no session of the batch has a positive. Draws draw_count outputs
+    from rng: S * C float64s in the positive case, none otherwise."""
     S, C = b.cand.shape
     valid = b.cand >= 0
     y = tgt[:, :, type_id]
+    if not draw_count(valid & (y > 0)):
+        return None
     n_pos = (y * valid).sum(axis=1)
     keep_sessions = n_pos > 0
-    if not keep_sessions.any():
-        return None
     max_neg = np.minimum(n_pos * cfg.neg_to_pos_ratio, cfg.max_neg_per_session)
     # random priority per negative; keep the max_neg smallest
     prio = rng.random((S, C))
@@ -67,6 +66,73 @@ def downsample_batch(
     return b.feats_rows(si, ci), y, b.session[si]
 
 
+def rng_at(seed: int, start: int) -> np.random.Generator:
+    """default_rng(seed) moved on by `start` 64-bit outputs: where the
+    stream stands after drawing `start` float64s with random() (each takes
+    one output), without drawing them."""
+    bits = np.random.PCG64(seed)
+    bits.advance(int(start))
+    return np.random.Generator(bits)
+
+
+def draw_count(pos):
+    """The 64-bit outputs downsample_select draws for one type of a batch:
+    S * C where some valid candidate is a positive of the type, none
+    otherwise. pos: [S, C] bool, valid & positive: a numpy array, or a
+    tensor (the count is then a 0-d tensor on its device, no sync)."""
+    return pos.any() * (pos.shape[0] * pos.shape[1])
+
+
+def draw_counts(batches: List[RetrievedBatch], targets: List[np.ndarray],
+                type_id: int) -> np.ndarray:
+    """[n] int64: each batch's draw_count for the type."""
+    return np.array([draw_count((b.cand >= 0) & (t[:, :, type_id] > 0))
+                     for b, t in zip(batches, targets)], np.int64)
+
+
+def draw_starts(counts) -> np.ndarray:
+    """Where each batch's draws begin in one stream that serves batches of
+    these draw counts in order."""
+    counts = np.asarray(counts, np.int64)
+    return np.cumsum(counts) - counts
+
+
+def downsample_parts(
+    batches: List[RetrievedBatch],
+    targets: List[np.ndarray],      # [S, C, 3] aligned with batches
+    type_id: int,
+    cfg: RankerConfig,
+    starts: Sequence[int],
+    seed: int = 42,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The downsampler's rows of each batch in turn -> (feats [N, F],
+    labels [N], sessions [N]) in batch order, empty where no batch has a
+    positive. Batch i draws from default_rng(seed) moved to starts[i]
+    (rng_at): given where each batch's draws begin in one device's order
+    (draw_starts), any share of one device's batches keeps its rows."""
+    feats_out, lab_out, sess_out = [], [], []
+    for b, tgt, start in zip(batches, targets, starts):
+        got = downsample_batch(b, tgt, type_id, cfg, rng_at(seed, start))
+        if got is None:
+            continue
+        feats_out.append(got[0])
+        lab_out.append(got[1])
+        sess_out.append(got[2])
+    if not feats_out:
+        return (np.zeros((0, len(FEATURE_NAMES)), np.float32), np.zeros(0, np.float32),
+                np.zeros(0, np.int32))
+    return np.concatenate(feats_out), np.concatenate(lab_out), np.concatenate(sess_out)
+
+
+def session_sorted(feats, labels, sessions, type_id: int):
+    """Rows ordered by session, stably (a session's rows come from one
+    batch, in its order); ValueError when there are none."""
+    if not len(labels):
+        raise ValueError(f"no positive sessions for type {type_id}")
+    order = np.argsort(sessions, kind="stable")
+    return feats[order], labels[order], sessions[order]
+
+
 def downsample(
     batches: List[RetrievedBatch],
     targets: List[np.ndarray],      # [S, C, 3] aligned with batches
@@ -74,23 +140,11 @@ def downsample(
     cfg: RankerConfig,
     seed: int = 42,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """-> (feats [N, F], labels [N], sessions [N]) flat rows, session-sorted."""
-    rng = np.random.default_rng(seed)
-    feats_out, lab_out, sess_out = [], [], []
-    for b, tgt in zip(batches, targets):
-        got = downsample_batch(b, tgt, type_id, cfg, rng)
-        if got is None:
-            continue
-        feats_out.append(got[0])
-        lab_out.append(got[1])
-        sess_out.append(got[2])
-    if not feats_out:
-        raise ValueError(f"no positive sessions for type {type_id}")
-    feats = np.concatenate(feats_out)
-    labels = np.concatenate(lab_out)
-    sessions = np.concatenate(sess_out)
-    order = np.argsort(sessions, kind="stable")
-    return feats[order], labels[order], sessions[order]
+    """-> (feats [N, F], labels [N], sessions [N]) flat rows, session-sorted:
+    one default_rng(seed) stream over the batches in order."""
+    starts = draw_starts(draw_counts(batches, targets, type_id))
+    return session_sorted(
+        *downsample_parts(batches, targets, type_id, cfg, starts, seed), type_id)
 
 
 def _topk_program(scores: torch.Tensor, cand: torch.Tensor, k: int):

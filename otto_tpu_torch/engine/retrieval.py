@@ -231,10 +231,13 @@ class RetrievedBatch:
     """One retrieval batch. `feats` [n_keep, C, F] stays on the device and
     arrives keep-filtered to the real sessions; `cand` / `ts_order` are
     kept as full [S, C] device tensors and filtered with `keep` (row
-    indices of the real sessions, None = all) on access."""
+    indices of the real sessions, None = all) on access. `index`: the
+    batch's place in one device's batch order (Retriever.iter_run's; None
+    for a batch made elsewhere)."""
 
-    def __init__(self, session, cand, feats, ts_order, keep=None):
+    def __init__(self, session, cand, feats, ts_order, keep=None, index=None):
         self.session = session
+        self.index = index
         self.feats = feats
         self._cand = cand
         self._ts_order = ts_order
@@ -897,9 +900,10 @@ class Retriever:
         max_candidates: Optional[int] = None,
     ):
         """Yield one RetrievedBatch per microbatch of each length bucket
-        (with a mesh: those dealt to this data rank). A bucket's tail batch
-        is padded to the bucket's batch size with session -1 rows, which
-        `keep` filters out."""
+        (with a mesh: those dealt to this data rank, batch g to data rank
+        g % n_data), each with its `index` g in one device's order. A
+        bucket's tail batch is padded to the bucket's batch size with
+        session -1 rows, which `keep` filters out."""
         keep_aids = keep_aids or self.cfg.max_session_aids
         max_candidates = max_candidates or self.cfg.max_candidates
         dev = self.ctx.aid_emb.device
@@ -940,6 +944,7 @@ class Retriever:
                     else feats[torch.as_tensor(keep_idx, device=dev)],
                     ts_order=ts_order,
                     keep=keep_idx,
+                    index=n_batches - 1,
                 )
 
 

@@ -58,6 +58,11 @@ class SessionAids(NamedTuple):
     ts_order_aid_orders: torch.Tensor
     left_in_cart: torch.Tensor
 
+    @property
+    def valid(self) -> torch.Tensor:
+        """[S, A_k] bool: the slots that hold an aid."""
+        return self.aid >= 0
+
 
 def compute_session_stats(aid, ts, type_) -> SessionStats:
     valid = aid >= 0

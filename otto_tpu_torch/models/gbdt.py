@@ -34,8 +34,9 @@ all-reduced: int64 sums, so the trees do not depend on how the groups are
 split. The scores are all-gathered after each tree and every rank takes
 the lambda gradients of all groups in one device's chunks, then its own
 share: on the card a reduction's order can depend on the batch it runs
-in. Every rank grows the same trees from the same column subset; each
-draws its own row bag (`draws(t, shard)`).
+in. Every rank grows the same trees from one device's column subset and
+row bag (`one_device_draws`; otto_tpu bags each shard's rows on its own),
+so a data-parallel training gives one device's ranker.
 
 Prediction bins the raw features (bin = number of edges <= x), then walks
 all trees at once: node state is [M, T], and at every level the per-row
@@ -317,29 +318,44 @@ Draws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 def tree_draws(cfg: GBDTConfig, n_features: int, n_rows: int, device) -> Draws:
-    """The default per-tree draws: (t, shard=0) -> (feat_idx [Fs], bag
+    """The default per-tree draws of one device: t -> (feat_idx [Fs], bag
     [n_rows] bool), a column subset of Fs = round(colsample * F) features
     and a Bernoulli (subsample) row bag, from a torch.Generator on `device`
-    seeded with (cfg.seed, t); shard k > 0 (a data rank's groups) draws its
-    bag from a generator of its own, the same column subset. Other draws
-    than otto_tpu's threefry stream."""
+    seeded with (cfg.seed, t). Other draws than otto_tpu's threefry
+    stream."""
     dev = torch.device(device)
     n_sub = max(1, int(round(cfg.colsample * n_features)))
 
-    def draws(t: int, shard: int = 0):
+    def draws(t: int):
         g = torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + int(t))
         feat_idx = torch.randperm(n_features, generator=g, device=dev)[:n_sub]
-        if shard:
-            g = torch.Generator(device=dev).manual_seed(
-                (cfg.seed * 1_000_003 + int(t)) * 65_537 + int(shard))
         bag = torch.rand(n_rows, generator=g, device=dev) < cfg.subsample
         return feat_idx, bag
 
     return draws
 
 
-def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, scores0=None,
-                tree_ids=None, draws: Optional[Draws] = None, mesh_ctx=None):
+def one_device_draws(cfg: GBDTConfig, n_features: int, rows_one: int, rows_all: int,
+                     n_data: int, device) -> Draws:
+    """The default draws of data-parallel training: (t, shard) -> tree t's
+    column subset and row bag as tree_draws gives them over one device's
+    `rows_one` grouped rows, the bag padded with False to the `rows_all`
+    rows of n_data ranks' layout (the same groups in the same slots, more
+    padding groups) and cut into the ranks' equal shares; every rank draws
+    the whole bag, one [rows_one] draw a tree."""
+    base = tree_draws(cfg, n_features, rows_one, device)
+    share = rows_all // n_data
+
+    def draws(t: int, shard: int):
+        feat_idx, bag = base(t)
+        bag = torch.cat([bag, bag.new_zeros(rows_all - rows_one)])
+        return feat_idx, bag[shard * share:(shard + 1) * share]
+
+    return draws
+
+
+def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, draws: Draws, scores0=None,
+                tree_ids=None, mesh_ctx=None):
     """bins [NG*G, F] uint8 (grouped-flat: row g*G+j <-> group g slot j),
     labels_g [NG, G] f32, mask_g [NG, G] bool, NG a multiple of
     cfg.group_chunk, all on one device. Grows the trees `tree_ids` (all
@@ -347,18 +363,17 @@ def _train_core(bins, labels_g, mask_g, cfg: GBDTConfig, scores0=None,
     (gfeat, thr, gain [T, D, W], leaf [T, 2^D]) and the final scores.
 
     `draws(t) -> (feat_idx [Fs], bag [NG*G])` gives tree t's column subset
-    and row bag (default `tree_draws`). Padded slots take no part: they
-    have no gradient, so only real rows are binned, routed and summed.
+    and row bag (train_gbdt_ranker's default: `tree_draws`). Padded slots
+    take no part: they have no gradient, so only real rows are binned,
+    routed and summed.
 
     With `mesh_ctx`, labels_g / mask_g are every rank's groups, bins and
     scores0 this data rank's share of them (NG / n_data groups), draws are
     called as draws(t, data rank), and every rank returns the same trees
     (and the scores of its own rows)."""
     NG, G = labels_g.shape
-    N, F = bins.shape
+    N = bins.shape[0]
     dev = bins.device
-    if draws is None:
-        draws = tree_draws(cfg, F, N, dev)
     maxdcg = _max_dcg(labels_g, mask_g, cfg.ndcg_at)
     # per-group work: a chunk's size changes no group's gradients
     chunk = CUDA_LAMBDA_GROUPS if dev.type == "cuda" else cfg.group_chunk
@@ -631,8 +646,10 @@ def train_gbdt_ranker(
 
     With `mesh_ctx` (every data rank calling with the same rows), training
     is data-parallel: the group count is padded to group_chunk x n_data,
-    each rank boosts on its contiguous share of the groups, and every rank
-    returns the same ranker (the valid set is scored on every rank)."""
+    each rank boosts on its contiguous share of the groups from one
+    device's draws (one_device_draws, unless `draws` is given), and every
+    rank returns one device's ranker (the valid set is scored on every
+    rank)."""
     dev = torch.device(device)
     feats, labels, group_sessions = _cap_groups(
         feats, labels, group_sessions, cfg.max_train_groups, cfg.seed, "train")
@@ -643,6 +660,12 @@ def train_gbdt_ranker(
     n_dev = 1 if mesh_ctx is None else mesh_ctx.n_data
     bins, lg_d, mg_d = _grouped_bins(feats, labels, group_sessions, edges_d, cfg, dev,
                                      group_mult=cfg.group_chunk * n_dev)
+    if draws is None and mesh_ctx is None:
+        draws = tree_draws(cfg, feats.shape[1], bins.shape[0], dev)
+    elif draws is None:
+        n_groups = int(mg_d.any(dim=1).sum())
+        rows_one = (n_groups + (-n_groups) % cfg.group_chunk) * cfg.max_group
+        draws = one_device_draws(cfg, feats.shape[1], rows_one, bins.shape[0], n_dev, dev)
     if n_dev > 1:   # this rank's share of the groups' rows
         bins = bins[mesh_ctx.data_slice(bins.shape[0])]
 
@@ -662,7 +685,7 @@ def train_gbdt_ranker(
     for t0 in range(0, cfg.n_trees, chunk):
         tids = range(t0, min(t0 + chunk, cfg.n_trees))
         gf, th, gn, lf, scores = _train_core(
-            bins, lg_d, mg_d, cfg, scores0=scores, tree_ids=tids, draws=draws,
+            bins, lg_d, mg_d, cfg, draws, scores0=scores, tree_ids=tids,
             mesh_ctx=mesh_ctx)
         parts.append((gf, th, gn, lf))
         n_done = tids[-1] + 1

@@ -26,17 +26,15 @@ k-means++ init, `kmeans_fit`), on the points' device:
 each rank holds a contiguous share of the points, and the fixed-point
 scale, the per-cluster sums and counts and the inertia are all-reduced,
 so every rank steps through the same centroids, those of one device from
-the same start; the k-means++ subsample is drawn per rank and
-all-gathered (as otto_tpu draws it per shard), and the seeding continues
-data rank 0's generator on every rank: on one rank the fit is
-kmeans_fit's.
+the same start. Every rank seeds as kmeans_fit does, from all the points
+and a generator seeded with `seed` (otto_tpu draws its k-means++
+subsample per shard), so on any number of ranks the fit is kmeans_fit's.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 ROW_BLOCK = 1 << 16   # most points a block of the [N, K] distance grid holds
 # replicas of every cluster's sum on the card (point n adds into replica
@@ -194,27 +192,15 @@ def kmeans_fit_dp(
     init: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, float, int]:
     """kmeans_fit over the data ranks: every rank passes all of x [N, D]
-    and fits on its mesh_ctx.data_slice(N) of the rows. k-means++ seeds on
-    the all-gathered per-rank subsamples of init_sample // n_data points
-    (each drawn by a generator seeded (seed, data rank)), from data rank
-    0's generator state; `init` [K, D] replaces the seeding. -> (centroids,
-    labels [N] of every point, inertia, n_iter), the same on every rank."""
+    and fits on its mesh_ctx.data_slice(N) of the rows, from kmeans_fit's
+    k-means++ seeding (or `init` [K, D]). -> (centroids, labels [N] of
+    every point, inertia, n_iter), the same on every rank: kmeans_fit's."""
     x = x.to(torch.float32)
     dev = x.device
     xs = x[mesh_ctx.data_slice(x.shape[0])]
     if init is None:
-        r = mesh_ctx.data_rank
-        g = torch.Generator(device=dev).manual_seed(seed if r == 0 else seed * 1_000_003 + r)
-        per_rank = max(1, init_sample // mesh_ctx.n_data)
-        pick = xs
-        if per_rank < xs.shape[0]:
-            pick = xs[torch.randperm(xs.shape[0], generator=g, device=dev)[:per_rank]]
-        x_init = mesh_ctx.gather_varlen(pick)
-        state = g.get_state().to(dev)
-        dist.broadcast(state, group=mesh_ctx.data_group,
-                       src=dist.get_global_rank(mesh_ctx.data_group, 0))
-        g.set_state(state.cpu())
-        init = init_centroids(x_init, n_clusters, 0, g)
+        init = init_centroids(x, n_clusters, init_sample,
+                              torch.Generator(device=dev).manual_seed(seed))
     centroids, labels, inertia, n_iter = lloyd_fit(xs, init.to(dev), max_iter, tol, mesh_ctx,
                                                    x_all=x)
     return centroids, mesh_ctx.gather_varlen(labels), inertia, n_iter

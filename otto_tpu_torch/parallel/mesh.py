@@ -14,7 +14,7 @@ one data row. otto_tpu's shardings become plain helpers: `data_slice` (this
 rank's contiguous share of a leading axis), `gather_data` (the shares back
 in rank order) and `gather_varlen` / `gather_arrays` (rows of any count per
 rank). Every collective runs on the tensors' own device: NCCL or gloo, no
-host copy on the way.
+host copy on the way; host arrays gathered under gloo stay on the host.
 """
 from __future__ import annotations
 
@@ -74,10 +74,12 @@ class MeshContext:
         rank order, the first n % n_data ranks one row longer."""
         return split_slice(n, self.n_data, self.data_rank if rank is None else rank)
 
-    def gather_data(self, t: torch.Tensor) -> torch.Tensor:
+    def gather_data(self, t: torch.Tensor, async_op: bool = False):
         """The data ranks' equal-shape tensors concatenated on dim 0 in rank
-        order (all_gather over the data group; as bytes, so any dtype)."""
-        return gather_equal(t, self.data_group, self.n_data)
+        order (all_gather over the data group; as bytes, so any dtype).
+        With async_op, a function that waits for the gather and returns
+        it: the caller goes on while it runs."""
+        return gather_equal(t, self.data_group, self.n_data, async_op)
 
     def gather_varlen(self, t: torch.Tensor) -> torch.Tensor:
         """gather_data for tensors whose leading dims differ by rank (one
@@ -87,9 +89,25 @@ class MeshContext:
     def gather_arrays(self, *arrays) -> List[np.ndarray]:
         """Host arrays or tensors of any row count per data rank -> each
         concatenated over the data ranks in rank order, as host arrays on
-        every rank; they travel on this rank's device."""
-        return [gather_varlen(_on(a, self.device), self.data_group, self.n_data).cpu().numpy()
-                for a in arrays]
+        every rank (with one data rank they are the gather). They travel
+        on this rank's device under NCCL, through the host, where they
+        end, under gloo."""
+        if self.n_data == 1:
+            return [_host(a) for a in arrays]
+        return [gather_varlen(_on(a, self._travel()), self.data_group, self.n_data)
+                .cpu().numpy() for a in arrays]
+
+    def _travel(self):
+        return self.device if dist.get_backend(self.data_group) == "nccl" else "cpu"
+
+    def gather_arrays_to_first(self, *arrays) -> Optional[List[np.ndarray]]:
+        """gather_arrays received by data rank 0 alone; the other ranks get
+        None; they travel as gather_arrays's do."""
+        if self.n_data == 1:
+            return [_host(a) for a in arrays]
+        got = [gather_varlen(_on(a, self._travel()), self.data_group, self.n_data, dst=0)
+               for a in arrays]
+        return None if self.data_rank else [g.cpu().numpy() for g in got]
 
     def all_sum(self, t: torch.Tensor, group=None) -> torch.Tensor:
         """In-place SUM all-reduce over the data group (or `group`)."""
@@ -100,6 +118,10 @@ class MeshContext:
         dist.all_reduce(t, op=dist.ReduceOp.MAX,
                         group=self.data_group if group is None else group)
         return t
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
 def _on(a, device) -> torch.Tensor:
@@ -122,19 +144,29 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
-def gather_equal(t: torch.Tensor, group, n: int) -> torch.Tensor:
+def gather_equal(t: torch.Tensor, group, n: int, async_op: bool = False):
     """The n ranks' equal-shape tensors concatenated on dim 0 in rank order
-    (all_gather; as bytes, so any dtype)."""
+    (all_gather; as bytes, so any dtype); with async_op, a function that
+    waits for it and returns that."""
     raw = _bytes(t)
     out = [torch.empty_like(raw) for _ in range(n)]
-    dist.all_gather(out, raw, group=group)
-    return torch.cat([o.view(t.dtype).view(t.shape) for o in out])
+    work = dist.all_gather(out, raw, group=group, async_op=async_op)
+
+    def result() -> torch.Tensor:
+        if work is not None:
+            work.wait()
+        return torch.cat([o.view(t.dtype).view(t.shape) for o in out])
+
+    return result if async_op else result()
 
 
-def gather_varlen(t: torch.Tensor, group, n: int) -> torch.Tensor:
+def gather_varlen(t: torch.Tensor, group, n: int, dst: Optional[int] = None
+                  ) -> Optional[torch.Tensor]:
     """All-gather of tensors whose dim 0 differs by rank -> concatenated in
     rank order. Rows travel as bytes (padded to the longest), so every
-    dtype goes through gloo and NCCL alike."""
+    dtype goes through gloo and NCCL alike. With `dst` (a rank of the
+    group) only that rank receives them (dist.gather); the others get
+    None."""
     t = t.contiguous()
     rows = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
     sizes = [torch.empty_like(rows) for _ in range(n)]
@@ -144,8 +176,15 @@ def gather_varlen(t: torch.Tensor, group, n: int) -> torch.Tensor:
     raw = _bytes(t)
     buf = torch.zeros(max(sizes) * row_bytes, dtype=torch.uint8, device=t.device)
     buf[:raw.numel()] = raw
-    out = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(out, buf, group=group)
+    if dst is None:
+        out = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(out, buf, group=group)
+    else:
+        out = [torch.empty_like(buf) for _ in range(n)] \
+            if dist.get_rank(group) == dst else None
+        dist.gather(buf, out, dst=dist.get_global_rank(group, dst), group=group)
+        if out is None:
+            return None
     parts = [o[:s * row_bytes].view(t.dtype).view(s, *t.shape[1:])
              for o, s in zip(out, sizes)]
     return torch.cat(parts)

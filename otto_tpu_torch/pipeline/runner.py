@@ -32,8 +32,9 @@ seeding, the rankers' rows and the metrics. Only rank 0 writes files, in
 the formats and with the bytes of a one-rank run; the other ranks read
 the artifact cache as it stood when the stage began. `Pipeline` is otto_tpu's
 class over a work dir: its streaming runner calls `run_streaming`, and
-its batch runner (`run`) keeps every retrieval batch on the device, with
-the host-side C14 eval. `run_synthetic` runs it on generated sessions.
+its batch runner (`run`) keeps every retrieval batch on the device (with
+a mesh, each data rank its own), with the host-side C14 eval.
+`run_synthetic` runs it on generated sessions.
 """
 from __future__ import annotations
 
@@ -91,6 +92,7 @@ from otto_tpu_torch.engine.session_embed import (
 from otto_tpu_torch.eval.diagnostics import w2vec_covis_overlap, write_overlap_report
 from otto_tpu_torch.eval.per_source import (
     DeviceSourceEval,
+    SrcFlagBatch,
     eval_retrieved_by_source,
     format_report,
 )
@@ -688,11 +690,13 @@ def pass_a(
     """Training pass A over the test sessions, batch by batch on the
     retriever's device: the packed meta and the label bits (the label join
     on 45-bit keys) and the per-source eval's counters, then on the host the
-    downsample selection of every target (one numpy rng per type, seeded
-    42, drawn only for batches with a positive; with
-    ranker_cfg.device_select the keep bits come from the device instead)
-    and one float16 row gather of the selected rows, whose pull is
-    finished one batch later.
+    downsample selection of every target (one default_rng(42) stream per
+    type over the batches in order, drawn only for batches with a
+    positive: each batch draws from it moved to where its draws begin,
+    rank_engine.rng_at; with ranker_cfg.device_select the keep bits come
+    from the device instead, batch g's from a generator seeded
+    seed * 1_000_003 + g) and one float16 row gather of the selected rows,
+    whose pull is finished one batch later.
 
     With `overlap` the host side runs on a worker thread while the next
     batch retrieves (pipelined_consume); the batches reach it in order,
@@ -704,19 +708,28 @@ def pass_a(
     `passA-metrics.json`, and for each target not in skip_targets its rows
     as `downsampled-{t}.npz` (feats f16, y int8, session; session-sorted).
 
-    With the retriever's mesh, each data rank runs its own batches, with
-    its own rng streams (data rank 0: the seeds above); the
-    eval counters are all-reduced and the rows gathered to every rank,
-    and rank 0 writes the files.
+    With the retriever's mesh, each data rank runs its own batches (batch
+    g on data rank g % n_data) and draws what one device draws for them.
+    Where a batch's draws begin depends on every earlier batch's draw
+    count (rank_engine.draw_count), so on more than one data rank the
+    producer shares its batch's counts, taken on the device from the
+    label bits, with one asynchronous all-gather a round of n_data batches
+    (_draw_round), and the consumer waits for that round's counts: the
+    producer never waits, and a consumer only on the other ranks'
+    producers. Every collective of the loop is issued from the producer's
+    thread, so the ranks issue them in one order. After its last batch a
+    rank joins the rounds as "absent" until every rank is. The eval
+    counters are all-reduced and the rows gathered to every rank; the
+    files rank 0 writes are byte-equal to one device's.
     -> (metrics: ceiling_{type,total}, cand_per_session_{mean,min,max};
     PassAReport)."""
     dev = retriever.ctx.aid_emb.device
     mesh = getattr(retriever, "mesh", None)
-    n_data, r = (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
     main = mesh is None or mesh.is_main
+    rounds = mesh is not None and mesh.n_data > 1 and not ranker_cfg.device_select
     t0 = time.perf_counter()
     lab_keys = label_keys_device(labels, dev)
-    rngs = {t: np.random.default_rng(42 if r == 0 else [42, r]) for t in TYPES}
+    drawn = np.zeros(3, np.int64)   # one device's draws a type before this round
     rows = {t: [] for t in TYPES}
     dev_eval = None
     n_sessions = n_batches = 0
@@ -727,7 +740,7 @@ def pass_a(
         nonlocal dev_eval, n_sessions, n_batches
         if ranker_cfg.device_select:
             gen = torch.Generator(device=dev).manual_seed(
-                (ranker_cfg.seed * 1_000_003 + n_batches) * n_data + r)
+                ranker_cfg.seed * 1_000_003 + b.index)
             meta, tbits_d = b.pack_meta_labels_select(
                 lab_keys, gen, ranker_cfg.neg_to_pos_ratio,
                 ranker_cfg.max_neg_per_session)
@@ -738,7 +751,11 @@ def pass_a(
         dev_eval.update(meta, tbits_d)
         n_sessions += len(b.session)
         n_batches += 1
-        return HostCopy(meta), HostCopy(tbits_d)
+        shared = None
+        if rounds:   # the label bits are 0 where a candidate is not valid
+            shared = _draw_round(mesh, torch.stack([
+                rank_engine.draw_count((tbits_d >> t) & 1 > 0) for t in range(3)]))
+        return HostCopy(meta), HostCopy(tbits_d), shared
 
     def flush():
         handle, layout = pend.pop(0)
@@ -750,7 +767,7 @@ def pass_a(
 
     def consume(b, meta):
         """The batch's host side (worker thread when overlapped)."""
-        meta_h, tbits_h = meta
+        meta_h, tbits_h, shared = meta
         b.unpack_meta(meta_h)
         tbits = tbits_h.numpy()
         sels = {}
@@ -762,9 +779,21 @@ def pass_a(
                     sels[tname] = (si, ci, ((tbits[si, ci] >> tid) & 1).astype(np.float32))
         else:
             tgt = np.stack([(tbits >> ti) & 1 for ti in range(3)], axis=-1).astype(np.float32)
+            # this round's draw counts in data-rank order (one batch alone
+            # without rounds): the ranks before this one drew first
+            rnd = np.stack([rank_engine.draw_counts([b], [tgt], tid) for tid in range(3)], -1)
+            me = 0
+            if shared is not None:
+                mine, rnd, me = rnd[0], np.maximum(shared(), 0), mesh.data_rank
+                if not np.array_equal(rnd[me], mine):
+                    raise RuntimeError(f"pass A: batch {b.index}'s draw counts {mine} differ "
+                                       f"from those it shared, {rnd[me]}")
+            start = drawn + rnd[:me].sum(axis=0)
+            drawn[:] += rnd.sum(axis=0)
             for tname in TYPES:
-                got = rank_engine.downsample_select(
-                    b, tgt, TYPE2ID[tname], ranker_cfg, rngs[tname])
+                tid = TYPE2ID[tname]
+                got = rank_engine.downsample_select(b, tgt, tid, ranker_cfg,
+                                                    rank_engine.rng_at(42, start[tid]))
                 if got is not None:
                     sels[tname] = got
         if sels:
@@ -780,6 +809,11 @@ def pass_a(
                                 consume, pack=pack, overlap=overlap)
     while pend:
         flush()
+    if rounds:
+        # join the other ranks' remaining rounds until every rank is done
+        absent = torch.full((3,), -1, dtype=torch.int64, device=dev)
+        while (_draw_round(mesh, absent)() >= 0).any():
+            pass
     if mesh is not None:
         counts = torch.tensor([n_sessions, n_batches, 0 if dev_eval is None else
                                dev_eval.n_cols], dtype=torch.int64, device=dev)
@@ -843,6 +877,15 @@ def pass_a(
                       n_rows, n_pos_sessions)
     log.info("pass A: %s", rep)
     return metrics, rep
+
+
+def _draw_round(mesh, draws: torch.Tensor) -> Callable[[], np.ndarray]:
+    """One round of pass A's draw counts, started: every data rank's [3]
+    int64 on its device (-1 for a rank without a batch this round) -> a
+    function that waits for them and returns [n_data, 3] in data-rank
+    order."""
+    wait = mesh.gather_data(draws[None], async_op=True)
+    return lambda: wait().cpu().numpy()
 
 
 def train_ranker_cached(
@@ -1058,8 +1101,9 @@ class Pipeline:
 
     `mesh` (a parallel.mesh.MeshContext; not part of the cache key) runs
     every stage's mesh branch on this rank's device (mesh.device, which
-    `device` must name: ValueError otherwise), and `run` is then the
-    streaming runner."""
+    `device` must name: ValueError otherwise), in either runner; both
+    write one device's files and return one device's metrics on every
+    rank."""
 
     cfg: Config
     work_dir: str
@@ -1097,17 +1141,15 @@ class Pipeline:
         """The batch runner: retrieve_with_features, then with labels
         rank_and_eval; without labels the work dir's rankers score every
         batch and the submission is written (metrics stay empty). With a
-        mesh, the streaming runner."""
-        if self.mesh is not None:
-            return self.run_streaming(train, test, labels, batch_sessions)
+        mesh, each data rank keeps the batches dealt to it; the files
+        rank 0 writes are those of one device."""
         batches, targets, metrics = self.retrieve_with_features(
             train, test, labels, batch_sessions=batch_sessions)
         if labels is not None:
             self.rank_and_eval(batches, targets, labels, metrics)
         else:
             t0 = time.time()
-            rankers = self.load_rankers()
-            preds = {t: rank_engine.score_and_topk(batches, rankers[t])[:2] for t in TYPES}
+            preds = self._score(batches, self.load_rankers())
             self._log("score (inference-only)", t0)
             self._submit_and_eval(preds, None, metrics, t0)
         return metrics
@@ -1140,7 +1182,9 @@ class Pipeline:
     def retrieve_with_features(self, train: Events, test: Events,
                                labels: Optional[Labels] = None, batch_sessions: int = 256):
         """C7-C14: build_retriever, every test batch retrieved at once
-        (Retriever.run), then with labels join_labels and _eval_retrieved.
+        (Retriever.run; with a mesh, this data rank's batches), then with
+        labels join_labels and the C14 eval (_eval_retrieved; with a mesh
+        over every rank's batches in one device's order).
         -> (batches, targets or None, metrics)."""
         t0 = time.time()
         retriever = self.build_retriever(train, test)
@@ -1151,9 +1195,12 @@ class Pipeline:
         metrics: Dict[str, float] = {}
         if labels is not None:
             targets = join_labels(batches, labels)
-            metrics = self._eval_retrieved(
-                np.concatenate([b.session for b in batches]),
-                np.concatenate([b.cand for b in batches]), batches, labels, t0)
+            if self.mesh is None:
+                metrics = self._eval_retrieved(
+                    np.concatenate([b.session for b in batches]),
+                    np.concatenate([b.cand for b in batches]), batches, labels, t0)
+            else:
+                metrics = self._eval_retrieved_mesh(batches, labels, t0)
         return batches, targets, metrics
 
     def _eval_retrieved(self, all_sess, all_cand, src_batches, labels, t0) -> Dict[str, float]:
@@ -1176,35 +1223,99 @@ class Pipeline:
         self._log("eval per-source", t0)
         return metrics
 
+    def _eval_retrieved_mesh(self, batches, labels, t0) -> Dict[str, float]:
+        """_eval_retrieved over every data rank's batches: each rank's
+        sessions, candidates and packed source flags are gathered to data
+        rank 0, put back in one device's batch order (their global batch
+        index, stably) and evaluated on rank 0, whose metrics every rank
+        returns."""
+        mesh = self.mesh
+        src = [SrcFlagBatch.from_batch(b) for b in batches]
+        n_cand = self.cfg.retrieval.max_candidates
+        got = mesh.gather_arrays_to_first(
+            _cat_rows([np.full(len(b.session), b.index, np.int32) for b in batches], (0,),
+                      np.int32),
+            _cat_rows([b.session for b in src], (0,), np.int32),
+            _cat_rows([b.cand for b in src], (0, n_cand), np.int32),
+            _cat_rows([b.flags for b in src], (0, n_cand), np.uint16).view(np.int16))
+        del src
+        metrics = [None]
+        if mesh.is_main:
+            index, sess, cand, flags = got
+            order = np.argsort(index, kind="stable")
+            sess, cand = sess[order], cand[order]
+            metrics[0] = self._eval_retrieved(
+                sess, cand, [SrcFlagBatch(sess, cand, flags[order].view(np.uint16))],
+                labels, t0)
+        dist.broadcast_object_list(metrics, src=0)
+        if not mesh.is_main:
+            self._log("eval per-source", t0, "on rank 0")
+        return metrics[0]
+
     def rank_and_eval(self, batches, targets, labels: Labels,
                       metrics: Optional[Dict[str, float]] = None) -> Dict[str, float]:
         """C15-C19 on the kept batches: each target's ranker (cached, or
-        trained from rank_engine.downsample's rows), the top-20 of every
-        batch per target, then the submission and recall@20. Mutates and
-        returns `metrics`."""
+        trained from _downsample's rows), the top-20 of every batch per
+        target, then the submission and recall@20. With a mesh, every rank
+        trains from one device's rows (a GBDT data-parallel) and scores its
+        own batches. Mutates and returns `metrics`."""
         t0 = time.time()
         metrics = {} if metrics is None else metrics
         rankers = {
             t: self._train_ranker_cached(
-                t, lambda t=t: rank_engine.downsample(batches, targets, TYPE2ID[t],
-                                                      self.cfg.ranker), t0)
+                t, lambda t=t: self._downsample(batches, targets, TYPE2ID[t]), t0)
             for t in TYPES
         }
-        preds = {t: rank_engine.score_and_topk(batches, rankers[t])[:2] for t in TYPES}
+        preds = self._score(batches, rankers)
         self._sync()
         self._log("score", t0)
         return self._submit_and_eval(preds, labels, metrics, t0)
 
+    def _downsample(self, batches, targets, tid: int):
+        """One target's rows of rank_engine.downsample: each batch draws
+        from where its draws begin in one device's rng stream. With a mesh,
+        each rank downsamples its own batches (every rank's draw counts
+        gathered, in one device's batch order) and the rows are gathered
+        to every rank: one device's rows."""
+        index = np.array([b.index for b in batches], np.int64)
+        counts = rank_engine.draw_counts(batches, targets, tid)
+        if self.mesh is not None:
+            index, counts = self.mesh.gather_arrays(index, counts)
+        order = np.argsort(index)
+        begin = dict(zip(index[order].tolist(),
+                         rank_engine.draw_starts(counts[order]).tolist()))
+        rows = rank_engine.downsample_parts(batches, targets, tid, self.cfg.ranker,
+                                            [begin[b.index] for b in batches])
+        if self.mesh is not None:
+            rows = self.mesh.gather_arrays(*rows)
+        return rank_engine.session_sorted(*rows, tid)
+
+    def _score(self, batches, rankers) -> Dict[str, tuple]:
+        """Each target's (sessions, top-20 aids) over the batches
+        (score_and_topk), session-sorted; with a mesh, every rank's."""
+        preds = {}
+        for t in TYPES:
+            if batches:
+                s, a, _ = rank_engine.score_and_topk(batches, rankers[t])
+            else:
+                s, a = np.zeros(0, np.int32), np.zeros((0, KEEP_TOP_K), np.int32)
+            if self.mesh is not None:
+                s, a = self.mesh.gather_arrays(s, a)
+                order = np.argsort(s, kind="stable")
+                s, a = s[order], a[order]
+            preds[t] = (s, a)
+        return preds
+
     def _train_ranker_cached(self, tname: str, rows_fn, t0: float):
         ranker = train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg,
-                                     self.device, self.use_cache)
+                                     self.device, self.use_cache, self.mesh)
         self._log(f"ranker {tname} ({self.cfg.ranker_backend})", t0)
         return ranker
 
     def _submit_and_eval(self, preds, labels, metrics, t0):
-        """submit_and_eval into the work dir; with labels its recall@20
-        joins `metrics`. -> metrics."""
-        res = submit_and_eval(self.work_dir, preds, labels)
+        """submit_and_eval into the work dir (rank 0 with a mesh); with
+        labels its recall@20 joins `metrics`. -> metrics."""
+        res = _submit_on_main(self.work_dir, preds, labels, self.mesh)
         self._log("submit", t0)
         if res is not None:
             metrics.update(res)
@@ -1230,7 +1341,7 @@ def run_synthetic(
     """otto_tpu's generated events (data.synthetic.generate), split as
     cfg.data says, through a Pipeline on `device` (with `mesh`, on every
     rank): the streaming runner past 50k test sessions (or as `streaming`
-    says, or with a mesh), else the batch runner. -> its metrics."""
+    says), else the batch runner. -> its metrics."""
     pipe = Pipeline(cfg=cfg, work_dir=work_dir, n_aids=spec.n_aids, device=device,
                     mesh=mesh)
     sp = split_events(generate(spec), cfg.data.test_days, cfg.data.seed)

@@ -38,10 +38,11 @@ ops/kernels/_build.py::build_host; the line names the libgomp that served
 the region, torch's when it is the one in torch/lib). The first check
 always keeps the input and output of every CPU float32 `torch.sqrt` of
 its two CPU runs (the tail of eucl_dist_ses_aid: `n_s**2 + n_c**2 -
-2*dot` after the clamp, then the root) and, when the first run differs
-from the second, recomputes the root of the kept input on the spot: it
-prints whether the input to sqrt differed between the runs or the root
-of an equal input did.
+2*dot` after the clamp, then the root) and the roots of its card run,
+and, when the first run differs from the second, recomputes the root of
+the kept input on the spot: it prints whether the input to sqrt differed
+between the runs or the root of an equal input did, and how the wrong
+roots compare with the card's roots of the same entries.
 """
 import argparse
 import contextlib
@@ -158,11 +159,14 @@ def math_state(when):
 
 
 class KeepTail:
-    """Keeps the input and output of every CPU float32 torch.sqrt in the
-    first two CPU retrieve_batch calls (the first check's two CPU runs):
-    the tail of eucl_dist_ses_aid. report() says, for a first run that
-    differed, whether sqrt's input differed or its root of an equal input,
-    recomputing the root of the kept input now."""
+    """Keeps the input and output of every float32 torch.sqrt in the first
+    two CPU retrieve_batch calls (the first check's two CPU runs: the tail
+    of eucl_dist_ses_aid) and the output of those in its card run. report()
+    says, for a first run that differed, whether sqrt's input differed or
+    its root of an equal input, recomputing the root of the kept input
+    now, and holds the wrong roots to the card's roots of the same entries
+    (equal bits there would mean the card's values reached the CPU run's
+    memory)."""
 
     def __init__(self):
         from otto_tpu_torch.engine import retrieval
@@ -170,27 +174,32 @@ class KeepTail:
         self.retrieval = retrieval
         self.inner = (torch.sqrt, retrieval.retrieve_batch)
         self.runs = []
-        self.armed = False
+        self.card = None
+        self.armed = None   # the list the current run's sqrt calls go to
 
     def __enter__(self):
         sqrt, retrieve = self.inner
 
         def kept_sqrt(x, *a, **k):
             out = sqrt(x, *a, **k)
-            if self.armed and x.device.type == "cpu" and x.dtype == torch.float32:
-                self.runs[-1].append((x.clone(), out.clone()))
+            if self.armed is not None and x.dtype == torch.float32:
+                self.armed.append((x.clone().cpu(), out.clone().cpu()))
             return out
 
-        def cpu_runs(*a, **k):
-            self.armed = len(self.runs) < 2 and a[0][0].device.type == "cpu"
-            if self.armed:
+        def kept_runs(*a, **k):
+            on_cpu = a[0][0].device.type == "cpu"
+            if on_cpu and len(self.runs) < 2:
                 self.runs.append([])
+                self.armed = self.runs[-1]
+            elif not on_cpu and self.card is None:
+                self.card = []
+                self.armed = self.card
             try:
                 return retrieve(*a, **k)
             finally:
-                self.armed = False
+                self.armed = None
         torch.sqrt = kept_sqrt
-        self.retrieval.retrieve_batch = cpu_runs
+        self.retrieval.retrieve_batch = kept_runs
         return self
 
     def __exit__(self, *exc):
@@ -199,6 +208,7 @@ class KeepTail:
     def report(self):
         if len(self.runs) < 2:
             return
+        card = self.card or []
         for k, ((x1, y1), (x2, y2)) in enumerate(zip(*self.runs)):
             d_in = x1 != x2
             d_out = y1 != y2
@@ -213,6 +223,17 @@ class KeepTail:
                   f"differ: {int((d_out & ~d_in).sum())} -> "
                   f"{'sqrt wrong' if bool((d_out & ~d_in).any()) else 'input to sqrt wrong' if bool(d_in.any()) else 'no difference here'}",
                   flush=True)
+            if k < len(card) and card[k][1].shape == y1.shape and bool(d_out.any()):
+                yc = card[k][1]
+                w, r, c = y1[d_out], y2[d_out], yc[d_out]
+                print(f"# tail sqrt {k} against the card's roots of the {int(d_out.sum())} "
+                      f"entries that differ: wrong roots bit-equal to the card's in "
+                      f"{int((w == c).sum())} (max |wrong - card| "
+                      f"{float((w - c).abs().max()):.3g}), right roots in {int((r == c).sum())} "
+                      f"(max |right - card| {float((r - c).abs().max()):.3g}); first "
+                      f"entries (wrong, right, card): "
+                      f"{list(zip(w[:4].tolist(), r[:4].tolist(), c[:4].tolist()))}",
+                      flush=True)
 
 
 class Locate:

@@ -8,22 +8,26 @@ Builds a work dir as phases 4, 4b and 5 do (4,000 generated sessions,
 phase 9 on it: (a) one rank (NCCL on the card, gloo on the CPU) and (b)
 two ranks over gloo, every stage held to the unsharded outputs. On the
 CPU the card's memory readings are stubbed and no kernel launch is
-required (the kernels' plain twins run there). Then the tool on two
-ranks: `python -m otto_tpu_torch.pipeline.cli run-synthetic --tiny
---streaming` (the runner a mesh runs) in one process and under `torch.distributed.run --nproc-per-node 2` with
+required (the kernels' plain twins run there); phase 9's batch runner is
+held to the batch runner run here in one process (phase 7's part). Then
+the tool on two ranks: `python -m otto_tpu_torch.pipeline.cli
+run-synthetic --tiny`, with `--streaming` and without (the batch runner),
+in one process and under `torch.distributed.run --nproc-per-node 2` with
 `--mesh data=2` (on the card the two ranks share it, over gloo): the
-whole sharded Pipeline (build from nothing, pass A, dp GBDT training,
-serving), its artifacts byte-equal to the one-process run's, its ceilings
-within 1e-12 and its ranked recalls within 0.12 (each rank draws its own
-negatives and bags). ~2 min on the CPU.
+whole sharded Pipeline (build from nothing, pass A or the batch runner's
+downsampling, dp GBDT training, serving), its artifacts byte-equal to the
+one-process run's (the rankers array by array) and its metrics equal: the
+ranks draw one device's negatives and bags. ~4 min on the CPU.
 """
-import json
-import subprocess
 import dataclasses
+import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -78,56 +82,66 @@ def main():
         pop = tuple(t.cpu().numpy() for t in (ctx.pop_cl50_cand, ctx.pop_cl50_ranks,
                                               ctx.pop_cl1_rank))
         del retriever, ctx
+        batch = Pipeline(cfg, work, cs.N_AIDS, device=DEVICE)
+        metrics = batch.run(sp.train, sp.test, sp.labels, batch_sessions=cs.BATCH)
+        batch_ref = cs.keep_batch_outputs(work, metrics, cs.batch_steps(batch.stage_log))
+        del batch
         print(f"# work dir built in {time.time() - t0:.1f} s", flush=True)
         smi = DEVICE if DEVICE == "cpu" else cs.phase_device()
-        cs.phase_multi_device(smi, sp, work, pop, preds, recall, {}, device=DEVICE)
+        cs.phase_multi_device(smi, sp, work, pop, preds, recall, {}, batch_ref, device=DEVICE)
     tool_on_two_ranks()
     print(f"# done in {time.time() - t0:.1f} s")
     return 0
 
 
-# the work-dir files that do not depend on a rank's own draws (the
-# rankers' rows and bags do)
+# the work-dir files a one-process run and a run on ranks write alike,
+# byte for byte; the rankers' .npz files hold their write times and are
+# compared array by array
 TOOL_ARTIFACTS = ("covis.pkl", "w2v-", "knn-", "session_emb.npz", "clusters.npz",
-                  "eval_retrieved", "passA-metrics.json", "config.json", "meta.json")
+                  "eval_retrieved", "passA-metrics.json", "config.json", "meta.json",
+                  "submission.csv", "eval_submission.json", "feat-importance-")
 
 
 def tool_on_two_ranks():
-    """run-synthetic --tiny in one process and on two ranks (--mesh
-    data=2 under torch.distributed.run), on DEVICE: the same artifacts and
-    ceilings, ranked recalls within 0.12."""
+    """run-synthetic --tiny, streaming and batch runner, in one process and
+    on two ranks (--mesh data=2 under torch.distributed.run), on DEVICE:
+    the same artifacts and rankers, the same metrics."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     args = ["-m", "otto_tpu_torch.pipeline.cli", "run-synthetic", "--tiny", "--device", DEVICE,
-            "--sessions", "4000", "--aids", "3000", "--batch-sessions", "256", "--streaming"]
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = {}
-        for tag, launch in (("one", []), ("two", ["-m", "torch.distributed.run", "--standalone",
-                                                  "--nproc-per-node", "2"])):
-            work = os.path.join(tmp, tag)
-            t0 = time.time()
-            out = subprocess.run([sys.executable] + launch + args
-                                 + (["--mesh", "data=2"] if launch else []) + ["--work-dir", work],
-                                 capture_output=True, text=True, env=env, timeout=600)
-            cs.require(out.returncode == 0, f"the tool ({tag}): exit {out.returncode}\n"
-                       + out.stderr[-4000:])
-            runs[tag] = json.loads(out.stdout)
-            print(f"# the tool, {tag} rank(s): {time.time() - t0:.1f} s with start-up, "
-                  f"metrics {runs[tag]}", flush=True)
-        one, two = runs["one"], runs["two"]
-        for k in ("ceiling_clicks", "ceiling_carts", "ceiling_orders", "ceiling_total"):
-            cs.require(abs(one[k] - two[k]) < 1e-12, f"the tool on two ranks: {k} equal")
-        for k in ("clicks", "carts", "orders", "total"):
-            cs.require(abs(one[k] - two[k]) < 0.12, f"the tool on two ranks: {k} within 0.12")
-        cs.require(two["total"] > 0.2, "the tool on two ranks: recall@20 total > 0.2")
-        names = sorted(n for n in os.listdir(os.path.join(tmp, "one"))
-                       if n.startswith(TOOL_ARTIFACTS))
-        cs.require(len(names) >= 11, f"the tool's artifacts: {names}")
-        for name in names:
-            with open(os.path.join(tmp, "one", name), "rb") as fa, \
-                    open(os.path.join(tmp, "two", name), "rb") as fb:
-                cs.require(fa.read() == fb.read(), f"the tool on two ranks: {name} byte-equal")
-    print("# the tool on two ranks (--mesh data=2): artifacts byte-equal to one "
-          "process's, ceilings equal, ranked recalls within 0.12")
+            "--sessions", "4000", "--aids", "3000", "--batch-sessions", "256"]
+    for runner in ("--streaming", "--no-streaming"):
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {}
+            for tag, launch in (("one", []), ("two", ["-m", "torch.distributed.run",
+                                                      "--standalone", "--nproc-per-node", "2"])):
+                work = os.path.join(tmp, tag)
+                t0 = time.time()
+                out = subprocess.run([sys.executable] + launch + args + [runner]
+                                     + (["--mesh", "data=2"] if launch else [])
+                                     + ["--work-dir", work],
+                                     capture_output=True, text=True, env=env, timeout=600)
+                cs.require(out.returncode == 0, f"the tool ({tag}, {runner}): exit "
+                           f"{out.returncode}\n" + out.stderr[-4000:])
+                runs[tag] = json.loads(out.stdout)
+                print(f"# the tool {runner}, {tag} rank(s): {time.time() - t0:.1f} s with "
+                      f"start-up, metrics {runs[tag]}", flush=True)
+            cs.require(runs["one"] == runs["two"], f"the tool {runner} on two ranks: metrics "
+                       "equal to one process's")
+            cs.require(runs["two"]["total"] > 0.2, "the tool on two ranks: recall@20 > 0.2")
+            one, two = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+            names = sorted(n for n in os.listdir(one) if n.startswith(TOOL_ARTIFACTS))
+            cs.require(len(names) >= 14, f"the tool's artifacts: {names}")
+            for name in names:
+                with open(os.path.join(one, name), "rb") as fa, \
+                        open(os.path.join(two, name), "rb") as fb:
+                    cs.require(fa.read() == fb.read(),
+                               f"the tool {runner} on two ranks: {name} byte-equal")
+            for name in (n for n in os.listdir(one) if n.startswith("ranker-gbdt-")):
+                za, zb = np.load(os.path.join(one, name)), np.load(os.path.join(two, name))
+                cs.require(all(za[k].tobytes() == zb[k].tobytes() for k in za.files),
+                           f"the tool {runner} on two ranks: {name} equal array by array")
+        print(f"# the tool {runner} on two ranks (--mesh data=2): artifacts and rankers "
+              "equal to one process's, metrics equal")
 
 
 if __name__ == "__main__":

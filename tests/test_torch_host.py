@@ -401,3 +401,63 @@ def test_timing_harness(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert any("mm" in e.key for e in prof.key_averages())
     timing.device_sync(torch.zeros(2))   # CPU outputs: nothing to wait for
+
+
+# ---------------------------------------------------------------------------
+# the host API otto_tpu's callers read: Events' counts, the padded lanes'
+# mask, Config.replace, the kept aids' slots
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rows", ["all", "half", "none"])
+def test_events_counts_match_reference(events, rows):
+    ref_ev, ev = events
+    pick = {"all": slice(None), "half": slice(0, len(ev) // 2), "none": slice(0, 0)}[rows]
+    want = ref_ev.__class__(*(getattr(ref_ev, c)[pick] for c in ("session", "aid", "ts", "type")))
+    got = ev.select(pick)
+    assert (got.n_sessions, got.n_aids) == (want.n_sessions, want.n_aids)
+    assert isinstance(got.n_sessions, int) and isinstance(got.n_aids, int)
+
+
+@pytest.mark.parametrize("buckets", [(8, 32, 128, 512), (4,)])
+def test_valid_mask_matches_reference(events, buckets):
+    ref_ev, ev = events
+    for g, w in zip(batching.pack_sessions(ev, buckets),
+                    ref_batching.pack_sessions(ref_ev, buckets)):
+        for gm, wm in zip(batching.iter_microbatches(g, 48),
+                          ref_batching.iter_microbatches(w, 48)):
+            got, want = gm.valid_mask(), wm.valid_mask()
+            assert got.dtype == want.dtype == bool
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(got, gm.aid >= 0)
+
+
+def test_config_replace_matches_reference():
+    """Config.replace swaps sections and fields as otto_tpu's does, leaving
+    the original as it was."""
+    base, ref_base = config.Config(), ref_config.Config()
+    got = base.replace(ranker_backend="mlp", work_dir="w",
+                       kmeans=dataclasses.replace(base.kmeans, max_iter=3))
+    want = ref_base.replace(ranker_backend="mlp", work_dir="w",
+                            kmeans=dataclasses.replace(ref_base.kmeans, max_iter=3))
+    assert (got.ranker_backend, got.work_dir, got.kmeans.max_iter) == (
+        want.ranker_backend, want.work_dir, want.kmeans.max_iter)
+    assert base == config.Config() and got.covis == base.covis
+    with pytest.raises(TypeError):
+        base.replace(no_such_section=1)
+
+
+@pytest.mark.parametrize("keep_aids", [4, 16])
+def test_session_aids_valid_matches_reference(events, keep_aids):
+    import jax.numpy as jnp
+
+    from otto_tpu.engine import session_stats as ref_stats
+    from otto_tpu_torch.engine import session_stats
+
+    ref_ev, ev = events
+    (w,) = ref_batching.iter_microbatches(ref_batching.pack_sessions(ref_ev, (32,))[0], 700)
+    want = ref_stats.compute_session_aids(jnp.asarray(w.aid), jnp.asarray(w.ts),
+                                          jnp.asarray(w.type), keep_aids).valid
+    got = session_stats.compute_session_aids(torch.from_numpy(w.aid), torch.from_numpy(w.ts),
+                                             torch.from_numpy(w.type), keep_aids).valid
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.any() and not got.all()

@@ -18,15 +18,15 @@ GBDT's per-shard bags).
 Tolerances: integer and id outputs bit-equal (co-visitation tables,
 popularity, kNN ids, cluster labels, candidates, the features' integer
 columns, label bits); dp k-means bit-equal to one rank from the same
-start; session embeddings bit-equal to one rank and within
+start, and from its own seeding to kmeans_fit; session embeddings bit-equal to one rank and within
 one float16 ulp of otto_tpu's; model-parallel SGNS bit-equal to the
 port's one device and, from otto_tpu's start and draws at 1024 pairs a
 step, within rtol 2e-4, atol 2e-5 of otto_tpu's (at the reference test's
 512 pairs, 32 steps at lr 0.25 carry float32 rounding-order differences
 past 1e-3, and the port's one-device training is as far from otto_tpu's;
 one step agrees within 1e-5, tests/test_torch_word2vec.py); dp GBDT
-bit-equal to one rank from the same bag, and from otto_tpu's per-shard
-draws the same splits with leaves within 2e-4.
+bit-equal to one rank from the same bag (injected, and by default), and
+from otto_tpu's per-shard draws the same splits with leaves within 2e-4.
 """
 import os
 import pickle
@@ -73,7 +73,7 @@ from otto_tpu_torch.engine.session_embed import (
 from otto_tpu_torch.models.gbdt import train_gbdt_ranker
 from otto_tpu_torch.models.word2vec import build_vocab, flat_corpus, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
-from otto_tpu_torch.ops.kmeans import lloyd_fit
+from otto_tpu_torch.ops.kmeans import kmeans_fit, lloyd_fit
 from otto_tpu_torch.ops.knn import knn_search
 from otto_tpu_torch.parallel.distributed import spawn_ranks
 from test_torch_gbdt_train import _synthetic_ranking
@@ -493,8 +493,13 @@ def test_kmeans_dp_matches_single_and_reference(world, mesh):
     np.testing.assert_allclose(c, ref_c, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(inertia, ref_in, rtol=1e-5)
     assert n_iter == ref_it
-    # the port's own per-rank seeding separates the blobs as well
-    _, own, _, _ = replicated(out, mesh, "kmeans_seeded")
+    # the port's own seeding: kmeans_fit's, on any number of ranks
+    own_c, own, own_in, own_it = replicated(out, mesh, "kmeans_seeded")
+    want_c, want_l, want_in, want_it = kmeans_fit(torch.from_numpy(x), 6, seed=3,
+                                                  init_sample=200)
+    np.testing.assert_array_equal(own, want_l.numpy())
+    np.testing.assert_array_equal(own_c, want_c.numpy())
+    assert (own_in, own_it) == (want_in, want_it)
     assert len(np.unique(own)) == 6
 
 
@@ -523,6 +528,23 @@ def test_gbdt_dp_matches_single_and_reference(world, mesh):
     np.testing.assert_array_equal(gfeat, want.gfeat)
     np.testing.assert_array_equal(thr, want.thr)
     np.testing.assert_allclose(leaf, want.leaf, atol=2e-4)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_gbdt_dp_default_draws_are_one_devices(world, mesh):
+    """Without injected draws, dp training takes one device's column
+    subsets and row bags (one_device_draws): one device's default
+    training, bit for bit."""
+    inp, out = world
+    x, y, sess = inp["gbdt_rows"]
+    single = train_gbdt_ranker(x, y, sess, tuple(f"f{i}" for i in range(x.shape[1])),
+                               GBDTConfig(**ranks.GBDT_CFG), valid=inp["gbdt_valid"],
+                               device=CPU)
+    gfeat, thr, leaf, gains, evals = replicated(out, mesh, "gbdt_default")
+    for got, want in ((gfeat, single.gfeat), (thr, single.thr), (leaf, single.leaf),
+                      (gains, single.gains)):
+        np.testing.assert_array_equal(got, want)
+    assert evals == single.eval_history
 
 
 @pytest.fixture(scope="module")
@@ -561,6 +583,22 @@ def test_retrieval_sharded_matches_single(world, retrieval_single, mesh):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=name)
         else:
             np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_gather_arrays_to_first(world, mesh):
+    """gather_arrays_to_first: data rank 0 of each model column gets its
+    data group's rows in data-rank order, every other rank None."""
+    _, out = world
+    for r in RANKS:
+        got, n_model = out[r][mesh]["to_first"], 4 // N_DATA[mesh]
+        if r // n_model:
+            assert got is None
+            continue
+        want = np.concatenate([np.full((d + 1, 2), 10 * d + r % n_model, np.int16)
+                               for d in range(N_DATA[mesh])])
+        assert got[0].dtype == np.int16
+        np.testing.assert_array_equal(got[0], want)
 
 
 def test_ranks_and_meshes(world):

@@ -262,12 +262,69 @@ def test_device_source_eval_equals_reference_and_host():
             assert abs(ceiling[tname][k] - v) < 1e-12, (tname, k)
 
 
+def test_pcg64_advance_is_the_draws_it_skips():
+    """rng_at(seed, n): default_rng(seed) after n float64 draws, for draws
+    in any shapes."""
+    rng = np.random.default_rng(42)
+    rng.random((3, 5))
+    rng.random(7)
+    np.testing.assert_array_equal(port_rank.rng_at(42, 22).random(9), rng.random(9))
+    np.testing.assert_array_equal(port_rank.rng_at(42, 0).random(4),
+                                  np.random.default_rng(42).random(4))
+
+
+def test_draw_count_of_arrays_and_tensors():
+    """draw_count, the downsampler's one has-a-positive rule: S * C draws
+    where a valid candidate is a positive, none otherwise; the same on a
+    numpy array and on a tensor (a 0-d int64 tensor on its device)."""
+    pos = np.zeros((3, 5), bool)
+    assert port_rank.draw_count(pos) == 0
+    assert port_rank.draw_count(torch.from_numpy(pos)).item() == 0
+    pos[2, 4] = True
+    assert port_rank.draw_count(pos) == 15
+    got = port_rank.draw_count(torch.from_numpy(pos))
+    assert got.dtype == torch.int64 and got.item() == 15
+
+
+@pytest.mark.parametrize("n_shares", [1, 2, 3])
+def test_positioned_downsample_equals_sequential(n_shares):
+    """pass A's positioning on N data ranks: rank r takes batches r, r + N,
+    ...; each draws from the one-device stream moved to where its draws
+    begin (draw_starts of every batch's draw_count: S * C where the batch
+    has a positive of the type). The shares' rows, gathered and
+    session-sorted, are otto_tpu's sequential `downsample` of all the
+    batches, bit for bit, whatever order a share runs in."""
+    ref_b, port_b, ref_l, labels = world()
+    cfg = RankerConfig(neg_to_pos_ratio=2, max_neg_per_session=5)
+    tg = [np.stack([(_ref_meta_bits(b, ref_l)[1] >> i) & 1 for i in range(3)], -1)
+          .astype(np.float32) for b in ref_b]
+    for tid in range(3):
+        want = ref_rank.downsample(ref_b, tg, tid,
+                                   RefRankerConfig(neg_to_pos_ratio=2, max_neg_per_session=5))
+        counts = port_rank.draw_counts(port_b, tg, tid)
+        begin = port_rank.draw_starts(counts)
+        parts = []
+        for r in range(n_shares):
+            mine = list(range(r, len(port_b), n_shares))[::-1]
+            parts.append(port_rank.downsample_parts(
+                [port_b[i] for i in mine], [tg[i] for i in mine], tid, cfg,
+                [begin[i] for i in mine]))
+        got = port_rank.session_sorted(*(np.concatenate([p[k] for p in parts])
+                                         for k in range(3)), tid)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    assert counts[2] == 0    # batch 2 has no order: no draws
+
+
 class _Batches:
     """A retriever stand-in that yields fixed batches (all pass_a reads of
-    a Retriever: its device, and iter_run)."""
+    a Retriever: its device, and iter_run), each with its index in the
+    batch order as Retriever.iter_run gives it."""
 
     def __init__(self, batches):
         self.batches = batches
+        for i, b in enumerate(batches):
+            b.index = i
         self.ctx = type("Ctx", (), {"aid_emb": torch.zeros(1)})()
 
     def iter_run(self, test, batch_sessions):

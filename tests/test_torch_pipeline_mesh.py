@@ -1,17 +1,22 @@
-"""The port's pipeline on a mesh of ranks: mesh-size invariance, the CLI
-under torchrun, and the mesh's errors.
+"""The port's pipeline on a mesh of ranks: mesh-size invariance of both
+runners and of pass A's rows, the CLI under torchrun, and the mesh's
+errors.
 
 Mirrors tests/test_pipeline_mesh.py (its sharded-counter case is in
 test_torch_parallel.py) and the mesh cases of tests/test_mesh_stages.py:
 `parse_mesh_spec` and `run-synthetic --mesh`. Four ranks start once (gloo,
-a FileStore under tmp_path) and run Pipeline(mesh=data=4) on
-test_pipeline_mesh.py's events and configuration; the one-rank run is the
-port's Pipeline in this process.
+a FileStore under tmp_path) and run, on test_pipeline_mesh.py's events
+and configuration: Pipeline(mesh=data=4).run_streaming; pass_a on data=4
+and on data=2 (a 2x2 mesh) from its cache, with numpy and with device
+selection; and the batch runner Pipeline(mesh=data=4).run on a work dir
+seeded with the streaming run's tables, with labels and inference-only.
+The one-rank runs are the same calls in this process.
 
-Invariance as otto_tpu's: co-visitation, embeddings, kNN, clusters and
-retrieval are exact, so the artifacts are byte-equal to one rank's and
-the ceilings within 1e-12; the ranked metrics within 0.12 (each rank
-draws its own downsampling and GBDT bag), total > 0.2.
+Unlike otto_tpu's mesh (whose dp GBDT bags each shard's rows on its own),
+the port draws one device's negatives and one device's GBDT bags on any
+number of ranks, so every output is one rank's: the artifacts, reports,
+pass A's rows, the rankers' arrays and the submission byte-equal, the
+ceilings within 1e-12 and the ranked metrics within 1e-12.
 """
 import argparse
 import json
@@ -29,6 +34,7 @@ import torch
 import torch_mesh_ranks as ranks
 from otto_tpu.data.split import split_events
 from otto_tpu.data.synthetic import SyntheticSpec, generate
+from otto_tpu_torch.config import TYPES
 from otto_tpu_torch.data.schema import Labels
 from otto_tpu_torch.parallel import distributed
 from otto_tpu_torch.parallel.distributed import spawn_ranks
@@ -41,11 +47,16 @@ RANKED = ("clicks", "carts", "orders", "total")
 ARTIFACTS = ("covis.pkl", "w2v-wall.npz", "w2v-w12.npz", "knn-wall.npz", "knn-w12.npz",
              "session_emb.npz", "clusters.npz", "eval_retrieved.json",
              "eval_retrieved_sources.json", "config.json", "meta.json")
+# what the batch runner writes, besides the seeded tables and the rankers
+BATCH_FILES = ("eval_retrieved.json", "eval_retrieved_sources.json", "submission.csv",
+               "eval_submission.json") + tuple(f"feat-importance-{t}.csv" for t in TYPES)
+PASS_A_FILES = ("eval_retrieved.json", "eval_retrieved_sources.json", "passA-metrics.json")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(one-rank metrics, [rank r's metrics on data=4], tmp dir)."""
+    """The four ranks' results ([rank r's dict]) and this process's
+    one-rank runs of the same calls, in one tmp dir."""
     tmp = tmp_path_factory.mktemp("pipeline_mesh")
     spec = SyntheticSpec(n_sessions=1200, n_aids=600, mean_len=10, span_days=21, seed=17)
     sp = split_events(generate(spec), 7, 42)
@@ -61,37 +72,114 @@ def runs(tmp_path_factory):
     for r in range(4):
         with open(tmp / f"rank{r}.pkl", "rb") as fh:
             n.append(pickle.load(fh))
+    train, test, labels = (ranks.ev_of(inp["train"]), ranks.ev_of(inp["test"]),
+                           Labels(*inp["labels"]))
     one = Pipeline(cfg=ranks.pipeline_cfg(), work_dir=str(tmp / "one"), n_aids=600,
                    device="cpu")
-    m1 = one.run_streaming(ranks.ev_of(inp["train"]), ranks.ev_of(inp["test"]),
-                           Labels(*inp["labels"]), batch_sessions=64)
-    return m1, n, tmp
+    streaming = one.run_streaming(train, test, labels, batch_sessions=64)
+    pass_a = {sel: ranks.run_pass_a(str(tmp), inp, 1, sel) for sel in (False, True)}
+    ranks.seed_tables(str(tmp / "one"), str(tmp / "one-batch"))
+    batch = Pipeline(cfg=ranks.pipeline_cfg(), work_dir=str(tmp / "one-batch"), n_aids=600,
+                     device="cpu").run(train, test, labels, batch_sessions=64)
+    return types.SimpleNamespace(tmp=tmp, n=n, streaming=streaming, pass_a=pass_a,
+                                 batch=batch)
 
 
-def test_pipeline_mesh_invariance(runs):
-    m_1, m_n, _ = runs
-    for m in m_n:
-        assert m == m_n[0]            # every rank returns the same metrics
-    m = m_n[0]
+def _npz_equal(a: Path, b: Path) -> None:
+    """Two .npz files hold the same arrays, byte for byte (the files
+    themselves carry their write times)."""
+    za, zb = np.load(a), np.load(b)
+    assert sorted(za.files) == sorted(zb.files)
+    for k in za.files:
+        assert za[k].dtype == zb[k].dtype and za[k].shape == zb[k].shape, k
+        assert za[k].tobytes() == zb[k].tobytes(), k
+
+
+def _metrics_equal_one_rank(runs, runner):
+    """Every rank returns one rank's metrics: the same pass A rows and GBDT
+    bags leave nothing to differ in the ranked metrics."""
+    m_1 = getattr(runs, runner)
+    for m in runs.n:
+        assert m[runner] == runs.n[0][runner]   # every rank returns the same metrics
+    m = runs.n[0][runner]
     for k in CEILINGS:
         assert abs(m[k] - m_1[k]) < 1e-12, (k, m[k], m_1[k])
     for k in RANKED:
-        assert abs(m[k] - m_1[k]) < 0.12, (k, m[k], m_1[k])
+        assert abs(m[k] - m_1[k]) < 1e-12, (k, m[k], m_1[k])
     assert m["total"] > 0.2
+
+
+def _same_files(runs, suffix):
+    one = {p.name for p in (runs.tmp / f"one{suffix}").iterdir()} - {"logs.log"}
+    four = {p.name for p in (runs.tmp / f"four{suffix}").iterdir()} - {"logs.log"}
+    strip = {n for n in one | four if n.startswith("eval-submission-")}
+    assert one - strip == four - strip
+
+
+def test_pipeline_mesh_invariance(runs):
+    _metrics_equal_one_rank(runs, "streaming")
+
+
+def test_batch_runner_mesh_invariance(runs):
+    _metrics_equal_one_rank(runs, "batch")
 
 
 @pytest.mark.parametrize("name", ARTIFACTS)
 def test_mesh_artifacts_equal_one_rank(runs, name):
-    _, _, tmp = runs
-    assert (tmp / "four" / name).read_bytes() == (tmp / "one" / name).read_bytes()
+    assert (runs.tmp / "four" / name).read_bytes() == (runs.tmp / "one" / name).read_bytes()
 
 
 def test_mesh_writes_the_one_rank_files(runs):
-    _, _, tmp = runs
-    one = {p.name for p in (tmp / "one").iterdir()} - {"logs.log"}
-    four = {p.name for p in (tmp / "four").iterdir()} - {"logs.log"}
-    strip = {n for n in one | four if n.startswith("eval-submission-")}
-    assert one - strip == four - strip
+    _same_files(runs, "")
+
+
+def test_batch_runner_mesh_writes_the_one_rank_files(runs):
+    _same_files(runs, "-batch")
+
+
+@pytest.mark.parametrize("runner", ["", "-batch"])
+@pytest.mark.parametrize("tname", TYPES)
+def test_mesh_rankers_equal_one_rank(runs, runner, tname):
+    """dp GBDT from one device's rows and bags: one device's trees."""
+    name = f"ranker-gbdt-{tname}.npz"
+    _npz_equal(runs.tmp / f"four{runner}" / name, runs.tmp / f"one{runner}" / name)
+
+
+@pytest.mark.parametrize("name", BATCH_FILES)
+def test_batch_runner_mesh_files_equal_one_rank(runs, name):
+    """Pipeline(mesh=).run is the batch runner: C14's reports over every
+    rank's batches in one device's order, the submission and its eval."""
+    got = (runs.tmp / "four-batch" / name).read_bytes()
+    assert got == (runs.tmp / "one-batch" / name).read_bytes()
+    if name == "submission.csv":
+        assert all(r["submission"] == got for r in runs.n)
+
+
+def test_batch_runner_mesh_inference_only(runs):
+    """The rerun without labels scores with the work dir's rankers and
+    writes the labelled run's submission (and one rank's)."""
+    assert all(r["inference"] == {} for r in runs.n)
+    got = (runs.tmp / "four-batch" / "submission.csv").read_bytes()
+    assert got == runs.n[0]["submission"]
+    assert got == (runs.tmp / "one-batch" / "submission.csv").read_bytes()
+    assert (runs.tmp / "four-batch" / "ranker-gbdt-clicks.npz").exists()
+
+
+@pytest.mark.parametrize("case", ranks.PASS_A_CASES, ids=lambda c: f"data{c[0]}-{c[1]}")
+def test_pass_a_rows_equal_one_rank(runs, case):
+    """pass_a on 4 and on 2 data ranks draws one device's negatives (numpy:
+    the one-device rng moved to each batch's draws; device selection: the
+    generator seeded by the global batch index): rows, reports and
+    metrics are one rank's."""
+    n_data, sel = case
+    got_dir = Path(ranks.pass_a_dir(str(runs.tmp), n_data, sel))
+    want_dir = Path(ranks.pass_a_dir(str(runs.tmp), 1, sel))
+    for r in runs.n:
+        assert r["pass_a"][case] == runs.pass_a[sel]
+    for tname in TYPES:
+        _npz_equal(got_dir / f"downsampled-{tname}.npz", want_dir / f"downsampled-{tname}.npz")
+    for name in PASS_A_FILES:
+        assert (got_dir / name).read_bytes() == (want_dir / name).read_bytes()
 
 
 # ---------------------------------------------------------------------------

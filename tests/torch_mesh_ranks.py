@@ -107,6 +107,9 @@ def run_parallel_cases(rank: int, tmp: str) -> None:
 
 def data_cases(mesh, inp) -> dict:
     res = {"data_rank": mesh.data_rank}
+    # rows of any count per data rank, received by data rank 0 alone
+    res["to_first"] = mesh.gather_arrays_to_first(
+        np.full((mesh.data_rank + 1, 2), 10 * mesh.data_rank + mesh.model_rank, np.int16))
     plan = pairs_ops.make_plan(CoVisConfig())
 
     # collectives: one padded microbatch through the bounded sharded table
@@ -190,6 +193,9 @@ def data_cases(mesh, inp) -> dict:
         r = train_gbdt_ranker(x, y, sess, tuple(f"f{i}" for i in range(x.shape[1])), cfg,
                               valid=inp["gbdt_valid"], device=CPU, draws=draws, mesh_ctx=mesh)
         res[name] = (r.gfeat, r.thr, r.leaf, r.gains, r.eval_history)
+    r = train_gbdt_ranker(x, y, sess, tuple(f"f{i}" for i in range(x.shape[1])), cfg,
+                          valid=inp["gbdt_valid"], device=CPU, mesh_ctx=mesh)
+    res["gbdt_default"] = (r.gfeat, r.thr, r.leaf, r.gains, r.eval_history)
 
     # retrieval: every rank's share of each batch, gathered
     w = inp["retrieval"]
@@ -232,19 +238,89 @@ def pipeline_cfg():
     )
 
 
+# what the batch runner's work dir is seeded with: the table artifacts of
+# a finished run (config and meta included)
+TABLE_FILES = ("covis.pkl", "w2v-wall.npz", "w2v-w12.npz", "knn-wall.npz", "knn-w12.npz",
+               "session_emb.npz", "clusters.npz", "config.json", "meta.json")
+# pass A's cases: (data ranks, device_select)
+PASS_A_CASES = ((4, False), (4, True), (2, False), (2, True))
+PASS_A_BATCH = 48
+
+
+def seed_tables(src: str, dst: str) -> None:
+    """A fresh work dir holding src's table artifacts."""
+    import shutil
+
+    os.makedirs(dst, exist_ok=True)
+    for name in TABLE_FILES:
+        shutil.copyfile(os.path.join(src, name), os.path.join(dst, name))
+
+
+def pass_a_dir(tmp: str, n_data: int, device_select: bool) -> str:
+    return os.path.join(tmp, f"passA-{n_data}-{'device' if device_select else 'numpy'}")
+
+
+def run_pass_a(tmp: str, inp, n_data: int, device_select: bool, mesh=None) -> dict:
+    """pass_a over the retriever of tmp/one-or-four's cache (on `mesh`, or
+    on one device) into pass_a_dir(...); -> its metrics."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from otto_tpu_torch.data.schema import Labels
+    from otto_tpu_torch.pipeline.runner import build_retriever, pass_a
+
+    cfg = pipeline_cfg()
+    out = pass_a_dir(tmp, n_data, device_select)
+    if mesh is None or mesh.is_main:
+        os.makedirs(out, exist_ok=True)
+    retriever, _ = build_retriever(
+        ev_of(inp["train"]), ev_of(inp["test"]), 600, CPU, cfg.w2vec, None, cfg.covis,
+        cfg.popularity, cfg.retrieval, cfg.kmeans,
+        cache_dir=os.path.join(tmp, "four" if mesh is not None else "one"), mesh=mesh)
+    metrics, _ = pass_a(retriever, ev_of(inp["test"]), Labels(*inp["labels"]),
+                        dataclasses.replace(cfg.ranker, device_select=device_select), out,
+                        batch_sessions=PASS_A_BATCH)
+    if mesh is not None:
+        dist.barrier()
+    return metrics
+
+
 def run_pipeline(rank: int, tmp: str) -> None:
-    """Pipeline(mesh=data=4) on the test process's split, in tmp/four."""
+    """On data=4: Pipeline(mesh=).run_streaming on the test process's split
+    in tmp/four; pass_a on data=4 and data=2 (a 2x2 mesh) from that cache,
+    both selection paths; then the batch runner Pipeline(mesh=).run in
+    tmp/four-batch, seeded with tmp/four's tables, with labels and then
+    inference-only (its first submission's bytes kept)."""
+    import torch.distributed as dist
+
     from otto_tpu_torch.data.schema import Labels
     from otto_tpu_torch.pipeline.runner import Pipeline
 
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as fh:
         inp = pickle.load(fh)
+    train, test, labels = ev_of(inp["train"]), ev_of(inp["test"]), Labels(*inp["labels"])
+    mesh = make_mesh(4, 1)
+    out = {}
     pipe = Pipeline(cfg=pipeline_cfg(), work_dir=os.path.join(tmp, "four"), n_aids=600,
-                    device="cpu", mesh=make_mesh(4, 1))
-    metrics = pipe.run(ev_of(inp["train"]), ev_of(inp["test"]), Labels(*inp["labels"]),
-                       batch_sessions=64)
+                    device="cpu", mesh=mesh)
+    out["streaming"] = pipe.run_streaming(train, test, labels, batch_sessions=64)
+    meshes = {4: mesh, 2: make_mesh(2, 2)}
+    out["pass_a"] = {case: run_pass_a(tmp, inp, case[0], case[1], meshes[case[0]])
+                     for case in PASS_A_CASES}
+    batch_dir = os.path.join(tmp, "four-batch")
+    if mesh.is_main:
+        seed_tables(os.path.join(tmp, "four"), batch_dir)
+    dist.barrier()
+    pipe = Pipeline(cfg=pipeline_cfg(), work_dir=batch_dir, n_aids=600, device="cpu",
+                    mesh=mesh)
+    out["batch"] = pipe.run(train, test, labels, batch_sessions=64)
+    with open(os.path.join(batch_dir, "submission.csv"), "rb") as fh:
+        out["submission"] = fh.read()
+    dist.barrier()   # every rank has read it before the rerun writes it
+    out["inference"] = pipe.run(train, test, None, batch_sessions=64)
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as fh:
-        pickle.dump(metrics, fh)
+        pickle.dump(out, fh)
 
 
 def fail_on_rank_one(rank: int, tmp: str) -> None:
