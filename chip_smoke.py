@@ -124,7 +124,17 @@ Phases, each printed before the last line:
    beside phase 7's, each rank's K1-K4 launches and peak memory per
    stage; (b) shares one card, so its times are no scaling figure.
 
-Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase 6 runs last.
+10. The reference-scale script, scripts/run_fullscale_torch.py, in a
+   subprocess on the card at 30,000 sessions and 50,000 aids
+   (Config()'s full width) in a work dir of its own: exit 0, its record
+   complete (every stage of Pipeline.run_streaming by otto_tpu's name with
+   its seconds, host RSS and peak device memory, the card's name, the
+   metrics and the per-source report), K1-K4 launched, and ranked
+   recall@20 above the heuristic baseline's on the same test sessions and
+   co-visitation tables.
+
+Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase 10 runs after
+phase 9 in a work dir of its own; phase 6 runs last.
 Then one JSON line with the kernels' results and, last, the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and the result line is not printed.
@@ -134,6 +144,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1069,13 +1080,13 @@ BATCH_OUTPUTS = ("eval_retrieved.json", "eval_retrieved_sources.json", "submissi
 def batch_steps(stage_log):
     """A batch runner's seconds by step from its Pipeline.stage_log (seconds
     since retrieve_with_features began: build, retrieve, eval; since
-    rank_and_eval began: score, submit)."""
+    rank_and_eval began: score, submit and eval)."""
     log = {e["stage"]: e["elapsed_s"] for e in stage_log}
     return {"build (cache load + popularity)": log["context built"],
             "retrieval": log["retrieve"] - log["context built"],
             "host C14 eval": log["eval per-source"] - log["retrieve"],
             "scoring": log["score"],
-            "submit": log["submit"] - log["score"]}
+            "submit": log.get("eval", log["submit"]) - log["score"]}
 
 
 def keep_batch_outputs(work, metrics, steps):
@@ -1252,6 +1263,95 @@ def phase_tool(smi, sp, root):
         runs.append(metrics)
     print(f"#   second run from the cache ({len(before)} artifacts untouched), metrics identical")
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 10: the reference-scale script at a small scale
+# --------------------------------------------------------------------------
+FULLSCALE_SESSIONS, FULLSCALE_AIDS = 30_000, 50_000
+# the stages the script's record must hold, in order: its own two, then
+# otto_tpu's stage names of Pipeline.run_streaming at Config()'s width
+FULLSCALE_STAGES = [
+    "generate", "split", "covis", "w2vec w2v-all", "w2vec w2v-1-2", "session_emb",
+    "kmeans", "popularity", "context built", "retrieve+downsample (pass A)",
+    "eval_retrieved", "eval per-source", "downsample clicks persisted",
+    "downsample carts persisted", "downsample orders persisted", "ranker clicks (gbdt)",
+    "ranker carts (gbdt)", "ranker orders (gbdt)", "score (pass B)", "submit", "eval"]
+SCRIPT_WITH_COUNTS = """
+import atexit, json, runpy, sys
+from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+atexit.register(lambda: print("LAUNCHES " + json.dumps({
+    "gather_rows": gather.launches, "segmented_scan": segscan.launches,
+    "mips_topk": mips.launches, "gather_rows_hbm": dma_gather.launches}), file=sys.stderr))
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def phase_fullscale(smi, root):
+    """scripts/run_fullscale_torch.py in a subprocess on the card at
+    FULLSCALE_SESSIONS sessions and FULLSCALE_AIDS aids (Config()'s full
+    width), in a work dir of its own: exit 0, a complete record (every
+    stage of FULLSCALE_STAGES with its seconds, host RSS and peak device
+    memory; the card's name; metrics and the per-source report), every
+    kernel launched, and ranked recall@20 above the heuristic baseline's
+    on the same test sessions and co-visitation tables. -> its launches."""
+    from otto_tpu_torch.config import COVIS_FIRST_N, DEFAULT, TYPES
+    from otto_tpu_torch.data.schema import Events
+    from otto_tpu_torch.data.split import split_events
+    from otto_tpu_torch.engine import baseline
+    from otto_tpu_torch.engine.covis import CoVisTables
+    from otto_tpu_torch.eval.recall import evaluate_topk
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work, out_path = os.path.join(root, "fullscale"), os.path.join(root, "fullscale.json")
+    env = dict(os.environ, OTTO_FS_SESSIONS=str(FULLSCALE_SESSIONS),
+               OTTO_FS_AIDS=str(FULLSCALE_AIDS), OTTO_FS_WORKDIR=work, OTTO_FS_OUT=out_path)
+    env["PYTHONPATH"] = os.pathsep.join([here] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", SCRIPT_WITH_COUNTS,
+                          os.path.join(here, "scripts", "run_fullscale_torch.py")],
+                         capture_output=True, text=True, env=env, timeout=600)
+    dt = time.perf_counter() - t0
+    require(out.returncode == 0, f"run_fullscale_torch.py exit 0: {out.stderr[-3000:]}")
+    launches = json.loads(out.stderr.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+    with open(out_path) as fh:
+        rec = json.load(fh)
+    stages = rec["stages"]
+    require([e["stage"] for e in stages] == FULLSCALE_STAGES,
+            f"the record's stages: {[e['stage'] for e in stages]}")
+    require(all(e["delta_s"] >= 0 and e["rss_gb"] > 0 and e["peak_mem_gb"] > 0
+                for e in stages[2:]), "every stage's seconds, RSS and peak memory")
+    require(rec["device"]["name"] == torch.cuda.get_device_name(0)
+            and rec["device"]["nvidia_smi"], f"the record's device: {rec['device']}")
+    require(rec["generator"] == "device" and rec["spec"]["n_sessions"] == FULLSCALE_SESSIONS,
+            "the events were drawn on the card at the asked scale")
+    require("src_any" in rec["per_source"], "the per-source report is in the record")
+    require(all(v > 0 for v in launches.values()), f"K1-K4 launched by the script: {launches}")
+    m = rec["metrics"]
+
+    # the heuristic baseline on the same test sessions and co-visitation tables
+    z = np.load(os.path.join(work, "events.npz"))
+    sp = split_events(Events(z["session"], z["aid"], z["ts"], z["type"]),
+                      DEFAULT.data.test_days, DEFAULT.data.seed)
+    with open(os.path.join(work, "covis.pkl"), "rb") as fh:
+        stored = pickle.load(fh)
+    tables = {n: CoVisTables(*(torch.from_numpy(a).cuda() for a in stored[n]))
+              for n in COVIS_FIRST_N}
+    sessions, aids = baseline.recommend(sp.test, tables)
+    base = evaluate_topk({t: (sessions, aids) for t in TYPES}, sp.labels)
+    require(len(sessions) == rec["n_test_sessions"], "the baseline's test sessions")
+    print(f"# run_fullscale_torch.py at {FULLSCALE_SESSIONS} sessions, {FULLSCALE_AIDS} aids: "
+          f"{dt:.2f} s of command ({rec['pipeline_s']:.2f} s pipeline), "
+          f"{rec['n_events']} events, {rec['n_test_sessions']} test sessions, launches "
+          f"{launches}; stage seconds "
+          f"{json.dumps({e['stage']: e['delta_s'] for e in stages[2:]})}; peak device GiB "
+          f"{max(e['peak_mem_gb'] for e in stages[2:])}; recall@20 total {m['total']:.5f}, "
+          f"ceiling {m['ceiling_total']:.5f}, baseline {base['total']:.5f} ({smi})")
+    require(0.0 < m["total"] <= m["ceiling_total"] <= 1.0, "recall@20 under the ceiling")
+    require(m["total"] > base["total"], f"ranked recall@20 {m['total']} above the "
+            f"baseline's {base['total']}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2299,6 +2399,8 @@ def main():
         torch.cuda.empty_cache()
         mesh_launches = phase_multi_device(smi, sp, work, pop, UNSHARDED.pop("preds"),
                                            serve_recall, UNSHARDED, batch_ref)
+        torch.cuda.empty_cache()
+        fullscale_launches = phase_fullscale(smi, root)
     phase_cross_check(dev)
 
     w = WALK
@@ -2309,11 +2411,12 @@ def main():
           f"{w['launches']['training']} ({smi})")
     # launches on the paths this script drives: the build (K3, K4), pass A,
     # training, serving, the MLP's training and serving, the batch runner
-    # (K1, K2), the two CLI runs (all) and the multi-device stages (all,
-    # every rank)
+    # (K1, K2), the two CLI runs (all), the multi-device stages (all, every
+    # rank) and the reference-scale script (all)
     paths = {k: sum(p[k] for p in (build_launches, pa_launches, tr_launches,
                                    serve_launches, mlp_tr_launches, mlp_launches,
-                                   batch_launches, tool_launches, mesh_launches))
+                                   batch_launches, tool_launches, mesh_launches,
+                                   fullscale_launches))
              for k in build_launches}
     sources = {
         # name: (source, TPU kernel it replaces)

@@ -106,6 +106,16 @@ from otto_tpu_torch.utils.reports import report_name
 
 log = logging.getLogger(__name__)
 
+# stage(name, msg, peak_bytes): called as each of otto_tpu's stages ends,
+# with otto_tpu's stage name; peak_bytes is the stage's peak device memory
+# where the caller measured it, else None (Pipeline keeps them as its
+# stage_log)
+StageFn = Callable[[str, str, Optional[int]], None]
+
+
+def _no_stage(name: str, msg: str = "", peak_bytes: Optional[int] = None) -> None:
+    pass
+
 
 @dataclasses.dataclass
 class BuildReport:
@@ -194,6 +204,7 @@ def build_retriever(
     cache_dir: Optional[str] = None,
     use_cache: bool = True,
     mesh=None,
+    stage: StageFn = _no_stage,
 ) -> Tuple[Retriever, BuildReport]:
     """Stages C7-C12 and the retrieval context, on `device`, as otto_tpu's
     Pipeline.build_retriever runs them:
@@ -213,6 +224,11 @@ def build_retriever(
           over one cluster.
     Models go by `w2vec`'s names, in its order: the first is the main model
     (the item embeddings and knn_all), the second gives knn_1_2.
+
+    `stage(name, msg, peak_bytes)` is called as each of otto_tpu's stages
+    ends, with otto_tpu's names: "covis", "w2vec {name}" (a model and its
+    kNN tables), "session_emb", "kmeans", "popularity", "context built";
+    `peak_bytes` is the stage's peak device memory on CUDA, else None.
 
     With `cache_dir`, C7-C11 each read their artifact from there when it is
     present and use_cache, else build it and write it there: `covis.pkl`
@@ -253,16 +269,24 @@ def build_retriever(
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
+    stage_peak = 0   # the peak of the laps since the last stage ended
 
-    def lap(stage):
-        nonlocal t
+    def lap(name):
+        nonlocal t, stage_peak
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-            peak[stage] = torch.cuda.max_memory_allocated(dev)
+            peak[name] = torch.cuda.max_memory_allocated(dev)
+            stage_peak = max(stage_peak, peak[name])
             torch.cuda.reset_peak_memory_stats(dev)
         now = time.perf_counter()
-        seconds[stage] = now - t
+        seconds[name] = now - t
         t = now
+
+    def end(name, msg=""):
+        """otto_tpu's stage `name` has ended."""
+        nonlocal stage_peak
+        stage(name, msg, stage_peak if dev.type == "cuda" else None)
+        stage_peak = 0
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -306,52 +330,49 @@ def build_retriever(
         save("covis.pkl", lambda p: _pickle(p, {k: tuple(x.cpu().numpy() for x in v)
                                                 for k, v in tables.items()}))
     covis_tables = tuple(tables[name] for name in covis.names)
+    end("covis")
 
-    # ---- C8 word2vec -------------------------------------------------------
+    # ---- C8 word2vec, C9 kNN (a model, then its tables) -------------------
     full = train.concat(test)
     trained = {}
+    knns = {}
     for name in names:
-        if name in models:
-            continue
         wcfg = w2vec[name]
         mfile = f"w2v-{name}.npz"
-        path = cached(mfile)
+        path = None if name in models else cached(mfile)
         if path:
             models[name] = Word2Vec.load(path, wcfg)
             lap(f"load {mfile}")
-            continue
-        ckpt = (os.path.join(cache_dir, f"w2v-{name}.ckpt")
-                if cache_dir is not None and use_cache and wcfg.sampler == "device"
-                and mesh is None else None)
-        if wcfg.sampler == "device":
-            models[name] = train_word2vec_device(full, wcfg, n_aids, device=dev,
-                                                 checkpoint_path=ckpt, mesh_ctx=mesh)
-        else:
-            models[name] = train_word2vec(full, wcfg, n_aids, device=dev)
-        trained[name] = models[name].report
-        log.info("w2vec %s: %s", name, trained[name])
-        lap(f"w2vec {name}")
-        save(mfile, models[name].save)
-        # the checkpoint goes only once the .npz is written: no moment
-        # without either
-        if ckpt and os.path.exists(ckpt):
-            os.remove(ckpt)
-
-    # ---- C9 kNN -----------------------------------------------------------
-    knns = {}
-    for name in names:
+        elif name not in models:
+            ckpt = (os.path.join(cache_dir, f"w2v-{name}.ckpt")
+                    if cache_dir is not None and use_cache and wcfg.sampler == "device"
+                    and mesh is None else None)
+            if wcfg.sampler == "device":
+                models[name] = train_word2vec_device(full, wcfg, n_aids, device=dev,
+                                                     checkpoint_path=ckpt, mesh_ctx=mesh)
+            else:
+                models[name] = train_word2vec(full, wcfg, n_aids, device=dev)
+            trained[name] = models[name].report
+            log.info("w2vec %s: %s", name, trained[name])
+            lap(f"w2vec {name}")
+            save(mfile, models[name].save)
+            # the checkpoint goes only once the .npz is written: no moment
+            # without either
+            if ckpt and os.path.exists(ckpt):
+                os.remove(ckpt)
         kfile = f"knn-{name}.npz"
         path = cached(kfile)
         if path:
             z = np.load(path)
             knns[name] = KnnTables(put(z["neighbor"]), put(z["dist"]))
             lap(f"load {kfile}")
-            continue
-        knns[name] = build_knn_tables(models[name], n_aids, dev, mesh_ctx=mesh)
-        lap(f"knn {name}")
-        kt = knns[name]
-        save(kfile, lambda p: np.savez_compressed(p, neighbor=kt.neighbor.cpu().numpy(),
-                                                  dist=kt.dist.cpu().numpy()))
+        else:
+            knns[name] = build_knn_tables(models[name], n_aids, dev, mesh_ctx=mesh)
+            lap(f"knn {name}")
+            kt = knns[name]
+            save(kfile, lambda p: np.savez_compressed(p, neighbor=kt.neighbor.cpu().numpy(),
+                                                      dist=kt.dist.cpu().numpy()))
+        end(f"w2vec {name}")
     co_nbr = tables["click_to_click"].neighbor.cpu().numpy()
     overlap = {}
     for name in names:
@@ -377,6 +398,7 @@ def build_retriever(
         # uncompressed: the [n_sessions, D] grid is large
         save("session_emb.npz",
              lambda p: np.savez(p, session=sess_ids, emb=sess_emb.cpu().numpy()))
+    end("session_emb")
 
     # ---- C11 kmeans --------------------------------------------------------
     n_clusters = kmeans.n_clusters_to_find[0]
@@ -405,6 +427,7 @@ def build_retriever(
                 if fh.tell() == 0:
                     fh.write("n_clusters,inertia,n_iter,n_points\n")
                 fh.write(f"{n_clusters},{inertia:.3f},{n_iter},{len(labels)}\n")
+    end("kmeans")
 
     # ---- C12 popularity ----------------------------------------------------
     pop50 = compute_popularity(
@@ -415,6 +438,7 @@ def build_retriever(
     pop_rep = {"cl50": _popularity_report(pop50), "cl1": _popularity_report(pop1)}
     log.info("popularity %s", pop_rep)
     lap("popularity")
+    end("popularity")
 
     ctx = RetrievalContext(
         covis=covis_tables,
@@ -441,6 +465,7 @@ def build_retriever(
                  "write_seconds": sum(seconds[f"write {n}"] for n in written),
                  "bytes": sum(os.path.getsize(f) for f in files if os.path.exists(f))}
         log.info("artifact cache %s: %s", cache_dir, cache)
+    end("context built", f"cache: loaded {loaded}, wrote {written}" if cache else "")
     return retriever, BuildReport(seconds, peak, covis_rep, trained, overlap, km, pop_rep,
                                   cache)
 
@@ -592,22 +617,26 @@ def pipelined_consume(batch_iter, consume, pack=None, overlap: bool = True
 
 
 def submit_and_eval(
-    work_dir: str, preds: Dict[str, tuple], labels: Optional[Labels]
+    work_dir: str, preds: Dict[str, tuple], labels: Optional[Labels],
+    stage: StageFn = _no_stage,
 ) -> Optional[Dict[str, float]]:
     """Write `submission.csv` into work_dir; with labels, evaluate recall@20
     (written to `eval_submission.json` and to a timestamped, git-hashed
     copy `eval-submission-*.json`) and cross-check it against an
     independent re-parse of the CSV (evaluate_submission_file), logging a
-    warning when they differ. -> the recall dict, or None without
-    labels."""
+    warning when they differ. `stage` (StageFn) hears "submit" once the
+    CSV is written and "eval" once recall@20 is. -> the recall dict, or
+    None without labels."""
     path = os.path.join(work_dir, "submission.csv")
     rank_engine.write_submission(path, preds)
+    stage("submit", "", None)
     if labels is None:
         return None
     res = evaluate_topk(preds, labels)
     for name in ("eval_submission.json", report_name("eval-submission") + ".json"):
         with open(os.path.join(work_dir, name), "w") as fh:
             json.dump(res, fh, indent=2)
+    stage("eval", json.dumps(res), None)
     res2 = evaluate_submission_file(path, labels)
     if abs(res2["total"] - res["total"]) > 1e-9:
         log.warning("submission re-parse mismatch: %s vs %s",
@@ -615,12 +644,18 @@ def submit_and_eval(
     return res
 
 
-def _submit_on_main(work_dir: str, preds, labels: Optional[Labels], mesh):
-    """submit_and_eval on rank 0, its result broadcast to every rank."""
+def _submit_on_main(work_dir: str, preds, labels: Optional[Labels], mesh,
+                    stage: StageFn = _no_stage):
+    """submit_and_eval on rank 0, its result broadcast to every rank (the
+    other ranks hear its stages once it is)."""
     if mesh is None:
-        return submit_and_eval(work_dir, preds, labels)
-    res = [submit_and_eval(work_dir, preds, labels) if mesh.is_main else None]
+        return submit_and_eval(work_dir, preds, labels, stage)
+    res = [submit_and_eval(work_dir, preds, labels, stage) if mesh.is_main else None]
     dist.broadcast_object_list(res, src=0)
+    if not mesh.is_main:
+        stage("submit", "", None)
+        if res[0] is not None:
+            stage("eval", json.dumps(res[0]), None)
     return res[0]
 
 
@@ -686,6 +721,7 @@ def pass_a(
     batch_sessions: int = 512,
     skip_targets: Sequence[str] = (),
     overlap: bool = True,
+    stage: StageFn = _no_stage,
 ) -> Tuple[Dict[str, float], PassAReport]:
     """Training pass A over the test sessions, batch by batch on the
     retriever's device: the packed meta and the label bits (the label join
@@ -707,6 +743,12 @@ def pass_a(
     `eval_retrieved_sources.json` (the per-source report),
     `passA-metrics.json`, and for each target not in skip_targets its rows
     as `downsampled-{t}.npz` (feats f16, y int8, session; session-sorted).
+    Each target's rows are sorted into one array while its batches' parts
+    are freed, written, and freed before the next target's.
+
+    `stage` (StageFn) hears otto_tpu's stages: "retrieve+downsample (pass
+    A)", "eval_retrieved", "eval per-source" and "downsample {t}
+    persisted" for each target written.
 
     With the retriever's mesh, each data rank runs its own batches (batch
     g on data rank g % n_data) and draws what one device draws for them.
@@ -759,10 +801,13 @@ def pass_a(
 
     def flush():
         handle, layout = pend.pop(0)
-        feats = np.array(handle)   # out of the pinned buffer
+        feats = handle.numpy()
         off = 0
         for tname, cnt, y, sess in layout:
-            rows[tname].append((feats[off: off + cnt], y, sess))
+            # each target copies its rows out of the pinned buffer: one
+            # target's parts share no memory with another's, so each is
+            # freed when it is persisted
+            rows[tname].append((feats[off: off + cnt].copy(), y, sess))
             off += cnt
 
     def consume(b, meta):
@@ -830,15 +875,20 @@ def pass_a(
     phases = {"retrieve + device programs": seconds["produce"],
               "pulls + select + rows": seconds["consume"],
               "waiting for the consumer": seconds["wait"]}
+    stage("retrieve+downsample (pass A)", f"{n_sessions} sessions; phases (s): "
+          + json.dumps({k: round(v, 3) for k, v in phases.items()}), None)
 
     report = dev_eval.finalize(labels)
     ceiling = report.pop("_ceiling")
     if main:
         with open(os.path.join(work_dir, "eval_retrieved.json"), "w") as fh:
             json.dump(ceiling, fh, indent=2)
+    stage("eval_retrieved", json.dumps(ceiling["total"]), None)
+    if main:
         with open(os.path.join(work_dir, "eval_retrieved_sources.json"), "w") as fh:
             json.dump(report, fh, indent=2)
     log.info("per-source recall:\n%s", format_report(report))
+    stage("eval per-source", "", None)
     metrics: Dict[str, float] = {
         f"ceiling_{k}": ceiling[k]["topall"] for k in ("clicks", "carts", "orders", "total")}
     anyc = report["_counts"]["src_any"]
@@ -856,20 +906,21 @@ def pass_a(
         parts, rows[tname] = rows[tname], None
         if tname in skip_targets:
             continue
-        feats = _cat_rows([p[0] for p in parts], (0, len(FEATURE_NAMES)), np.float16)
-        y = _cat_rows([p[1] for p in parts], (0,), np.float32)
-        sess = _cat_rows([p[2] for p in parts], (0,), np.int32)
-        if mesh is not None:
-            feats, y, sess = mesh.gather_arrays(feats, y.astype(np.float32),
-                                                sess.astype(np.int32))
+        if mesh is not None:   # every rank's parts, in data-rank order
+            parts = [mesh.gather_arrays(
+                _cat_rows([p[0] for p in parts], (0, len(FEATURE_NAMES)), np.float16),
+                _cat_rows([p[1] for p in parts], (0,), np.float32),
+                _cat_rows([p[2] for p in parts], (0,), np.int32).astype(np.int32))]
+        feats, y, sess = _session_sorted_rows(parts)
         if not len(y):
             raise ValueError(f"no positive sessions for {tname}")
-        order = np.argsort(sess, kind="stable")
         if main:
-            np.savez(_rows_path(work_dir, tname), feats=feats[order],
-                     y=y[order].astype(np.int8), session=sess[order])
+            np.savez(_rows_path(work_dir, tname), feats=feats, y=y.astype(np.int8),
+                     session=sess)
         n_rows[tname] = len(y)
         n_pos_sessions[tname] = int(np.unique(sess).size)
+        del feats, y, sess
+        stage(f"downsample {tname} persisted", f"{n_rows[tname]} rows", None)
     phases["eval + persist"] = time.perf_counter() - t
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -877,6 +928,27 @@ def pass_a(
                       n_rows, n_pos_sessions)
     log.info("pass A: %s", rep)
     return metrics, rep
+
+
+def _session_sorted_rows(parts: list) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One target's pass-A parts [(feats f16 [n, F], y [n], sessions [n])]
+    -> (feats, y float32, sessions int32) stably sorted by session, as
+    concatenating them and indexing by a stable argsort gives; the rows
+    are written into their sorted places part by part and each part is
+    freed once placed (`parts` ends empty), so one copy of the rows is
+    held, not three."""
+    sess = _cat_rows([p[2] for p in parts], (0,), np.int32).astype(np.int32)
+    y = _cat_rows([p[1] for p in parts], (0,), np.float32).astype(np.float32)
+    order = np.argsort(sess, kind="stable")
+    dest = np.empty(len(order), np.int64)
+    dest[order] = np.arange(len(order))
+    feats = np.empty((len(order), len(FEATURE_NAMES)), np.float16)
+    off = 0
+    while parts:
+        f = parts.pop(0)[0]
+        feats[dest[off: off + len(f)]] = f
+        off += len(f)
+    return feats, y[order], sess[order]
 
 
 def _draw_round(mesh, draws: torch.Tensor) -> Callable[[], np.ndarray]:
@@ -896,6 +968,7 @@ def train_ranker_cached(
     device,
     use_cache: bool = True,
     mesh=None,
+    stage: StageFn = _no_stage,
 ):
     """One target's ranker of cfg.ranker_backend's class:
     `ranker-{backend}-{t}.npz` from work_dir when cached; else rows_fn() ->
@@ -908,7 +981,8 @@ def train_ranker_cached(
     With `mesh` (every rank calling with the same rows) a GBDT trains
     data-parallel over the data ranks (train_gbdt_ranker(mesh_ctx=...)),
     an MLP on every rank alike; every rank returns the same ranker and
-    rank 0 writes the files."""
+    rank 0 writes the files. `stage` (StageFn) hears "ranker {t}
+    ({backend})" when a ranker was trained (not when read)."""
     path = _ranker_path(work_dir, tname, cfg.ranker_backend)
     main = mesh is None or mesh.is_main
     if mesh is not None:
@@ -934,18 +1008,19 @@ def train_ranker_cached(
         log.info("ranker %s (mlp): %d rows, %d steps, best epoch %d, valid ndcg %s",
                  tname, len(y), ranker.steps, ranker.best_epoch,
                  [h[2] for h in ranker.history])
-        return ranker
-    dp = mesh if mesh is not None and mesh.n_data > 1 else None
-    ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, cfg.gbdt,
-                               valid=valid, device=device, mesh_ctx=dp)
-    if main:
-        ranker.save(path)
-        imp = ranker.feature_importance("gain")
-        with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
-            fh.write("feature,gain_importance\n")
-            for i in np.argsort(-imp):
-                fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
-    log.info("ranker %s: %d rows, valid ndcg %s", tname, len(y), ranker.eval_history)
+    else:
+        dp = mesh if mesh is not None and mesh.n_data > 1 else None
+        ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, cfg.gbdt,
+                                   valid=valid, device=device, mesh_ctx=dp)
+        if main:
+            ranker.save(path)
+            imp = ranker.feature_importance("gain")
+            with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
+                fh.write("feature,gain_importance\n")
+                for i in np.argsort(-imp):
+                    fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
+        log.info("ranker %s: %d rows, valid ndcg %s", tname, len(y), ranker.eval_history)
+    stage(f"ranker {tname} ({cfg.ranker_backend})", f"{len(y)} rows", None)
     return ranker
 
 
@@ -1020,6 +1095,7 @@ def run_streaming(
     batch_sessions: int = 512,
     use_cache: bool = True,
     mesh=None,
+    stage: StageFn = _no_stage,
 ) -> Dict[str, float]:
     """The pipeline from events to recall@20 on `device`, as otto_tpu's
     Pipeline.run_streaming: check_work_dir, build_retriever with work_dir
@@ -1033,6 +1109,12 @@ def run_streaming(
 
     With `mesh`, every stage runs its mesh branch on `device` (this rank's),
     and every rank returns the same metrics.
+
+    `stage` (StageFn) hears otto_tpu's stages as each ends, in its order:
+    build_retriever's, then pass_a's, "ranker {t} ({backend})" for each
+    ranker trained, "score (pass B)", "submit", "eval"; a resumed run
+    hears "pass A + rankers (cached)" in place of pass A's, and a run
+    without labels "score (inference-only)" and "submit".
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
     check_mesh_device(device, mesh)
@@ -1040,38 +1122,43 @@ def run_streaming(
     retriever, _ = build_retriever(
         train, test, n_aids, device, cfg.w2vec, None, cfg.covis, cfg.popularity,
         cfg.retrieval, cfg.kmeans, report_dir=work_dir, cache_dir=work_dir,
-        use_cache=use_cache, mesh=mesh)
+        use_cache=use_cache, mesh=mesh, stage=stage)
     if labels is None:
         preds = score_pass(retriever, test, load_rankers(work_dir, cfg), batch_sessions)
-        _submit_on_main(work_dir, preds, None, mesh)
+        stage("score (inference-only)", "", None)
+        _submit_on_main(work_dir, preds, None, mesh, stage)
         return {}
 
     pm_path = os.path.join(work_dir, "passA-metrics.json")
     have_ranker = {t: use_cache and os.path.exists(
                        _ranker_path(work_dir, t, cfg.ranker_backend))
                    for t in TYPES}
-    if use_cache and os.path.exists(pm_path) and all(
-            have_ranker[t] or os.path.exists(_rows_path(work_dir, t)) for t in TYPES):
+    resumed = use_cache and os.path.exists(pm_path) and all(
+        have_ranker[t] or os.path.exists(_rows_path(work_dir, t)) for t in TYPES)
+    if resumed:
         with open(pm_path) as fh:
             metrics = json.load(fh)
         log.info("pass A cached in %s", work_dir)
     else:
         metrics, _ = pass_a(retriever, test, labels, cfg.ranker, work_dir, batch_sessions,
-                            skip_targets=[t for t in TYPES if have_ranker[t]])
+                            skip_targets=[t for t in TYPES if have_ranker[t]], stage=stage)
     rankers = {
         t: train_ranker_cached(work_dir, t, lambda t=t: load_downsampled(work_dir, t),
-                               cfg, device, use_cache, mesh)
+                               cfg, device, use_cache, mesh, stage)
         for t in TYPES
     }
+    if resumed:
+        stage("pass A + rankers (cached)", "", None)
     preds = score_pass(retriever, test, rankers, batch_sessions)
-    metrics.update(_submit_on_main(work_dir, preds, labels, mesh))
+    stage("score (pass B)", "", None)
+    metrics.update(_submit_on_main(work_dir, preds, labels, mesh, stage))
     return metrics
 
 
 # ---------------------------------------------------------------------------
 # the Pipeline over a work dir, and its batch runner
 # ---------------------------------------------------------------------------
-def _host_rss_gb() -> float:
+def host_rss_gb() -> float:
     """Resident host memory of this process, in GiB (0 where /proc is
     missing)."""
     try:
@@ -1095,9 +1182,11 @@ class Pipeline:
     `run_streaming` is the module's run_streaming; `run` is the batch
     runner, which keeps every retrieval batch on the device and evaluates
     C14 on the host. Both give the same metrics from the same work dir.
-    `stage_log` collects one entry a stage: elapsed seconds since the
-    calling method began, host RSS and, on CUDA, the peak device memory
-    allocated so far.
+    `stage_log` collects one entry a stage as it ends, with otto_tpu's
+    stage names and in its order: `stage`, `elapsed_s` (seconds since the
+    calling method began), `rss_gb` (host RSS), `msg` where there is one
+    and, on CUDA, `peak_mem_gb`, the peak device memory allocated within
+    the stage (the allocator's peak is reset as each entry is taken).
 
     `mesh` (a parallel.mesh.MeshContext; not part of the cache key) runs
     every stage's mesh branch on this rank's device (mesh.device, which
@@ -1125,15 +1214,22 @@ class Pipeline:
     def _cached(self, name: str) -> bool:
         return self.use_cache and os.path.exists(self._p(name))
 
-    def _log(self, stage: str, t0: float, msg: str = "") -> None:
+    def _log(self, stage: str, t0: float, msg: str = "",
+             peak_bytes: Optional[int] = None) -> None:
         el = time.time() - t0
-        entry = {"stage": stage, "elapsed_s": round(el, 3), "rss_gb": round(_host_rss_gb(), 2)}
+        entry = {"stage": stage, "elapsed_s": round(el, 3), "rss_gb": round(host_rss_gb(), 2)}
         if self.device.type == "cuda":
-            entry["peak_mem_gb"] = round(torch.cuda.max_memory_allocated(self.device) / 2**30, 2)
+            peak = max(peak_bytes or 0, torch.cuda.max_memory_allocated(self.device))
+            torch.cuda.reset_peak_memory_stats(self.device)
+            entry["peak_mem_gb"] = round(peak / 2**30, 2)
         if msg:
             entry["msg"] = msg
         self.stage_log.append(entry)
         log.info("[%7.1fs] %s %s", el, stage, msg)
+
+    def _stage(self, t0: float) -> StageFn:
+        """A StageFn that logs each stage into stage_log, timed from t0."""
+        return lambda name, msg="", peak_bytes=None: self._log(name, t0, msg, peak_bytes)
 
     # ------------------------------------------------------------------
     def run(self, train: Events, test: Events, labels: Optional[Labels] = None,
@@ -1158,25 +1254,19 @@ class Pipeline:
                       batch_sessions: int = 512) -> Dict[str, float]:
         """The two-pass streaming runner (module run_streaming): one batch's
         features on the device at a time."""
-        t0 = time.time()
-        metrics = run_streaming(train, test, labels, self.n_aids, self.work_dir,
-                                self.device, self.cfg, batch_sessions, self.use_cache,
-                                self.mesh)
-        self._log("run_streaming", t0)
-        return metrics
+        return run_streaming(train, test, labels, self.n_aids, self.work_dir,
+                             self.device, self.cfg, batch_sessions, self.use_cache,
+                             self.mesh, stage=self._stage(time.time()))
 
     def build_retriever(self, train: Events, test: Events) -> Retriever:
         """C7-C12 with the work dir as the artifact cache (module
         build_retriever); its BuildReport is kept as `build_report`."""
-        t0 = time.time()
         cfg = self.cfg
         retriever, self.build_report = build_retriever(
             train, test, self.n_aids, self.device, cfg.w2vec, None, cfg.covis,
             cfg.popularity, cfg.retrieval, cfg.kmeans, report_dir=self.work_dir,
-            cache_dir=self.work_dir, use_cache=self.use_cache, mesh=self.mesh)
-        cache = self.build_report.cache
-        self._log("context built", t0, f"cache: loaded {cache['loaded']}, wrote "
-                  f"{cache['written']}")
+            cache_dir=self.work_dir, use_cache=self.use_cache, mesh=self.mesh,
+            stage=self._stage(time.time()))
         return retriever
 
     def retrieve_with_features(self, train: Events, test: Events,
@@ -1307,16 +1397,13 @@ class Pipeline:
         return preds
 
     def _train_ranker_cached(self, tname: str, rows_fn, t0: float):
-        ranker = train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg,
-                                     self.device, self.use_cache, self.mesh)
-        self._log(f"ranker {tname} ({self.cfg.ranker_backend})", t0)
-        return ranker
+        return train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg, self.device,
+                                   self.use_cache, self.mesh, self._stage(t0))
 
     def _submit_and_eval(self, preds, labels, metrics, t0):
         """submit_and_eval into the work dir (rank 0 with a mesh); with
         labels its recall@20 joins `metrics`. -> metrics."""
-        res = _submit_on_main(self.work_dir, preds, labels, self.mesh)
-        self._log("submit", t0)
+        res = _submit_on_main(self.work_dir, preds, labels, self.mesh, self._stage(t0))
         if res is not None:
             metrics.update(res)
         return metrics

@@ -16,9 +16,10 @@ the run and failure counts and the card's name and power limit.
 `--history` first gives the process chip_smoke.py's history before its
 cross-checks: the kernel phase (phase 3), the table build at production
 width (phase 4: 500k generated sessions, through a Pipeline on a
-temporary work dir), pass A over every test session and three rankers
-(`--trees` trees each) from its rows, and a score_pass over every test
-session (phase 5's path). Needs a CUDA device.
+temporary work dir, made under OTTO_HISTORY_DIR when it is set: ~5 GB
+of artifact cache and rows a process), pass A over every test session
+and three rankers (`--trees` trees each) from its rows, and a score_pass
+over every test session (phase 5's path). Needs a CUDA device.
 
 Probes of fault 1 at the first check (the one that has failed):
 `--first-threads N` runs that check with `torch.set_num_threads(N)`;
@@ -74,7 +75,7 @@ def history(dev, smi, trees):
     t0 = time.perf_counter()
     chip_smoke.phase_kernels(dev, smi)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory(dir=os.environ.get("OTTO_HISTORY_DIR")) as root:
         work = os.path.join(root, "work")
         sp, retriever, _ = chip_smoke.phase_table_build(dev, smi, work)
         pass_a(retriever, sp.test, sp.labels, RankerConfig(), work,

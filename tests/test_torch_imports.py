@@ -64,16 +64,38 @@ def test_every_module_imports_without_jax():
     } <= names
 
 
+SCRIPT_PROBE = """
+import sys
+sys.path.insert(0, "scripts")
+import run_fullscale_torch
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "otto_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_fullscale_script_imports_without_jax():
+    """scripts/run_fullscale_torch.py, the port's reference-scale run,
+    imports neither jax nor otto_tpu."""
+    out = subprocess.run(
+        [sys.executable, "-c", SCRIPT_PROBE], capture_output=True, text=True,
+        env=_env_without_cuda_toolkit(), cwd=str(REPO), timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
 FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|otto_tpu)\b(?!_)")
 
 
 def test_no_import_names_jax():
     """The source itself never names jax or otto_tpu in an import (build/
-    holds generated output only), and neither does chip_smoke.py."""
+    holds generated output only), and neither do chip_smoke.py and
+    scripts/run_fullscale_torch.py."""
     pkg = REPO / "otto_tpu_torch"
     paths = [p for p in pkg.rglob("*.py")
              if p.relative_to(pkg).parts[0] != "build"]
-    for path in paths + [REPO / "chip_smoke.py"]:
+    for path in paths + [REPO / "chip_smoke.py", REPO / "scripts" / "run_fullscale_torch.py"]:
         for line in path.read_text().splitlines():
             assert not FORBIDDEN_IMPORT.match(line), (path, line)
 

@@ -4,8 +4,9 @@ recall@20.
 
 otto_tpu's Pipeline.run_streaming runs once on tests/test_pipeline.py's
 tiny configuration and data (2,500 sessions, 1,200 aids, 20 trees at depth
-3); the port's run_streaming runs on the CPU under the config.json that
-otto_tpu stored, with what the port cannot make the same way: otto_tpu's
+3); the port's Pipeline.run_streaming runs on the CPU under the
+config.json that otto_tpu stored (both Pipelines' stage logs are kept),
+with what the port cannot make the same way: otto_tpu's
 word2vec models (its `w2v-*.npz`, copied into the port's work dir and
 read from the port's artifact cache),
 otto_tpu's k-means++ start (test_torch_build.py says why) and otto_tpu's
@@ -101,8 +102,8 @@ CFG = Config(
 def run_both(tmp_root):
     sp = split_events(generate(SPEC), CFG.data.test_days, CFG.data.seed)
     ref_dir = str(tmp_root / "ref")
-    ref_metrics = Pipeline(cfg=CFG, work_dir=ref_dir, n_aids=SPEC.n_aids).run_streaming(
-        sp.train, sp.test, sp.labels, batch_sessions=BATCH)
+    ref_pipe = Pipeline(cfg=CFG, work_dir=ref_dir, n_aids=SPEC.n_aids)
+    ref_metrics = ref_pipe.run_streaming(sp.train, sp.test, sp.labels, batch_sessions=BATCH)
 
     sess_emb = np.load(os.path.join(ref_dir, "session_emb.npz"))["emb"]
     n_clusters = CFG.kmeans.n_clusters_to_find[0]
@@ -123,10 +124,13 @@ def run_both(tmp_root):
                    lambda x, k, sample, generator: torch.from_numpy(init))
         mp.setattr(port_gbdt, "tree_draws", lambda cfg, f, n, device: ref_draws(cfg, f, n))
         lab = sp.labels
-        port_metrics = port_runner.run_streaming(
+        port_pipe = port_runner.Pipeline(port_cfg(ref_dir), str(port_dir), SPEC.n_aids,
+                                         device="cpu")
+        port_metrics = port_pipe.run_streaming(
             ev(sp.train), ev(sp.test), Labels(lab.session, lab.type, lab.aid),
-            SPEC.n_aids, str(port_dir), "cpu", cfg=port_cfg(ref_dir), batch_sessions=BATCH)
-    return {"ref": (ref_metrics, ref_dir), "port": (port_metrics, str(port_dir)), "split": sp}
+            batch_sessions=BATCH)
+    return {"ref": (ref_metrics, ref_dir), "port": (port_metrics, str(port_dir)), "split": sp,
+            "stage_log": (ref_pipe.stage_log, port_pipe.stage_log)}
 
 
 def port_cfg(ref_dir):
@@ -212,6 +216,26 @@ def test_trees_equal(both, tname):
     assert open(imp).readline() == "feature,gain_importance\n"
 
 
+def test_stage_log_matches_reference(both):
+    """The port's Pipeline.run_streaming logs otto_tpu's stages, by name and
+    in order, each entry as it ends with its seconds and host RSS."""
+    ref_log, port_log = both["stage_log"]
+    names = [e["stage"] for e in port_log]
+    assert names == [e["stage"] for e in ref_log]
+    assert names[0] == "covis" and names[-1] == "eval"
+    assert "retrieve+downsample (pass A)" in names and "score (pass B)" in names
+    for e in port_log:
+        assert e["rss_gb"] > 0 and e["elapsed_s"] >= 0, e
+        assert "peak_mem_gb" not in e   # a CPU run measures no device memory
+    assert [e["elapsed_s"] for e in port_log] == sorted(e["elapsed_s"] for e in port_log)
+    msgs = {e["stage"]: e.get("msg") for e in port_log}
+    assert msgs["eval_retrieved"] == dict((e["stage"], e.get("msg")) for e in ref_log)[
+        "eval_retrieved"]
+    for t in TYPES:
+        n = len(_rows(both["port"][1], t)["y"])
+        assert msgs[f"downsample {t} persisted"] == f"{n} rows"
+
+
 def test_recall_equal(both):
     (ref_m, _), (port_m, port_dir) = both["ref"], both["port"]
     for k in ("clicks", "carts", "orders", "total"):
@@ -243,10 +267,15 @@ def test_resume_skips_pass_a_and_serves_without_labels(both, tmp_path):
         mp.setattr(port_runner, "score_pass", lambda r, test, rankers, b: {
             t: (np.array([1], np.int32), np.zeros((1, 20), np.int32)) for t in rankers})
         lab = sp.labels
-        m = port_runner.run_streaming(
-            None, None, Labels(lab.session, lab.type, lab.aid), SPEC.n_aids, str(work),
-            "cpu", cfg=cfg, batch_sessions=BATCH)
+        pipe = port_runner.Pipeline(cfg, str(work), SPEC.n_aids, device="cpu")
+        m = pipe.run_streaming(None, None, Labels(lab.session, lab.type, lab.aid),
+                               batch_sessions=BATCH)
         assert not calls and m["ceiling_total"] == both["port"][0]["ceiling_total"]
+        # otto_tpu's resumed run: the missing rankers, then its cached-pass-A entry
+        assert [e["stage"] for e in pipe.stage_log] == [
+            "ranker carts (gbdt)", "ranker orders (gbdt)", "pass A + rankers (cached)",
+            "score (pass B)", "submit", "eval"]
+        assert all(e["rss_gb"] > 0 for e in pipe.stage_log)
         for t in ("carts", "orders"):
             np.testing.assert_array_equal(
                 port_gbdt.GBDTRanker.load(str(work / f"ranker-gbdt-{t}.npz")).thr,
