@@ -50,6 +50,18 @@ Phases, each printed before the last line:
    Prints the recall of the two w2v retrieval sources beside their
    figures on the seeded models of commit ba4da48. Checks that K1 and K2
    ran in pass A and K1 in training.
+4c. SGNS's other paths at production width: w2v-1-2 trained one epoch on
+   phase 4's events with chunk negatives, in block steps with Adagrad
+   (the path of the reference-scale build), in
+   block steps with plain SGD (optimizer "sgd", its rate falling as
+   otto_tpu's), in fused-accumulator chunk steps (OTTO_W2V_FUSED=1) and in
+   chunk steps on the unfused tables (OTTO_W2V_BLOCK=0): a warm-up
+   training of each, then SGNS_ROUNDS more in alternating order, each
+   timed on its step loop alone (TrainReport.loop_s; the median, least
+   and most ms a step, and SGD / Adagrad and fused / chunk round by
+   round); the fused training bit-equal to the chunk training there and
+   on the cross-check's small corpus (V ~ 30k). SGD's tables are reported (finite or not: otto_tpu notes
+   that the summed SGD steps can diverge), not held to a bar.
 5. Serving at production width from the built tables and the trained
    rankers: the port's score_pass (retrieval -> scoring -> top-20, batch
    2048, 32 kept aids, 512 candidates) over every test session and
@@ -94,8 +106,8 @@ Phases, each printed before the last line:
    top-20 (all bit-equal); GBDT histograms (bit-equal), a few trees from
    one set of draws on both devices (equal splits but at near ties,
    leaves within a stated tolerance) and two card trainings
-   (bit-identical); SGNS: one block step and one pair step at production
-   width from the same draws (tables and accumulators within a stated
+   (bit-identical); SGNS: one block step with Adagrad, one with plain SGD
+   and one pair step at production width from the same draws (tables and accumulators within a stated
    tolerance) and two card trainings of a small corpus in each step kind
    (bit-identical); the MLP tower at full width and on a small case,
    pointwise and listwise: scores within two bfloat16 ulps and three
@@ -131,7 +143,10 @@ Phases, each printed before the last line:
    its seconds, host RSS and peak device memory, the card's name, the
    metrics and the per-source report), K1-K4 launched, and ranked
    recall@20 above the heuristic baseline's on the same test sessions and
-   co-visitation tables.
+   co-visitation tables. It runs with OTTO_FS_TMPFS set (a directory under
+   /dev/shm where there is one): the events and the seven tables must be
+   written there and linked from the work dir, and every stage's entry
+   must carry the bytes on disk, in the tmpfs dir and written.
 
 Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase 10 runs after
 phase 9 in a work dir of its own; phase 6 runs last.
@@ -145,16 +160,20 @@ import hashlib
 import json
 import os
 import pickle
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 SEED = 1234
 N_AIDS = 1_800_000
+# phase 4c: timed trainings of each SGNS step kind after its warm-up
+SGNS_ROUNDS = 3
 BATCH = 2048
 N_SESSIONS = 500_000
 EMB_D = 100
@@ -741,6 +760,70 @@ def phase_table_build(dev, smi, work):
 
 
 # --------------------------------------------------------------------------
+# phase 4c: SGNS's plain-SGD and fused-accumulator paths
+# --------------------------------------------------------------------------
+def phase_sgns_paths(dev, smi, sp):
+    """w2v-1-2 one epoch on the split's events in four step kinds (block
+    Adagrad, block SGD, fused chunk, unfused chunk): a warm-up training
+    of each, then SGNS_ROUNDS more in alternating order, timed on their
+    step loops alone (scripts/probe_sgns_torch.py's step_kind_times);
+    fused bit-equal to chunk at this V and on a small corpus. -> {kind:
+    median ms a step}."""
+    from otto_tpu_torch.config import W2VEC_MODELS
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate_device
+    from otto_tpu_torch.models import word2vec as w2v
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from probe_sgns_torch import format_step_kind_times, step_kind_times
+
+    full = sp.train.concat(sp.test)
+    # chunk negatives, as at the reference's scale (neg_sharing "auto" picks
+    # them from 100k words or 5M positions)
+    base = dataclasses.replace(W2VEC_MODELS["w2v-1-2"], epochs=1, neg_sharing="chunk")
+    t0 = time.perf_counter()
+    times, models = step_kind_times(full, base, N_AIDS, dev, SGNS_ROUNDS)
+    dt = time.perf_counter() - t0
+    for kind, m in models.items():
+        r = m.report
+        print(f"# SGNS w2v-1-2 {kind}: {r.mode} steps, {r.optimizer}, V = {r.words}, "
+              f"{r.steps_per_epoch} steps of {r.pairs_per_step} pairs; loss "
+              f"{r.epoch_loss[0]:.4f}; finite share of the table "
+              f"{float(np.isfinite(m.emb).mean()):.4f}")
+    print(f"# SGNS step loops alone, a warm-up and {SGNS_ROUNDS} rounds in alternating "
+          f"order ({dt:.1f} s in all; {smi}):")
+    for line in format_step_kind_times(times):
+        print(f"#   {line}")
+    want_modes = {"block adagrad": ("block", "adagrad"), "block sgd": ("block", "sgd"),
+                  "fused chunk": ("fused", "adagrad"), "chunk": ("chunk", "adagrad")}
+    for kind, want in want_modes.items():
+        r = models[kind].report
+        require((r.mode, r.optimizer) == want, f"SGNS {kind}: {r.mode}, {r.optimizer}")
+    for kind in ("block adagrad", "fused chunk"):
+        require(bool(np.isfinite(models[kind].emb).all()), f"SGNS {kind}: finite table")
+    require(np.array_equal(models["fused chunk"].emb, models["chunk"].emb),
+            "SGNS fused chunk steps bit-equal to chunk steps at w2v-1-2's V")
+    require(models["fused chunk"].report.epoch_loss == models["chunk"].report.epoch_loss,
+            "SGNS fused and chunk losses equal")
+    ms = {kind: statistics.median(t) for kind, t in times.items()}
+
+    ev = generate_device(SyntheticSpec(n_sessions=20_000, n_aids=50_000, max_len=128,
+                                       mean_len=14, seed=SEED + 3), dev)
+    small = dataclasses.replace(base, name="x", types=(0, 1, 2), min_count=2, epochs=2,
+                                neg_sharing="chunk")
+    with mock.patch.dict(os.environ, OTTO_W2V_FUSED="1"):
+        fused = w2v.train_word2vec_device(ev, small, 50_000, device=dev)
+    with mock.patch.dict(os.environ, OTTO_W2V_FUSED="0", OTTO_W2V_BLOCK="0"):
+        chunk = w2v.train_word2vec_device(ev, small, 50_000, device=dev)
+    require(fused.report.mode == "fused" and chunk.report.mode == "chunk"
+            and np.array_equal(fused.emb, chunk.emb),
+            "SGNS fused chunk steps bit-equal to chunk steps on the small corpus")
+    print(f"# SGNS fused vs chunk: bit-equal at V = {models['chunk'].report.words} (one "
+          f"epoch) and V = {fused.report.words} ({fused.report.steps_per_epoch} x 2 steps); "
+          f"median ms a step of the step loops: "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} ({smi})")
+    return ms
+
+
+# --------------------------------------------------------------------------
 # phase 4b: training from the built tables
 # --------------------------------------------------------------------------
 def valid_baselines(feats, y, sess, max_group, k, cap=0, seed=0):
@@ -1305,18 +1388,38 @@ def phase_fullscale(smi, root):
 
     here = os.path.dirname(os.path.abspath(__file__))
     work, out_path = os.path.join(root, "fullscale"), os.path.join(root, "fullscale.json")
-    env = dict(os.environ, OTTO_FS_SESSIONS=str(FULLSCALE_SESSIONS),
-               OTTO_FS_AIDS=str(FULLSCALE_AIDS), OTTO_FS_WORKDIR=work, OTTO_FS_OUT=out_path)
-    env["PYTHONPATH"] = os.pathsep.join([here] + [p for p in [env.get("PYTHONPATH")] if p])
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", SCRIPT_WITH_COUNTS,
-                          os.path.join(here, "scripts", "run_fullscale_torch.py")],
-                         capture_output=True, text=True, env=env, timeout=600)
-    dt = time.perf_counter() - t0
-    require(out.returncode == 0, f"run_fullscale_torch.py exit 0: {out.stderr[-3000:]}")
+    shm = "/dev/shm" if os.access("/dev/shm", os.W_OK) else root
+    with tempfile.TemporaryDirectory(dir=shm) as tmpfs:
+        env = dict(os.environ, OTTO_FS_SESSIONS=str(FULLSCALE_SESSIONS),
+                   OTTO_FS_AIDS=str(FULLSCALE_AIDS), OTTO_FS_WORKDIR=work,
+                   OTTO_FS_OUT=out_path, OTTO_FS_TMPFS=tmpfs)
+        env["PYTHONPATH"] = os.pathsep.join([here] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", SCRIPT_WITH_COUNTS,
+                              os.path.join(here, "scripts", "run_fullscale_torch.py")],
+                             capture_output=True, text=True, env=env, timeout=600)
+        dt = time.perf_counter() - t0
+        require(out.returncode == 0, f"run_fullscale_torch.py exit 0: {out.stderr[-3000:]}")
+        placed = sorted(os.listdir(tmpfs))
+        linked = sorted(f for f in os.listdir(work)
+                        if os.path.islink(os.path.join(work, f))
+                        and os.path.dirname(os.readlink(os.path.join(work, f))) == tmpfs)
+        tmpfs_bytes = sum(os.path.getsize(os.path.join(tmpfs, f)) for f in placed)
+        with open(out_path) as fh:
+            rec = json.load(fh)
+        z = np.load(os.path.join(work, "events.npz"))
+        ev = {k: z[k] for k in ("session", "aid", "ts", "type")}
+        with open(os.path.join(work, "covis.pkl"), "rb") as fh:
+            stored = pickle.load(fh)
+    want = sorted(["events.npz", "covis.pkl", "w2v-w2v-all.npz", "w2v-w2v-1-2.npz",
+                   "knn-w2v-all.npz", "knn-w2v-1-2.npz", "session_emb.npz", "clusters.npz"])
+    require(placed == want and linked == want,
+            f"OTTO_FS_TMPFS: events and tables in {tmpfs} ({placed}), linked ({linked})")
+    last = rec["stages"][-1]
+    require(all({"disk_bytes", "tmpfs_bytes", "write_bytes"} <= set(e) for e in rec["stages"])
+            and last["tmpfs_bytes"] == tmpfs_bytes and last["disk_bytes"] > 0,
+            f"every stage's byte columns, the last one's tmpfs bytes {tmpfs_bytes}: {last}")
     launches = json.loads(out.stderr.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
-    with open(out_path) as fh:
-        rec = json.load(fh)
     stages = rec["stages"]
     require([e["stage"] for e in stages] == FULLSCALE_STAGES,
             f"the record's stages: {[e['stage'] for e in stages]}")
@@ -1331,11 +1434,8 @@ def phase_fullscale(smi, root):
     m = rec["metrics"]
 
     # the heuristic baseline on the same test sessions and co-visitation tables
-    z = np.load(os.path.join(work, "events.npz"))
-    sp = split_events(Events(z["session"], z["aid"], z["ts"], z["type"]),
+    sp = split_events(Events(ev["session"], ev["aid"], ev["ts"], ev["type"]),
                       DEFAULT.data.test_days, DEFAULT.data.seed)
-    with open(os.path.join(work, "covis.pkl"), "rb") as fh:
-        stored = pickle.load(fh)
     tables = {n: CoVisTables(*(torch.from_numpy(a).cuda() for a in stored[n]))
               for n in COVIS_FIRST_N}
     sessions, aids = baseline.recommend(sp.test, tables)
@@ -1347,7 +1447,9 @@ def phase_fullscale(smi, root):
           f"{launches}; stage seconds "
           f"{json.dumps({e['stage']: e['delta_s'] for e in stages[2:]})}; peak device GiB "
           f"{max(e['peak_mem_gb'] for e in stages[2:])}; recall@20 total {m['total']:.5f}, "
-          f"ceiling {m['ceiling_total']:.5f}, baseline {base['total']:.5f} ({smi})")
+          f"ceiling {m['ceiling_total']:.5f}, baseline {base['total']:.5f}; "
+          f"OTTO_FS_TMPFS: {tmpfs_bytes} bytes of events and tables in tmpfs, "
+          f"{last['disk_bytes']} on disk, {last['write_bytes']} written ({smi})")
     require(0.0 < m["total"] <= m["ceiling_total"] <= 1.0, "recall@20 under the ceiling")
     require(m["total"] > base["total"], f"ranked recall@20 {m['total']} above the "
             f"baseline's {base['total']}")
@@ -2230,7 +2332,8 @@ def cross_check_mlp(dev):
 def cross_check_sgns(dev):
     """SGNS on the card against the CPU from the same draws (made on the
     CPU, copied to both) and the same seeded state: one block step (16384
-    centers x 4, 8 negatives, 100-d) and one pair step (65536 pairs) with
+    centers x 4, 8 negatives, 100-d) with Adagrad and one with plain SGD
+    (the accumulators left alone), and one pair step (65536 pairs) with
     their tables and accumulators within SGNS_RTOL / SGNS_ATOL; then two
     card trainings of a small corpus in each step kind, bit-identical."""
     from otto_tpu_torch.config import Word2VecConfig
@@ -2260,17 +2363,20 @@ def cross_check_sgns(dev):
     def step(device, kind):
         x = {k: v.to(device) for k, v in host.items()}
         p = w2v.SGNSParams(*(t.to(device).clone() for t in state))
-        if kind == "block":
+        if kind in ("block", "block sgd"):
+            # plain SGD at otto_tpu's starting rate (sgd_alpha)
+            sgd = kind == "block sgd"
             loss = w2v._block_step(p, x["words"], x["pos_info"], x["prob"], x["alias"],
-                                   x["keep"], 0.25, 4, 8,
-                                   {k: v.to(device) for k, v in block.items()})
+                                   x["keep"], 0.025 if sgd else 0.25, 4, 8,
+                                   {k: v.to(device) for k, v in block.items()},
+                                   "sgd" if sgd else "adagrad")
         else:
             loss = w2v._pair_step(p, x["words"], x["cum"], x["cdf"], x["keep"], 0.25,
                                   65536, 8, {k: v.to(device) for k, v in pair.items()},
                                   "pair")
         return [t.cpu() for t in p], float(loss)
 
-    for kind in ("block", "pair"):
+    for kind in ("block", "block sgd", "pair"):
         (got, loss_d), (want, loss_c) = step(dev, kind), step(cpu, kind)
         errs = []
         for name, a, b, s0 in zip(w2v.SGNSParams._fields, got, want, state):
@@ -2279,6 +2385,9 @@ def cross_check_sgns(dev):
             moved = int((b != s0).reshape(V, -1).any(1).sum())
             errs.append(f"{name} {float((a - b).abs().max()):.3g} ({moved} rows moved)")
         require(abs(loss_d - loss_c) <= SGNS_RTOL * abs(loss_c), f"SGNS {kind} loss")
+        if kind == "block sgd":
+            require(torch.equal(got[2], state[2]) and torch.equal(got[3], state[3]),
+                    "SGNS block sgd step leaves the accumulators alone")
         print(f"# cross-check SGNS {kind} step: V = {V}, card vs CPU max |diff| "
               f"{', '.join(errs)}; loss {loss_d:.6f} vs {loss_c:.6f} (tolerance "
               f"{SGNS_RTOL} relative + {SGNS_ATOL})")
@@ -2381,6 +2490,8 @@ def main():
         torch.cuda.empty_cache()
         rankers, pa_launches, tr_launches, pa_metrics = phase_training(
             dev, smi, sp, retriever, work)
+        torch.cuda.empty_cache()
+        phase_sgns_paths(dev, smi, sp)
         torch.cuda.empty_cache()
         serve_launches, serve_recall, base_recall = phase_main_path(
             dev, smi, sp, retriever, rankers, pa_metrics)

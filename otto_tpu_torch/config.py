@@ -215,9 +215,8 @@ class GBDTConfig:
 class Word2VecConfig:
     """An item-embedding model: its vocabulary filter and width, the SGNS
     training settings and the kNN search over its table. Names and
-    defaults are otto_tpu's; the port leaves out its `sgd_alpha` /
-    `sgd_min_alpha` (plain SGD is refused, see below) and `padded_dim` (an
-    MXU tile width)."""
+    defaults are otto_tpu's; the port leaves out its `padded_dim` (an MXU
+    tile width)."""
 
     name: str = "w2v-all"
     types: Tuple[int, ...] = (0, 1, 2)   # event types in the corpus
@@ -241,8 +240,16 @@ class Word2VecConfig:
     neg_sharing: str = "auto"
     # contexts per sampled center in chunk mode (0 / 1: per-pair sampling)
     block_k: int = 4
-    # only 'adagrad': otto_tpu's plain-SGD option diverges (below)
+    # 'adagrad' (per-row adaptive) or 'sgd': gensim's plain SGD, its rate
+    # falling linearly from sgd_alpha to sgd_min_alpha over the run, held
+    # for each steps_per_dispatch steps; block steps only (other step kinds
+    # train with Adagrad, as otto_tpu's do). A batch sums the gradients of
+    # a word's duplicate occurrences, and without Adagrad's per-row scale
+    # the summed step can diverge (NaN on the 200-word topics fixture at
+    # alpha 0.05, otto_tpu/config.py:212-220)
     optimizer: str = "adagrad"
+    sgd_alpha: float = 0.025
+    sgd_min_alpha: float = 1e-4
     # an epoch runs ceil(steps / steps_per_dispatch) * steps_per_dispatch
     # steps, as otto_tpu's fixed-size dispatches do; the port dispatches
     # step by step, and keeps the field for that step count
@@ -251,13 +258,9 @@ class Word2VecConfig:
     knn_first_n_aids: int = 600_000      # queries: the most frequent words
 
     def __post_init__(self):
-        if self.optimizer != "adagrad":
+        if self.optimizer not in ("adagrad", "sgd"):
             raise ValueError(
-                f"word2vec optimizer {self.optimizer!r}: only 'adagrad' is ported. "
-                "otto_tpu's 'sgd' is a measured negative: a batch sums the "
-                "gradients of a word's duplicate occurrences, and without "
-                "Adagrad's per-row scale the summed step diverges (NaN on the "
-                "200-word topics fixture at alpha 0.05, otto_tpu/config.py:212-220)")
+                f"word2vec optimizer {self.optimizer!r}: 'adagrad' or 'sgd'")
 
 
 # the two embedding models, in build order; the first is the main model

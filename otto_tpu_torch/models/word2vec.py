@@ -6,15 +6,22 @@ both SGNS trainers.
 
 `train_word2vec_device` uploads the corpus once as a flat ragged word
 stream and samples every step's (center, context, negatives) on the
-device. Three step kinds, chosen as otto_tpu chooses them:
+device. Four step kinds, chosen as otto_tpu chooses them:
   block  (chunk negatives, block_k > 1; the production path at >= 100k
          words or >= 5M positions): each sampled center takes block_k
          contexts from its dynamic window, negatives come from Walker
-         alias tables, shared by chunks of 256 pairs;
+         alias tables, shared by chunks of 256 pairs; Adagrad, or plain
+         SGD with otto_tpu's linearly falling rate (optimizer="sgd");
   chunk  the same shared negatives over per-pair samples, drawn by CDF
          search;
+  fused  (OTTO_W2V_FUSED=1, chunk negatives, one device) the chunk step
+         on tables of [V, D+1] rows whose last column is the row's Adagrad
+         accumulator (fuse_params): two row gathers and two row scatters a
+         step instead of four of each, bit-equal to the chunk step;
   pair   `negatives` fresh draws per pair, dense whole-table gradients and
          whole-table Adagrad (small corpora).
+Every kind but block trains with Adagrad whatever cfg.optimizer says, as
+otto_tpu's do.
 `train_word2vec` (sampler="host") streams numpy pairs per epoch
 (`skipgram_pairs`, gensim's dynamic window and subsampling) through
 `sgns_step` with a linearly decaying lr.
@@ -43,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -98,10 +106,13 @@ def build_vocab(
 
 @dataclasses.dataclass
 class TrainReport:
-    """What a training ran: the step kind ("block", "chunk", "pair" or
-    "host"), vocabulary size, corpus positions (host: pairs of the last
-    epoch), steps per epoch, epochs run (after a resume, the rest), pairs
-    sampled per step and each epoch's mean step loss."""
+    """What a training ran: the step kind ("block", "chunk", "fused",
+    "pair" or "host"), vocabulary size, corpus positions (host: pairs of
+    the last epoch), steps per epoch, epochs run (after a resume, the
+    rest), pairs sampled per step, each epoch's mean step loss, the
+    optimizer the steps applied ("adagrad" or "sgd") and the seconds of
+    the step loops alone (device trainers: from a synchronised device to
+    each epoch's loss read, checkpoints left out)."""
 
     mode: str
     words: int
@@ -110,6 +121,8 @@ class TrainReport:
     epochs: int
     pairs_per_step: int
     epoch_loss: List[float]
+    optimizer: str = "adagrad"
+    loop_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -405,15 +418,25 @@ def _take(table: torch.Tensor, ids: torch.Tensor,
     return rows
 
 
+def _fixed_scale(rows: torch.Tensor, n: int, wide: bool = False) -> torch.Tensor:
+    """The power of two (float32, on rows' device) that puts the sum of n
+    rows as large as `rows` within int64: 2^(62 - e) for |rows| * n <
+    2^e. `wide` takes the product in float64, so that rows near float32's
+    largest values still give a finite scale."""
+    amax = rows.abs().amax()
+    _, e = torch.frexp(amax.double() * n if wide else amax * n)
+    return torch.ldexp(torch.ones((), device=rows.device), (62 - e).clamp(max=126))
+
+
 def _fixed_sums(ids: torch.Tensor, rows: torch.Tensor, shape,
-                shard: Optional[TableShard] = None):
+                shard: Optional[TableShard] = None, wide: bool = False):
     """Per-id sums of rows, exact, so in no particular order: the rows are
     scaled by one power of two into int64 fixed point (room for the sum of
-    all of them) and added with integer index_add_, with no sort and no
-    host sync. -> (int64 sums of `shape`, the float32 scale). On a shard
-    the scale is that of all rows, and only owned ids are summed."""
-    _, e = torch.frexp(rows.abs().amax() * ids.shape[0])
-    scale = torch.ldexp(torch.ones((), device=rows.device), (62 - e).clamp(max=126))
+    all of them, _fixed_scale) and added with integer index_add_, with no
+    sort and no host sync. -> (int64 sums of `shape`, the float32 scale).
+    On a shard the scale is that of all rows, and only owned ids are
+    summed."""
+    scale = _fixed_scale(rows, ids.shape[0], wide)
     fixed = torch.zeros(shape, dtype=torch.int64, device=rows.device)
     fixed.index_add_(0, _local_ids(ids, shard)[0], torch.round(rows * scale).to(torch.int64))
     return fixed, scale
@@ -437,17 +460,55 @@ def _add_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
     table[loc] = table[loc] + fixed[loc].to(table.dtype) / scale
 
 
+def _add_rows_unbounded(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
+    """_add_rows for rows that may be inf, NaN or near float32's largest
+    values (a diverging plain-SGD step): the finite entries are summed in
+    fixed point at a scale that stays finite (_fixed_scale's `wide`), and
+    the others are added in float, where a sum of infinities and NaNs is
+    the same in any order. So a row goes inf or NaN where float adds take
+    it there, and a fixed-point sum never wraps into finite values."""
+    finite = torch.isfinite(rows)
+    fixed, scale = _fixed_sums(ids, torch.where(finite, rows, 0.0), table.shape, wide=True)
+    odd = torch.zeros_like(table).index_add_(0, ids, torch.where(finite, 0.0, rows))
+    table[ids] = table[ids] + (fixed[ids].to(table.dtype) / scale + odd[ids])
+
+
+def _add_fused_rows(tab: torch.Tensor, ids: torch.Tensor, upd: torch.Tensor,
+                    gsq: torch.Tensor, rows: torch.Tensor) -> None:
+    """tab[ids, :D] += upd and tab[ids, D] += gsq on a fused table whose
+    rows at ids (before the add) are `rows`: each part scaled into fixed
+    point as _add_rows scales it on its own table, then one int64
+    index_add_ of [M, D+1] rows, so both parts equal _add_rows' bit for
+    bit."""
+    n = ids.shape[0]
+    s_upd, s_gsq = _fixed_scale(upd, n), _fixed_scale(gsq, n)
+    fixed = torch.zeros(tab.shape, dtype=torch.int64, device=tab.device)
+    fixed.index_add_(0, ids, torch.cat([torch.round(upd * s_upd),
+                                        torch.round(gsq * s_gsq)[:, None]], 1).to(torch.int64))
+    scale = torch.cat([s_upd.expand(upd.shape[1]), s_gsq[None]])
+    # duplicate ids write the same value
+    tab[ids] = rows + fixed[ids].to(tab.dtype) / scale
+
+
+def _adagrad_rows(g: torch.Tensor, acc: torch.Tensor, lr: float):
+    """Per-row Adagrad of row occurrences with gradients g [M, D] whose
+    rows' accumulators before the step are acc [M]: -> (the update
+    -lr * g / sqrt(acc + mean(g^2) + 1e-8), the accumulator's increment
+    mean(g^2))."""
+    gsq = torch.mean(g ** 2, dim=1)
+    scale = lr * torch.rsqrt(acc + gsq + 1e-8)
+    return -scale[:, None] * g, gsq
+
+
 def _sparse_adagrad(p: SGNSParams, c_ids, g_c, out_ids, g_out, lr: float,
                     shard: Optional[TableShard] = None) -> None:
     """Per-row Adagrad on the touched rows: each row occurrence is scaled
     by its row's pre-step accumulator plus its own squared gradient mean,
     then the occurrences are summed into the tables."""
-    gsq_c = torch.mean(g_c ** 2, dim=1)
-    gsq_out = torch.mean(g_out ** 2, dim=1)
-    scale_c = lr * torch.rsqrt(_take(p.acc_in, c_ids, shard) + gsq_c + 1e-8)
-    scale_out = lr * torch.rsqrt(_take(p.acc_out, out_ids, shard) + gsq_out + 1e-8)
-    _add_rows(p.emb_in, c_ids, -scale_c[:, None] * g_c, shard)
-    _add_rows(p.emb_out, out_ids, -scale_out[:, None] * g_out, shard)
+    upd_c, gsq_c = _adagrad_rows(g_c, _take(p.acc_in, c_ids, shard), lr)
+    upd_out, gsq_out = _adagrad_rows(g_out, _take(p.acc_out, out_ids, shard), lr)
+    _add_rows(p.emb_in, c_ids, upd_c, shard)
+    _add_rows(p.emb_out, out_ids, upd_out, shard)
     _add_rows(p.acc_in, c_ids, gsq_c, shard)
     _add_rows(p.acc_out, out_ids, gsq_out, shard)
 
@@ -505,9 +566,10 @@ def _block_neg_grads(c, pv, negs_rows, valid, n_negs: int):
 
 
 def _block_step(p: SGNSParams, words, pos_info, neg_prob, neg_alias, keep_prob,
-                lr: float, k: int, n_negs: int, d) -> torch.Tensor:
-    """One block step (otto_tpu's _sgns_step_body_block with Adagrad),
-    in place on p. -> the loss per valid pair."""
+                lr: float, k: int, n_negs: int, d, optimizer: str = "adagrad") -> torch.Tensor:
+    """One block step (otto_tpu's _sgns_step_body_block), in place on p:
+    per-row Adagrad, or with optimizer "sgd" the plain step -lr * g, the
+    accumulators left alone. -> the loss per valid pair."""
     c_safe, x_safe, valid = _sample_center_block(words, pos_info, keep_prob, k, d)
     C = c_safe.shape[0]
     D = p.emb_in.shape[1]
@@ -522,7 +584,11 @@ def _block_step(p: SGNSParams, words, pos_info, neg_prob, neg_alias, keep_prob,
         c, rows_out[: C * k].reshape(C, k, D), rows_out[C * k:].reshape(Nc, Ks, D),
         valid.reshape(C, k), n_negs)
     g_out = torch.cat([g_pv.reshape(C * k, D), g_n.reshape(-1, D)])
-    _sparse_adagrad(p, c_safe, g_c, ids_out, g_out, lr)
+    if optimizer == "sgd":
+        _add_rows_unbounded(p.emb_in, c_safe, -lr * g_c)
+        _add_rows_unbounded(p.emb_out, ids_out, -lr * g_out)
+    else:
+        _sparse_adagrad(p, c_safe, g_c, ids_out, g_out, lr)
     return loss / n_valid
 
 
@@ -624,6 +690,51 @@ def _pair_step(p: SGNSParams, words, cum_len, neg_cdf, keep_prob, lr: float,
     return loss / valid.sum().clamp(min=1)
 
 
+def fuse_params(p: SGNSParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SGNSParams -> (tab_in, tab_out), [V, D+1] each: a table's rows with
+    its accumulator as the last column."""
+    return (torch.cat([p.emb_in, p.acc_in[:, None]], 1),
+            torch.cat([p.emb_out, p.acc_out[:, None]], 1))
+
+
+def unfuse_params(tab_in: torch.Tensor, tab_out: torch.Tensor) -> SGNSParams:
+    """fuse_params' inverse, as contiguous copies."""
+    D = tab_in.shape[1] - 1
+    return SGNSParams(tab_in[:, :D].contiguous(), tab_out[:, :D].contiguous(),
+                      tab_in[:, D].contiguous(), tab_out[:, D].contiguous())
+
+
+def _fused_chunk_step(tab_in: torch.Tensor, tab_out: torch.Tensor, words, cum_len, neg_cdf,
+                      keep_prob, lr: float, batch: int, n_negs: int, d) -> torch.Tensor:
+    """One chunk step on fused tables (otto_tpu's _sgns_step_body_chunk_fused),
+    in place: one row gather and one row scatter a table, the same sums
+    as _pair_step's chunk step and so its tables bit for bit. -> the loss
+    per valid pair."""
+    D = tab_in.shape[1] - 1
+    c_safe, x_safe, valid = _sample_pair_batch(words, cum_len, keep_prob, d)
+    ids_out = torch.cat([x_safe, torch.searchsorted(neg_cdf, d["neg_u"].reshape(-1))])
+    c_f, out_f = tab_in[c_safe], tab_out[ids_out]                    # [B | M, D+1]
+    g_c, g_out, loss, n_valid = _chunk_neg_grads(
+        c_f[:, :D].contiguous(), out_f[:, :D].contiguous(), valid, batch, n_negs)
+    _add_fused_rows(tab_in, c_safe, *_adagrad_rows(g_c, c_f[:, D], lr), c_f)
+    _add_fused_rows(tab_out, ids_out, *_adagrad_rows(g_out, out_f[:, D], lr), out_f)
+    return loss / n_valid
+
+
+def sgd_rate(cfg: Word2VecConfig, epoch: int, step: int, n_steps: int) -> float:
+    """The plain-SGD rate of `step` of `epoch` (absolute, so a resumed run
+    goes on down the same line), otto_tpu's: constant over each dispatch
+    of steps_per_dispatch steps, sgd_alpha -> sgd_min_alpha linearly by
+    the dispatch's index among all of the run's, taken in float64 and
+    rounded to float32. n_steps: an epoch's steps (whole dispatches)."""
+    chunk = max(1, cfg.steps_per_dispatch)
+    n_chunks = n_steps // chunk
+    done = epoch * n_chunks + step // chunk
+    total = max(1, cfg.epochs * n_chunks)
+    a0, a1 = float(cfg.sgd_alpha), float(cfg.sgd_min_alpha)
+    return float(np.float32(a0 + (a1 - a0) * (done / total)))
+
+
 def sgns_step(p: SGNSParams, center: torch.Tensor, pos: torch.Tensor,
               neg_cdf: torch.Tensor, lr: float, d) -> torch.Tensor:
     """One host-sampler step on a [B] batch of (center, context) pairs,
@@ -654,12 +765,16 @@ def train_word2vec_device(
     """Device-sampled SGNS training, as otto_tpu's train_word2vec_device:
     the flat corpus on `device`, ceil(positions * window /
     batch_size / steps_per_dispatch) * steps_per_dispatch steps per epoch
-    at the constant Adagrad lr, the step kind from negative_mode and
-    block_k (OTTO_W2V_BLOCK=0 turns the block sampler off).
+    at the constant Adagrad lr (block steps with optimizer "sgd": plain
+    SGD at sgd_rate), the step kind from negative_mode and block_k
+    (OTTO_W2V_BLOCK=0 turns the block sampler off; OTTO_W2V_FUSED=1 takes
+    fused chunk steps in its place, on one device with chunk negatives).
 
     Resumes from `checkpoint_path` when it holds a checkpoint of this
     model (name, V, vector_size, epochs, seed, window, negatives); with
-    OTTO_W2V_CKPT_EVERY=N saves one every N epochs but the last.
+    OTTO_W2V_CKPT_EVERY=N saves one every N epochs but the last. A
+    checkpoint holds the unfused tables whatever the step kind, so a
+    fused run resumes from an unfused one's and the other way round.
     `draws(epoch, step)` replaces the default draws (block_draws /
     pair_draws from a torch.Generator on `device`); `start` replaces
     init_params' random table. -> Word2Vec with its TrainReport.
@@ -689,11 +804,17 @@ def train_word2vec_device(
                      cfg.name, neg_mode)
         neg_mode = "chunk"
         checkpoint_path = None
-    block = (neg_mode == "chunk" and cfg.block_k > 1 and n_model == 1
+    fused = (neg_mode == "chunk" and n_model == 1
+             and os.environ.get("OTTO_W2V_FUSED", "0") == "1")
+    block = (neg_mode == "chunk" and cfg.block_k > 1 and n_model == 1 and not fused
              and os.environ.get("OTTO_W2V_BLOCK", "1") != "0")
-    mode = "block" if block else neg_mode
-    log.info("w2v[device] %s: %s steps (V=%d, positions=%d)", cfg.name, mode, V,
-             positions)
+    mode = "block" if block else "fused" if fused else neg_mode
+    optimizer = cfg.optimizer if block else "adagrad"
+    if optimizer != cfg.optimizer:
+        log.info("w2v[device] %s: optimizer %s applies to block steps only; %s steps "
+                 "train with adagrad", cfg.name, cfg.optimizer, mode)
+    log.info("w2v[device] %s: %s steps, %s (V=%d, positions=%d)", cfg.name, mode,
+             optimizer, V, positions)
 
     params = init_params(V, cfg.vector_size, cfg.seed, dev, start)
     gen = torch.Generator(device=dev).manual_seed(_seed32(cfg.seed * 1_000_003 + 1))
@@ -730,9 +851,10 @@ def train_word2vec_device(
         def sample(g):
             return block_draws(g, n_centers, k, cfg.window, positions, V, n_pool)
 
-        def step(d):
-            return _block_step(params, words, pos_info, prob, alias, keep_prob, lr,
-                               k, cfg.negatives, d)
+        def step(epoch, i, d):
+            rate = sgd_rate(cfg, epoch, i, n_steps) if optimizer == "sgd" else lr
+            return _block_step(params, words, pos_info, prob, alias, keep_prob, rate,
+                               k, cfg.negatives, d, optimizer)
     else:
         B = cfg.batch_size
         neg_shape = ((max(1, B // min(_NEG_CHUNK, B)), Ks) if neg_mode == "chunk"
@@ -744,9 +866,20 @@ def train_word2vec_device(
         def sample(g):
             return pair_draws(g, B, cfg.window, neg_shape)
 
-        def step(d):
-            return _pair_step(params, words, cum_d, neg_cdf, keep_prob, lr, B,
-                              cfg.negatives, d, neg_mode, shard)
+        if fused:
+            tables = fuse_params(params)
+            params = None
+
+            def step(epoch, i, d):
+                return _fused_chunk_step(*tables, words, cum_d, neg_cdf, keep_prob, lr, B,
+                                         cfg.negatives, d)
+        else:
+            def step(epoch, i, d):
+                return _pair_step(params, words, cum_d, neg_cdf, keep_prob, lr, B,
+                                  cfg.negatives, d, neg_mode, shard)
+
+    def saved_state():
+        return _state(unfuse_params(*tables) if fused else params, gen)
 
     if draws is None:
         def draws(epoch, i):
@@ -754,19 +887,25 @@ def train_word2vec_device(
 
     ckpt_every = int(os.environ.get("OTTO_W2V_CKPT_EVERY", "0") or 0)
     losses = []
+    loop_s = 0.0
     for epoch in range(start_epoch, cfg.epochs):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
         total = torch.zeros((), device=dev)
         for i in range(n_steps):
-            total += step(draws(epoch, i))
+            total += step(epoch, i, draws(epoch, i))
         losses.append(float(total) / n_steps)
+        loop_s += time.perf_counter() - t0
         log.info("w2v[device] %s epoch %d: %d steps, mean loss %.4f", cfg.name, epoch,
                  n_steps, losses[-1])
         if (checkpoint_path is not None and ckpt_every > 0
                 and (epoch + 1) % ckpt_every == 0 and epoch + 1 < cfg.epochs):
-            save_checkpoint(checkpoint_path, _state(params, gen), epoch + 1, meta=meta)
+            save_checkpoint(checkpoint_path, saved_state(), epoch + 1, meta=meta)
 
-    report = TrainReport(mode, V, positions, n_steps, len(losses), pairs_per_step, losses)
-    emb = params.emb_in
+    report = TrainReport(mode, V, positions, n_steps, len(losses), pairs_per_step, losses,
+                         optimizer, loop_s)
+    emb = tables[0][:, :cfg.vector_size].contiguous() if fused else params.emb_in
     if shard is not None:
         emb = gather_equal(emb[:shard.vs], shard.group, n_model)[:V]
     return Word2Vec(cfg, vocab, emb.cpu().numpy(), report)

@@ -259,8 +259,10 @@ def build_retriever(
     n_data = 1 if mesh is None else mesh.n_data
     if mesh is not None:
         dist.barrier()
-    # the cache as it stands now: later writes (rank 0's) are not read back
-    present = (set(os.listdir(cache_dir))
+    # the cache as it stands now: later writes (rank 0's) are not read back;
+    # a link to a file not written yet (scripts/run_fullscale_torch.py's
+    # OTTO_FS_TMPFS) is no artifact, and the writer fills its target
+    present = ({f for f in os.listdir(cache_dir) if os.path.exists(os.path.join(cache_dir, f))}
                if cache_dir is not None and use_cache and os.path.isdir(cache_dir) else set())
     loaded: List[str] = []
     written: List[str] = []

@@ -18,13 +18,24 @@ number of steps through _block_step itself, without the events, and the
 peak memory. Prints the card's name and power limit beside the numbers.
 `--device cpu` runs the same at a small --sessions as a rehearsal (its
 times are the CPU's, not the card's).
+
+    python3 scripts/probe_sgns_torch.py --step-kinds 10 --model w2v-1-2
+
+instead times the step loops of the four step kinds (block Adagrad,
+block SGD, fused chunk, chunk; step_kind_times): one warm-up training of
+the model in each kind, then ten more each, the kinds in turn and the
+order reversed every round, each read from TrainReport.loop_s. Prints
+each kind's ms a step (median, least, most) and, round by round, block
+SGD against block Adagrad and fused against chunk.
 """
 import argparse
 import dataclasses
 import os
+import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
@@ -107,10 +118,54 @@ def timed_block_step(p, words, pos_info, prob, alias, keep_prob, lr, k, n_negs,
     return loss / n_valid
 
 
+# the step kinds of train_word2vec_device: (environment, config changes)
+STEP_KINDS = {"block adagrad": ({}, {}),
+              "block sgd": ({}, {"optimizer": "sgd"}),
+              "fused chunk": ({"OTTO_W2V_FUSED": "1"}, {}),
+              "chunk": ({"OTTO_W2V_FUSED": "0", "OTTO_W2V_BLOCK": "0"}, {})}
+
+
+def step_kind_times(ev, cfg, n_aids, dev, rounds):
+    """Train cfg on ev in every kind of STEP_KINDS once as a warm-up, then
+    `rounds` times more, the kinds in turn and their order reversed every
+    round. -> ({kind: ms a step of the step loop (TrainReport.loop_s), one
+    a round}, {kind: the warm-up's Word2Vec})."""
+    times = {kind: [] for kind in STEP_KINDS}
+    models = {}
+    for r in range(rounds + 1):
+        for kind in list(STEP_KINDS)[::1 if r % 2 == 0 else -1]:
+            env, change = STEP_KINDS[kind]
+            with mock.patch.dict(os.environ, env):
+                m = w2v.train_word2vec_device(ev, dataclasses.replace(cfg, **change), n_aids,
+                                              device=dev)
+            if r == 0:
+                models[kind] = m
+            else:
+                rep = m.report
+                times[kind].append(1e3 * rep.loop_s / (rep.steps_per_epoch * rep.epochs))
+    return times, models
+
+
+def format_step_kind_times(times):
+    """step_kind_times' times -> lines: each kind's median, least and most
+    ms a step; the round-by-round ratios of block SGD to block Adagrad
+    and of fused to chunk, with how many rounds each came out faster."""
+    lines = [f"{kind}: median {statistics.median(t):.3f} ms a step, least {min(t):.3f}, "
+             f"most {max(t):.3f} ({len(t)} rounds)" for kind, t in times.items()]
+    for a, b in (("block sgd", "block adagrad"), ("fused chunk", "chunk")):
+        r = [x / y for x, y in zip(times[a], times[b])]
+        lines.append(f"{a} / {b}: median {statistics.median(r):.3f}, least {min(r):.3f}, "
+                     f"most {max(r):.3f}; faster in {sum(x < 1 for x in r)} of {len(r)} rounds")
+    return lines
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sessions", type=int, default=500_000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--step-kinds", type=int, default=0,
+                    help="time the four step kinds' loops in this many rounds instead")
+    ap.add_argument("--model", default="w2v-all", choices=sorted(W2VEC_MODELS))
     args = ap.parse_args()
     dev = resolve(args.device)
     if dev.type == "cuda":
@@ -126,11 +181,22 @@ def main():
         torch.cuda.synchronize = torch.cuda.reset_peak_memory_stats = sync
         torch.cuda.max_memory_allocated = lambda *a: 0
     pin_fp32()
-    cfg = dataclasses.replace(W2VEC_MODELS["w2v-all"], neg_sharing="chunk")
+    cfg = dataclasses.replace(W2VEC_MODELS[args.model], neg_sharing="chunk")
     spec = SyntheticSpec(n_sessions=args.sessions, n_aids=N_AIDS, max_len=512,
                          mean_len=18, seed=1234)
     sp = split_events(generate_device(spec, dev), test_days=7, seed=0)
     full = sp.train.concat(sp.test)
+    if args.step_kinds:
+        times, models = step_kind_times(full, dataclasses.replace(cfg, epochs=1), N_AIDS, dev,
+                                        args.step_kinds)
+        rep = models["chunk"].report
+        print(f"# {args.model} one epoch, V = {rep.words}, {rep.steps_per_epoch} steps of "
+              f"{rep.pairs_per_step} pairs; step loops alone ({smi}):")
+        for line in format_step_kind_times(times):
+            print(f"#   {line}")
+        print(f"#   fused == chunk bit for bit: "
+              f"{bool((models['fused chunk'].emb == models['chunk'].emb).all())}")
+        return
     t = time.perf_counter()
     vocab = w2v.build_vocab(full, cfg.types, cfg.min_count, N_AIDS)
     words_np, cum = w2v.flat_corpus(full, vocab, cfg.types)

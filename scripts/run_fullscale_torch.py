@@ -14,14 +14,33 @@ pass A's metrics and rows, rankers) lives in the same work dir, so a
 rerun on it reads the same events and resumes after the last stage that
 left its artifact.
 
+With OTTO_FS_TMPFS=<dir> (a directory of this run's own in memory, for
+example /dev/shm/otto_fs_12900k) the events cache and the seven table
+artifacts (covis.pkl, w2v-*.npz, knn-*.npz,
+session_emb.npz, clusters.npz) are written into that directory and the
+work dir holds symbolic links to them; pass A's rows, the rankers, the
+submission and the eval files stay in the work dir. The files and the
+single work dir are as without the knob: every writer opens the link's
+path, and a link whose file is not written yet does not count as cached.
+The dir serves one work dir: a work dir with no link into it refuses a
+dir that holds files, and cached events must fit the spec. Remove the
+dir when the run and its resumes are done (~11 GiB of memory at 12.9M).
+It keeps ~14 GB of writes off the disk at 12.9M sessions, for machines
+that cap the bytes a run may write. Every stage's entry in the record
+carries the bytes under the work dir on disk (`disk_bytes`, links not
+followed), under the tmpfs dir (`tmpfs_bytes`) and the process's
+`write_bytes` and `wchar` from /proc/self/io.
+
 Usage:
   python scripts/run_fullscale_torch.py                      # 12.9M sessions
   OTTO_FS_SESSIONS=1290000 python scripts/run_fullscale_torch.py
   python scripts/run_fullscale_torch.py --report RUN_FULLSCALE_TORCH.json
+  OTTO_FS_TMPFS=/dev/shm/otto_fs_12900k python scripts/run_fullscale_torch.py
+  rm -rf /dev/shm/otto_fs_12900k
 Knobs: OTTO_FS_SESSIONS / _AIDS / _MEANLEN / _MAXLEN / _WORKDIR (default
 fullscale_work/ in the checkout) / _BATCH / _OUT / _GEN (device | host) /
 _DEVSELECT (1: RankerConfig.device_select) / _WHY (why the scale was cut,
-kept in the record's `reduced`).
+kept in the record's `reduced`) / _TMPFS (the tables' and events' dir).
 
 `--report RECORD` renders a record as markdown: each stage's seconds, host
 RSS and peak device memory, the stages beside the reference's CPU ETAs
@@ -110,6 +129,98 @@ def reduced_from(spec: Dict[str, object], why: str) -> List[Dict[str, object]]:
             for k, v in REFERENCE_SPEC.items() if spec[k] != v]
 
 
+# what OTTO_FS_TMPFS moves off the disk: the events cache and the seven
+# table artifacts ("{}": each word2vec model's name)
+TMPFS_FILES = ("events.npz", "covis.pkl", "w2v-{}.npz", "knn-{}.npz", "session_emb.npz",
+               "clusters.npz")
+
+
+def tmpfs_names(cfg: Config) -> List[str]:
+    """TMPFS_FILES with the models of cfg.w2vec filled in."""
+    return [f.format(n) for f in TMPFS_FILES for n in (cfg.w2vec if "{}" in f else [None])]
+
+
+def place_in_tmpfs(work_dir: str, tmpfs: str, names: List[str]) -> None:
+    """Link work_dir/{name} to tmpfs/{name} for each name the work dir does
+    not hold yet (a file a run without the knob wrote stays where it is).
+    The tmpfs dir serves one work dir: a work dir that links nothing there
+    yet refuses a dir that holds files, and no link is made to a file the
+    work dir did not link (another run's events or tables would be read
+    as this run's cache)."""
+    tmpfs = os.path.abspath(tmpfs)
+    links = {name: os.path.join(work_dir, name) for name in names}
+    ours = [link for link in links.values() if os.path.islink(link)]
+    for link in ours:
+        if os.path.dirname(os.readlink(link)) != tmpfs:
+            raise ValueError(f"{link} links {os.readlink(link)}, not a file in {tmpfs}")
+    if not ours and os.path.isdir(tmpfs) and os.listdir(tmpfs):
+        raise FileExistsError(f"{tmpfs} holds another run's files: remove it or name a "
+                              "directory of this run's own")
+    os.makedirs(tmpfs, exist_ok=True)
+    for name, link in links.items():
+        target = os.path.join(tmpfs, name)
+        if os.path.lexists(link):
+            continue
+        if os.path.lexists(target):
+            raise FileExistsError(f"{target} was not written through {link}")
+        os.symlink(target, link)
+
+
+def check_events(ev: Events, spec: SyntheticSpec) -> None:
+    """Raise unless cached events fit `spec`: session ids 0..n_sessions-1
+    (sorted, so the last is the largest) and item ids below n_aids."""
+    got = (int(ev.session[-1]) + 1, int(ev.aid.max()) + 1)
+    if got[0] != spec.n_sessions or got[1] > spec.n_aids:
+        raise ValueError(f"cached events: {got[0]} sessions and aids up to {got[1]}, "
+                         f"not {spec.n_sessions} sessions of {spec.n_aids} aids")
+
+
+def dir_bytes(path: Optional[str]) -> Optional[int]:
+    """Bytes of the regular files under `path`, links not followed."""
+    if path is None:
+        return None
+    total = 0
+    for d, _, files in os.walk(path):
+        for f in files:
+            f = os.path.join(d, f)
+            if not os.path.islink(f):
+                total += os.path.getsize(f)
+    return total
+
+
+def proc_io() -> Dict[str, Optional[int]]:
+    """This process's `write_bytes` (bytes it caused to be written to a
+    block device; tmpfs and file systems without one count nothing) and
+    `wchar` (bytes handed to write calls, to any file) from /proc/self/io."""
+    got: Dict[str, Optional[int]] = {"write_bytes": None, "wchar": None}
+    try:
+        with open("/proc/self/io") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                if key in got:
+                    got[key] = int(value)
+    except OSError:
+        pass
+    return got
+
+
+def io_record(work_dir: str, tmpfs: Optional[str]) -> Dict[str, Optional[int]]:
+    return {"disk_bytes": dir_bytes(work_dir), "tmpfs_bytes": dir_bytes(tmpfs), **proc_io()}
+
+
+@dataclasses.dataclass
+class MeasuredPipeline(Pipeline):
+    """A Pipeline whose stage_log entries also carry io_record(work_dir,
+    tmpfs) as each stage ends."""
+
+    tmpfs: Optional[str] = None
+
+    def _log(self, stage: str, t0: float, msg: str = "",
+             peak_bytes: Optional[int] = None) -> None:
+        super()._log(stage, t0, msg, peak_bytes)
+        self.stage_log[-1].update(io_record(self.work_dir, self.tmpfs))
+
+
 def _peak_gb(dev: torch.device) -> Optional[float]:
     if dev.type != "cuda":
         return None
@@ -120,16 +231,19 @@ def _peak_gb(dev: torch.device) -> Optional[float]:
 
 def run(spec: SyntheticSpec, work_dir: str, out_path: str, batch: int = 2048,
         device="cuda", cfg: Config = DEFAULT, gen: str = "device",
-        device_select: bool = True, why: str = "") -> Dict:
+        device_select: bool = True, why: str = "", tmpfs: Optional[str] = None) -> Dict:
     """Generate (or read from {work_dir}/events.npz) the events of `spec`,
     split them as cfg.data says and run Pipeline(cfg, work_dir, n_aids,
     device).run_streaming at `batch` sessions a batch, with
-    RankerConfig.device_select as `device_select` says. The record is
-    written to out_path (atomically) after generation and the split, every
-    POLL_S seconds while the pipeline runs, and at its end.
-    -> the record."""
+    RankerConfig.device_select as `device_select` says; with `tmpfs`, the
+    events and tables are written there and linked from the work dir
+    (place_in_tmpfs). The record is written to out_path (atomically) after
+    generation and the split, every POLL_S seconds while the pipeline
+    runs, and at its end. -> the record."""
     dev = resolve(device)
     os.makedirs(work_dir, exist_ok=True)
+    if tmpfs is not None:
+        place_in_tmpfs(work_dir, tmpfs, tmpfs_names(cfg))
     spec_rec = {"n_sessions": spec.n_sessions, "n_aids": spec.n_aids,
                 "mean_len": spec.mean_len, "max_len": spec.max_len,
                 "batch_sessions": batch}
@@ -138,7 +252,9 @@ def run(spec: SyntheticSpec, work_dir: str, out_path: str, batch: int = 2048,
         "reference_eta_s": REFERENCE_ETA_S,
         "device": device_record(dev),
         "host": {"free_g": _command(["free", "-g"]),
-                 "df_h": _command(["df", "-h", work_dir])},
+                 "df_h": _command(["df", "-h", work_dir]),
+                 "df_h_tmpfs": None if tmpfs is None else _command(["df", "-h", tmpfs])},
+        "tmpfs": tmpfs,
         "reduced": reduced_from(spec_rec, why),
         "stages": [],
     }
@@ -152,7 +268,8 @@ def run(spec: SyntheticSpec, work_dir: str, out_path: str, batch: int = 2048,
 
     def fixed_stage(name, t):
         record["stages"].append({"stage": name, "elapsed_s": round(time.time() - t, 3),
-                                 "rss_gb": round(host_rss_gb(), 2), "peak_mem_gb": _peak_gb(dev)})
+                                 "rss_gb": round(host_rss_gb(), 2), "peak_mem_gb": _peak_gb(dev),
+                                 **io_record(work_dir, tmpfs)})
 
     t0 = time.time()
     if dev.type == "cuda":
@@ -163,6 +280,7 @@ def run(spec: SyntheticSpec, work_dir: str, out_path: str, batch: int = 2048,
     if os.path.exists(data_cache):
         z = np.load(data_cache)
         ev = Events(z["session"], z["aid"], z["ts"], z["type"])
+        check_events(ev, spec)
         record["generator"] = "cache"
     elif gen == "device":
         ev = generate_device(spec, dev)
@@ -194,7 +312,8 @@ def run(spec: SyntheticSpec, work_dir: str, out_path: str, batch: int = 2048,
 
     if device_select:
         cfg = cfg.replace(ranker=dataclasses.replace(cfg.ranker, device_select=True))
-    pipe = Pipeline(cfg=cfg, work_dir=work_dir, n_aids=spec.n_aids, device=dev)
+    pipe = MeasuredPipeline(cfg=cfg, work_dir=work_dir, n_aids=spec.n_aids, device=dev,
+                            tmpfs=tmpfs)
     t2 = time.time()
     n_fixed = len(record["stages"])
     lock = threading.Lock()
@@ -346,7 +465,7 @@ def main(argv=None) -> int:
               batch=int(env.get("OTTO_FS_BATCH", 2048)),
               gen=env.get("OTTO_FS_GEN", "device"),
               device_select=env.get("OTTO_FS_DEVSELECT", "1") == "1",
-              why=env.get("OTTO_FS_WHY", ""))
+              why=env.get("OTTO_FS_WHY", ""), tmpfs=env.get("OTTO_FS_TMPFS") or None)
     print(json.dumps({"metrics": rec["metrics"], "total_s": rec["total_s"]}))
     return 0
 

@@ -1,7 +1,11 @@
 """scripts/run_fullscale_torch.py on the CPU at the training slice's tiny
 configuration and data (2,500 sessions): its record, a second call on the
 same work dir (events read back, pass A skipped), the metrics of the
-port's run_streaming on the same events, and --report."""
+port's run_streaming on the same events, and --report. The first call
+places the events and tables in a directory of their own (the
+OTTO_FS_TMPFS knob), the second runs without the knob on the links it
+left, and a third runs fresh without the knob in a work dir of its own
+from a copy of the first's events."""
 import contextlib
 import dataclasses
 import json
@@ -52,15 +56,21 @@ def runs(tmp_path_factory):
     cfg = port_config.config_from_json(str(root / "config.json"))
     spec = SyntheticSpec(**dataclasses.asdict(SPEC))
     work = root / "work"
-    out = {}
+    out = {"tmpfs": root / "shm", "work": work, "cfg": cfg}
     with two_threads():
-        for name in ("first", "second"):
+        for name, tmpfs in (("first", str(out["tmpfs"])), ("second", None)):
             path = root / f"{name}.json"
-            ret = fs.run(spec, str(work), str(path), batch=BATCH, device="cpu", cfg=cfg)
+            ret = fs.run(spec, str(work), str(path), batch=BATCH, device="cpu", cfg=cfg,
+                         tmpfs=tmpfs)
             with open(path) as fh:
                 out[name] = json.load(fh)
             assert out[name]["metrics"] == ret["metrics"]
             out[f"{name}_path"] = path
+        out["plain_work"] = root / "plain"
+        out["plain_work"].mkdir()
+        shutil.copy(work / "events.npz", out["plain_work"])
+        out["plain"] = fs.run(spec, str(out["plain_work"]), str(root / "plain.json"),
+                              batch=BATCH, device="cpu", cfg=cfg)
         # the same events through the port's run_streaming, in a work dir of its
         # own that holds the script's co-visitation tables (counting them
         # again would double the test's time; every later stage runs anew)
@@ -102,6 +112,90 @@ def test_record_schema(runs):
         "ceiling_clicks", "ceiling_carts", "ceiling_orders", "ceiling_total",
         "cand_per_session_mean", "cand_per_session_min", "cand_per_session_max",
         "clicks", "carts", "orders", "total"}
+
+
+def test_tmpfs_placement(runs):
+    """The events and the seven tables are written into the tmpfs dir and
+    linked from the work dir; the rows, rankers and reports stay in the
+    work dir; every stage records the bytes on disk, in the tmpfs dir and
+    written, and at the end they add up to the files there."""
+    work, tmpfs = runs["work"], runs["tmpfs"]
+    names = fs.tmpfs_names(runs["cfg"])
+    assert len(names) == 8 and "events.npz" in names
+    assert sorted(p.name for p in tmpfs.iterdir()) == sorted(names)
+    for name in names:
+        link = work / name
+        assert link.is_symlink() and link.resolve() == (tmpfs / name).resolve(), name
+    for name in ("downsampled-clicks.npz", "ranker-gbdt-orders.npz", "submission.csv",
+                 "passA-metrics.json", "eval_retrieved_sources.json"):
+        assert (work / name).is_file() and not (work / name).is_symlink(), name
+    rec = runs["first"]
+    assert rec["tmpfs"] == str(tmpfs) and rec["host"]["df_h_tmpfs"]
+    stages = rec["stages"]
+    for s in stages:
+        assert {"disk_bytes", "tmpfs_bytes", "write_bytes"} <= set(s), s["stage"]
+        assert s["tmpfs_bytes"] > 0 and s["write_bytes"] >= 0
+    # the work dir holds only links until the pipeline writes config.json
+    assert stages[0]["disk_bytes"] == 0 and all(s["disk_bytes"] > 0 for s in stages[2:])
+    assert all(a["write_bytes"] <= b["write_bytes"] for a, b in zip(stages, stages[1:]))
+    files = [p for p in work.rglob("*") if p.is_file()]
+    disk = sum(p.stat().st_size for p in files if not p.is_symlink())
+    linked = sum(p.stat().st_size for p in files if p.is_symlink())
+    assert stages[0]["tmpfs_bytes"] == (tmpfs / "events.npz").stat().st_size
+    assert stages[-1]["tmpfs_bytes"] == linked == sum(p.stat().st_size for p in tmpfs.iterdir())
+    # the second call (no knob) wrote the work dir's last files
+    last = runs["second"]["stages"][-1]
+    assert stages[-1]["disk_bytes"] <= last["disk_bytes"] == disk
+    assert last["tmpfs_bytes"] is None
+
+
+def test_fresh_run_without_knob_writes_the_same_files(runs):
+    """The script's default placement, fresh: every file in the work dir,
+    the same tables, submission and metrics as the run with the knob."""
+    rec, work = runs["plain"], runs["plain_work"]
+    assert rec["generator"] == "cache" and rec["tmpfs"] is None
+    assert [s["stage"] for s in rec["stages"]] == ["generate", "split"] + PIPELINE_STAGES
+    assert rec["metrics"] == runs["first"]["metrics"]
+    assert not any(p.is_symlink() for p in work.iterdir())
+    for name in fs.tmpfs_names(runs["cfg"]) + ["submission.csv"]:
+        a, b = work / name, runs["work"] / name
+        if name.endswith(".npz"):
+            with np.load(a) as za, np.load(b) as zb:
+                assert sorted(za.files) == sorted(zb.files), name
+                for k in za.files:
+                    np.testing.assert_array_equal(za[k], zb[k], err_msg=f"{name}:{k}")
+        else:
+            assert a.read_bytes() == b.read_bytes(), name
+
+
+def test_placement_refuses_another_runs_files(tmp_path):
+    """A tmpfs dir serves one work dir: a work dir that links nothing there
+    refuses a dir holding files, no link is made to a file that the work
+    dir did not link, a link into another dir is refused, and cached
+    events that do not fit the spec are refused."""
+    names = ["events.npz", "covis.pkl"]
+    shm, a, b = tmp_path / "shm", tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    fs.place_in_tmpfs(str(a), str(shm), names)
+    (shm / "covis.pkl").write_bytes(b"x")
+    fs.place_in_tmpfs(str(a), str(shm), names)          # a resume
+    with pytest.raises(FileExistsError, match="another run"):
+        fs.place_in_tmpfs(str(b), str(shm), names)
+    (a / "events.npz").unlink()
+    (shm / "events.npz").write_bytes(b"y")
+    with pytest.raises(FileExistsError, match="not written through"):
+        fs.place_in_tmpfs(str(a), str(shm), names)
+    with pytest.raises(ValueError, match="not a file in"):
+        fs.place_in_tmpfs(str(a), str(tmp_path / "other"), names)
+    assert sorted(p.name for p in b.iterdir()) == []
+    spec = SyntheticSpec(n_sessions=3, n_aids=5)
+    ev = Events(np.array([0, 1, 2], np.int32), np.array([4, 0, 1], np.int32),
+                np.zeros(3, np.int32), np.zeros(3, np.int8))
+    fs.check_events(ev, spec)
+    for bad in (dataclasses.replace(spec, n_sessions=4), dataclasses.replace(spec, n_aids=4)):
+        with pytest.raises(ValueError, match="cached events"):
+            fs.check_events(ev, bad)
 
 
 def test_metrics_equal_run_streaming(runs):

@@ -72,8 +72,8 @@ def test_mesh_config_round_trips_with_reference(tmp_path, mesh):
 def test_training_config_defaults_match_reference(name):
     """Every field the port has, by name, type and default; the port leaves
     out otto_tpu's trees_per_dispatch (a dispatch-deadline workaround) and
-    the SGD and MXU-padding fields of the word2vec models, and has every
-    field of the ranker's (the MLP tower's and downsampling's)."""
+    the MXU-padding field of the word2vec models, and has every field of
+    the ranker's (the MLP tower's and downsampling's)."""
     got, want = getattr(config, name)(), dataclasses.asdict(getattr(ref_config, name)())
     fields = [f.name for f in dataclasses.fields(got)]
     assert set(fields) <= set(want)
@@ -83,7 +83,7 @@ def test_training_config_defaults_match_reference(name):
     if name == "GBDTConfig":
         assert left_out == {"trees_per_dispatch"}
     elif name == "Word2VecConfig":
-        assert left_out == {"sgd_alpha", "sgd_min_alpha", "padded_dim"}
+        assert left_out == {"padded_dim"}
     else:
         assert left_out == set()
 

@@ -16,6 +16,11 @@ Whole trainings use each package's own draws (threefry vs a
 torch.Generator), so they are held by the reference's quality test on the
 40-topic fixture (intra > inter + 0.3, tests/test_word2vec.py) and by their
 topic separation, within SEPARATION_TOL of otto_tpu's on the same corpus.
+
+Plain SGD (block steps) and the fused-accumulator chunk step are held the
+same way: one step from otto_tpu's state and draws, the SGD rate of every
+step bit-equal to otto_tpu's, and the fused trainings bit-equal to the
+port's own chunk trainings on the same draws.
 """
 import functools
 import os
@@ -207,24 +212,63 @@ def step_inputs(corpus):
     return vocab, words, cum, w2v.keep_probs(vocab.counts, 1e-2)
 
 
-def test_block_step_matches_reference(step_inputs):
+def block_step_both(step_inputs, lr, optimizer):
+    """One block step of each package from seeded_state and otto_tpu's
+    draws. -> (port params, port loss, otto_tpu params, otto_tpu loss)."""
     vocab, words, cum, keep = step_inputs
-    V, D, C, k, window, n_negs, lr = vocab.size, 16, 512, 4, 5, 4, 0.25
+    V, D, C, k, window, n_negs = vocab.size, 16, 512, 4, 5, 4
     Ks = n_negs * 8
     n_pool = C // (256 // k) * Ks
     prob, alias = w2v.make_alias(vocab.counts, 0.75)
     pos_info = w2v.pack_position_info(cum)
     state = seeded_state(V, D)
     key = jax.random.PRNGKey(7)
-    want, want_loss = jax.jit(ref._sgns_step_body_block, static_argnums=(7, 8, 9, 10))(
+    want, want_loss = jax.jit(ref._sgns_step_body_block, static_argnums=(7, 8, 9, 10, 12))(
         ref.SGNSParams(*map(jnp.asarray, state)), jnp.asarray(words), jnp.asarray(pos_info),
         jnp.asarray(prob), jnp.asarray(alias), jnp.asarray(keep), jnp.float32(lr),
-        C, k, window, n_negs, key)
+        C, k, window, n_negs, key, optimizer)
     p = w2v.SGNSParams(*(torch.from_numpy(s.copy()) for s in state))
     loss = w2v._block_step(
         p, _t(words).long(), _t(pos_info).long(), _t(prob), _t(alias).long(), _t(keep), lr,
-        k, n_negs, to_port(ref_block_draws(key, C, k, window, len(words), V, n_pool)))
-    assert_step_close(p, want, loss, want_loss, touched_min=V // 2)
+        k, n_negs, to_port(ref_block_draws(key, C, k, window, len(words), V, n_pool)),
+        optimizer)
+    return p, loss, want, want_loss
+
+
+def test_block_step_matches_reference(step_inputs):
+    p, loss, want, want_loss = block_step_both(step_inputs, 0.25, "adagrad")
+    assert_step_close(p, want, loss, want_loss, touched_min=step_inputs[0].size // 2)
+
+
+def test_sgd_block_step_matches_reference(step_inputs):
+    """Plain SGD (otto_tpu :407-418): -lr * g added to the rows, the
+    accumulators left as they were."""
+    p, loss, want, want_loss = block_step_both(step_inputs, 0.025, "sgd")
+    assert_step_close(p, want, loss, want_loss, touched_min=step_inputs[0].size // 2)
+    start = seeded_state(step_inputs[0].size, 16)
+    for got, s0 in zip(p[2:], start[2:]):
+        np.testing.assert_array_equal(got.numpy(), s0)
+
+
+def test_fused_step_matches_reference(step_inputs):
+    """One fused chunk step from otto_tpu's fuse_params state and its
+    draws against otto_tpu's sgns_epoch_device_fused of one step."""
+    vocab, words, cum, keep = step_inputs
+    V, D, B, window, n_negs, lr = vocab.size, 16, 1024, 5, 4, 0.25
+    cdf = w2v.make_neg_cdf(vocab.counts)
+    state = seeded_state(V, D)
+    key = jax.random.PRNGKey(10)
+    tab_in, tab_out, want_loss = ref.sgns_epoch_device_fused(
+        *ref.fuse_params(ref.SGNSParams(*map(jnp.asarray, state))), jnp.asarray(words),
+        jnp.asarray(cum), jnp.asarray(cdf), jnp.asarray(keep), jnp.float32(lr), B, window,
+        n_negs, 1, key)
+    tables = w2v.fuse_params(w2v.SGNSParams(*(torch.from_numpy(s.copy()) for s in state)))
+    draws = to_port(ref_pair_draws(jax.random.fold_in(key, 0), B, window,
+                                   (B // 256, n_negs * 8)))
+    loss = w2v._fused_chunk_step(*tables, _t(words).long(), _t(cum).long(), _t(cdf),
+                                 _t(keep), lr, B, n_negs, draws)
+    assert_step_close(w2v.unfuse_params(*tables), ref.unfuse_params(tab_in, tab_out), loss,
+                      want_loss, touched_min=V // 2)
 
 
 @pytest.mark.parametrize("neg_mode", ["pair", "chunk"])
@@ -348,9 +392,176 @@ def test_type_filter_raises_on_empty_vocabulary(sampler):
         train(ev, cfg, 20, device="cpu")
 
 
-def test_sgd_is_refused():
-    with pytest.raises(ValueError, match="measured negative"):
-        Word2VecConfig(optimizer="sgd")
+def test_unknown_optimizer_is_refused():
+    Word2VecConfig(optimizer="sgd")
+    with pytest.raises(ValueError, match="'adagrad' or 'sgd'"):
+        Word2VecConfig(optimizer="adam")
+
+
+# ---------------------------------------------------------------------------
+# plain SGD's rate, and the step kinds that ignore it
+# ---------------------------------------------------------------------------
+SGD = dict(name="t", vector_size=4, window=3, min_count=2, negatives=2, batch_size=1024,
+           epochs=2, subsample_t=1e-2, neg_sharing="chunk", block_k=4, steps_per_dispatch=4,
+           optimizer="sgd", sgd_alpha=0.05, sgd_min_alpha=1e-3)
+
+
+def test_sgd_rates_match_reference_across_resume(corpus, tmp_path, monkeypatch):
+    """The rate handed to every block step of a two-epoch run is otto_tpu's
+    float32 rate of that step's dispatch (:1096-1105), bit for bit; a run
+    resumed after epoch 0 goes on with epoch 1's rates. The steps are
+    replaced by recorders: the rates are what is compared."""
+    ref_ev, ev = corpus
+    want = []
+
+    def ref_dispatch(params, *args):
+        want.append(np.asarray(args[5]))          # lr_t, float32
+        return params, jnp.float32(0)
+
+    monkeypatch.setattr(ref, "sgns_epoch_device_block", ref_dispatch)
+    ref.train_word2vec_device(ref_ev, RefConfig(**SGD), n_aids=300)
+    assert all(w.dtype == np.float32 for w in want)
+    want = np.repeat(np.array(want), SGD["steps_per_dispatch"])
+
+    got = []
+
+    def port_step(p, *args):
+        got.append(np.float32(args[5]))           # lr
+        assert args[-1] == "sgd"
+        return torch.zeros(())
+
+    monkeypatch.setattr(w2v, "_block_step", port_step)
+    monkeypatch.setenv("OTTO_W2V_CKPT_EVERY", "1")
+    ck = str(tmp_path / "w2v.ckpt")
+    cfg = Word2VecConfig(**SGD)
+    first = w2v.train_word2vec_device(ev, cfg, 300, device="cpu", checkpoint_path=ck)
+    assert first.report.mode == "block" and first.report.optimizer == "sgd"
+    assert len(got) == len(want) == 2 * first.report.steps_per_epoch
+    np.testing.assert_array_equal(np.array(got), want)
+    assert want[0] == np.float32(0.05) and len(np.unique(want)) == len(want) // 4
+    half = first.report.steps_per_epoch
+    got.clear()
+    resumed = w2v.train_word2vec_device(ev, cfg, 300, device="cpu", checkpoint_path=ck)
+    assert resumed.report.epochs == 1
+    np.testing.assert_array_equal(np.array(got), want[half:])
+
+
+def test_sgd_outside_block_trains_adagrad(monkeypatch):
+    """otto_tpu applies 'sgd' under the block sampler only; pair steps, and
+    chunk steps with the block sampler off, train with Adagrad in both
+    packages (the port says so in its report)."""
+    ev = simple_events(n_sessions=100, sess_len=6)
+    base = dict(name="t", vector_size=8, min_count=1, batch_size=512, epochs=1)
+    for sharing, block in (("pair", "1"), ("chunk", "0")):
+        monkeypatch.setenv("OTTO_W2V_BLOCK", block)
+        sgd, ada = (w2v.train_word2vec_device(
+            port_events(ev), Word2VecConfig(**base, neg_sharing=sharing, optimizer=opt), 20,
+            device="cpu") for opt in ("sgd", "adagrad"))
+        assert sgd.report.mode == sharing and sgd.report.optimizer == "adagrad"
+        np.testing.assert_array_equal(sgd.emb, ada.emb)
+    monkeypatch.setenv("OTTO_W2V_BLOCK", "1")
+    want_sgd, want_ada = (ref.train_word2vec_device(
+        ev, RefConfig(**base, neg_sharing="pair", optimizer=opt), n_aids=20)
+        for opt in ("sgd", "adagrad"))
+    np.testing.assert_array_equal(want_sgd.emb, want_ada.emb)
+
+
+def test_sgd_divergence_ends_non_finite():
+    """otto_tpu's note on 'sgd' (otto_tpu/config.py:212-220): on the
+    200-word topics fixture at alpha 0.05 the summed steps diverge to NaN.
+    The port's tables go non-finite as well: its fixed-point sums do not
+    wrap the diverging rows into finite values."""
+    ev = simple_events(n_topics=40, items_per_topic=5, n_sessions=2000, sess_len=8)
+    cfg = dict(TOPICS, batch_size=8192, epochs=1, neg_sharing="chunk", optimizer="sgd",
+               sgd_alpha=0.05)
+    want = ref.train_word2vec_device(ev, RefConfig(**cfg), n_aids=200)
+    got = w2v.train_word2vec_device(port_events(ev), Word2VecConfig(**cfg), 200, device="cpu")
+    assert got.report.mode == "block" and got.report.optimizer == "sgd"
+    assert not np.isfinite(want.emb).any()
+    assert not np.isfinite(got.emb).any() and not np.isfinite(got.report.epoch_loss).any()
+
+
+def test_unbounded_adds_keep_float_semantics():
+    """_add_rows_unbounded: finite rows summed as _add_rows sums them, an
+    inf / NaN entry added as a float add would (inf + -inf = NaN), and rows
+    near float32's largest values summed without a wrap (to inf where the
+    float sum overflows)."""
+    ids = torch.tensor([0, 0, 1, 2, 2, 3])
+    inf, nan, big = float("inf"), float("nan"), 3e38
+    rows = torch.tensor([[1.0, inf], [2.0, -inf], [0.5, nan], [-inf, 1.0], [1.5, 1.0],
+                         [-0.25, 0.125]])
+    table = torch.zeros(4, 2)
+    w2v._add_rows_unbounded(table, ids, rows)
+    want = torch.tensor([[3.0, nan], [0.5, nan], [-inf, 2.0], [-0.25, 0.125]])
+    torch.testing.assert_close(table, want, equal_nan=True, rtol=0, atol=0)
+    table = torch.zeros(2, 1)
+    w2v._add_rows_unbounded(table, torch.tensor([0, 0, 1]), torch.tensor([[big], [big], [big]]))
+    torch.testing.assert_close(table, torch.tensor([[inf], [big]]), rtol=0, atol=0)
+    finite = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0], [7.0, 8.0], [9.0, 1.0],
+                           [2.0, 3.0]]) * 1e-3
+    a, b = torch.ones(4, 2), torch.ones(4, 2)
+    w2v._add_rows_unbounded(a, ids, finite)
+    w2v._add_rows(b, ids, finite)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fused-accumulator layout
+# ---------------------------------------------------------------------------
+def test_fuse_params_roundtrip():
+    p = w2v.SGNSParams(*(torch.from_numpy(s) for s in seeded_state(7, 3)))
+    tab_in, tab_out = w2v.fuse_params(p)
+    assert tab_in.shape == tab_out.shape == (7, 4)
+    np.testing.assert_array_equal(tab_in[:, 3].numpy(), p.acc_in.numpy())
+    for a, b in zip(w2v.unfuse_params(tab_in, tab_out), p):
+        assert a.is_contiguous() and torch.equal(a, b)
+
+
+FUSED = dict(name="t", vector_size=8, min_count=1, epochs=3, batch_size=1024, window=3,
+             subsample_t=0, steps_per_dispatch=2, neg_sharing="chunk")
+
+
+def test_fused_training_equals_chunk_training(monkeypatch):
+    """OTTO_W2V_FUSED=1 turns the block sampler off and takes fused chunk
+    steps; from the same generator's draws they end bit-equal to the
+    chunk steps (the block sampler off) on the unfused tables."""
+    ev = port_events(simple_events(n_sessions=200, sess_len=6))
+    monkeypatch.setenv("OTTO_W2V_FUSED", "1")
+    fused = w2v.train_word2vec_device(ev, Word2VecConfig(**FUSED), 20, device="cpu")
+    assert fused.report.mode == "fused" and fused.report.optimizer == "adagrad"
+    monkeypatch.setenv("OTTO_W2V_FUSED", "0")
+    monkeypatch.setenv("OTTO_W2V_BLOCK", "0")
+    chunk = w2v.train_word2vec_device(ev, Word2VecConfig(**FUSED), 20, device="cpu")
+    assert chunk.report.mode == "chunk"
+    np.testing.assert_array_equal(fused.emb, chunk.emb)
+    assert fused.report.epoch_loss == chunk.report.epoch_loss
+    assert not np.allclose(fused.emb, w2v.train_word2vec_device(
+        ev, Word2VecConfig(**FUSED, seed=7), 20, device="cpu").emb)
+
+
+def test_fused_checkpoint_reloads_unfused(tmp_path, monkeypatch):
+    """A fused run's checkpoint holds the unfused tables: a chunk run
+    resumes from it, and a fused run from a chunk run's, each ending
+    bit-equal to the run without a break."""
+    ev = port_events(simple_events(n_sessions=200, sess_len=6))
+    cfg = Word2VecConfig(**FUSED)
+    monkeypatch.setenv("OTTO_W2V_CKPT_EVERY", "1")
+    ends = {}
+    for first, then in (("1", "0"), ("0", "1")):
+        ck = str(tmp_path / f"w2v-{first}.ckpt")
+        monkeypatch.setenv("OTTO_W2V_BLOCK", "0")
+        monkeypatch.setenv("OTTO_W2V_FUSED", first)
+        whole = w2v.train_word2vec_device(ev, cfg, 20, device="cpu", checkpoint_path=ck)
+        state, step = load_checkpoint(ck, w2v._state(
+            w2v.init_params(whole.vocab.size, 8, 0, "cpu"), torch.Generator()))
+        assert step == 2 and state["emb_in"].shape == (whole.vocab.size, 8)
+        monkeypatch.setenv("OTTO_W2V_FUSED", then)
+        resumed = w2v.train_word2vec_device(ev, cfg, 20, device="cpu", checkpoint_path=ck)
+        assert resumed.report.epochs == 1
+        assert resumed.report.mode == ("fused" if then == "1" else "chunk")
+        np.testing.assert_array_equal(resumed.emb, whole.emb)
+        ends[first] = whole.emb
+    np.testing.assert_array_equal(ends["1"], ends["0"])
 
 
 def test_trained_model_loads_in_reference(tmp_path):
