@@ -1,0 +1,25 @@
+"""rank.host_us: the consumer thread's time in the program's own span
+`otto::rank.score` (otto_tpu_torch.utils.timing; score_topk_multi: the
+three rankers, the top-k and the stack, launched on the card; the pull
+excluded) per session served in the traced slice. The program records the
+spans of every score_pass that starts under torch.profiler, so its totals
+are the traced slice's; a program without the span registry reads
+nothing."""
+
+LAYER = "rank"
+UNIT = "us/session"
+MOVES = {"serve": "sessions_per_s", "nearline": "request_p90_ms"}
+SPAN = "otto::rank.score"
+
+
+def read(summary):
+    if not summary.get("busy_s") or not summary.get("sessions"):
+        return None
+    try:
+        from otto_tpu_torch.utils import timing
+        totals = timing.span_totals()
+    except (ImportError, AttributeError):
+        return None
+    if SPAN not in totals:
+        return None
+    return 1e6 * totals[SPAN][1] / summary["sessions"]

@@ -248,14 +248,14 @@ def zero_launch_counts():
     from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
     for m in (gather, segscan, mips, dma_gather):
-        m.launches = 0
+        m.LAUNCHES.reset()
 
 
 def launch_counts():
     from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 
-    return {"gather_rows": gather.launches, "segmented_scan": segscan.launches,
-            "mips_topk": mips.launches, "gather_rows_hbm": dma_gather.launches}
+    return {"gather_rows": gather.LAUNCHES.value, "segmented_scan": segscan.LAUNCHES.value,
+            "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value}
 
 
 @contextlib.contextmanager
@@ -1276,8 +1276,8 @@ CLI_WITH_COUNTS = """
 import atexit, json, runpy, sys
 from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
-    "gather_rows": gather.launches, "segmented_scan": segscan.launches,
-    "mips_topk": mips.launches, "gather_rows_hbm": dma_gather.launches}), file=sys.stderr))
+    m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
+    for m in (gather, segscan, mips, dma_gather)}), file=sys.stderr))
 sys.argv = ["otto_tpu_torch.pipeline.cli"] + sys.argv[1:]
 runpy.run_module("otto_tpu_torch.pipeline.cli", run_name="__main__", alter_sys=True)
 """
@@ -1364,8 +1364,8 @@ SCRIPT_WITH_COUNTS = """
 import atexit, json, runpy, sys
 from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
-    "gather_rows": gather.launches, "segmented_scan": segscan.launches,
-    "mips_topk": mips.launches, "gather_rows_hbm": dma_gather.launches}), file=sys.stderr))
+    m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
+    for m in (gather, segscan, mips, dma_gather)}), file=sys.stderr))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """

@@ -17,6 +17,7 @@ import torch
 
 from otto_tpu_torch.config import RankerConfig
 from otto_tpu_torch.engine.retrieval import FEATURE_NAMES, RetrievedBatch
+from otto_tpu_torch.utils import timing
 
 
 def downsample_select(
@@ -164,12 +165,15 @@ def score_topk_multi(
 ) -> np.ndarray:
     """Score one batch with every ranker on the device; pull one stacked
     [n_rankers, S, k] aid array."""
-    cand = b.cand_device()
-    tops = [
-        _topk_program(r.predict_scores_device(b.feats), cand, top_k)[1]
-        for r in rankers
-    ]
-    return torch.stack(tops).cpu().numpy()
+    with timing.span("otto::rank.score"):
+        cand = b.cand_device()
+        tops = torch.stack([
+            _topk_program(r.predict_scores_device(b.feats), cand, top_k)[1]
+            for r in rankers
+        ])
+    # the pull waits for the card
+    with timing.span("otto::rank.pull"):
+        return tops.cpu().numpy()
 
 
 def score_and_topk(

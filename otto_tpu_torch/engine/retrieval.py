@@ -42,6 +42,7 @@ from otto_tpu_torch.engine.session_stats import (
     compute_session_stats,
 )
 from otto_tpu_torch.ops import segment as seg
+from otto_tpu_torch.utils import timing
 
 SENT = seg.SENTINEL
 NEG_SENT = seg.NEG_SENTINEL
@@ -363,6 +364,7 @@ def retrieve_batch(
 ):
     """-> (cand [S, max_candidates] int32 (-1 pad), feats [S,
     max_candidates, F] float32, ts_order [S, max_candidates] int32)."""
+    stage = timing.span("otto::retrieval.stage_a").open()
     aid, ts, type_ = padded
     S, L = aid.shape
     dev = aid.device
@@ -378,6 +380,7 @@ def retrieve_batch(
     src_ok = src_aid >= 0
     ga = src_aid.clamp(min=0).long()
 
+    stage = stage.then("otto::retrieval.stage_b")
     # ---------------- Stage B: source fan-out --------------------------------
     cand_blocks: List[torch.Tensor] = [torch.where(src_ok, src_aid, -1)[:, :, None]]
     for nbr_t in [t.neighbor for t in ctx.covis] + [ctx.knn_all[0], ctx.knn_1_2[0]]:
@@ -440,6 +443,7 @@ def retrieve_batch(
     flat_i = src_i_grid.reshape(S, P1)
     key1 = torch.where(flat_cand >= 0, (flat_i << AID_BITS) | flat_cand, SENT)
 
+    stage = stage.then("otto::retrieval.stage_c")
     # ---------------- Stage C: level-1 dedup + trim --------------------------
     # per-source-aid stats ride the level-1 sort as segment-constant 'carry'
     # payloads (every entry of a (source-aid, cand) segment shares its
@@ -514,6 +518,7 @@ def retrieve_batch(
         is_self | (best_co.to(F32) <= th) | (best_w2v.to(F32) <= th)
     )
 
+    stage = stage.then("otto::retrieval.stage_d")
     # ---------------- Stage D: level-2 groupby candidate ---------------------
     key2_main = torch.where(keep, e_cand, SENT)
 
@@ -626,6 +631,7 @@ def retrieve_batch(
 
     ks2, red2, end2, _ = seg.rowwise_groupby_scan(key2, cols2p)
 
+    stage = stage.then("otto::retrieval.stage_e")
     # ---------------- Stage E: compaction ------------------------------------
     # one transport sort keyed on the per-candidate ts_order priority
     # (segment ends only) compacts the groupby result and applies the
@@ -811,6 +817,7 @@ def retrieve_batch(
         cand = torch.nn.functional.pad(cand, (0, pad), value=-1)
         feats = torch.nn.functional.pad(feats, (0, 0, 0, pad))
         ts_out = torch.nn.functional.pad(ts_out, (0, pad), value=999)
+    stage.close()
     return cand, feats, ts_out
 
 
@@ -908,44 +915,53 @@ class Retriever:
         max_candidates = max_candidates or self.cfg.max_candidates
         dev = self.ctx.aid_emb.device
         cfg = self.cfg
-        trim = torch.tensor(
-            [
-                cfg.trim_max_at_order_1,
-                cfg.trim_min,
-                (cfg.trim_max_at_order_1 - cfg.trim_min)
-                / (cfg.trim_min_at_order - 1),
-            ],
-            dtype=F32, device=dev,
-        )
 
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+        # spans close before each yield: the time the caller holds a batch
+        # is not retrieval's
+        with timing.span("otto::retrieval.pack"):
+            trim = torch.tensor(
+                [
+                    cfg.trim_max_at_order_1,
+                    cfg.trim_min,
+                    (cfg.trim_max_at_order_1 - cfg.trim_min)
+                    / (cfg.trim_min_at_order - 1),
+                ],
+                dtype=F32, device=dev,
+            )
+            packed = pack_sessions(test, cfg.session_len_buckets)
         n_batches = 0
-        for p in pack_sessions(test, cfg.session_len_buckets):
+        for p in packed:
             size = min(batch_sessions, p.n_sessions)
             for mb in iter_microbatches(p, size):
                 n_batches += 1
                 if self.mesh is not None and (n_batches - 1) % self.mesh.n_data \
                         != self.mesh.data_rank:
                     continue
-                cluster, semb = self.sessions.lookup(mb.session)
-                cand, feats, ts_order = retrieve_batch(
-                    (put(mb.aid), put(mb.ts), put(mb.type)),
-                    self.ctx, put(cluster), put(semb), trim,
-                    keep_aids, max_candidates,
-                )
-                keep = mb.session >= 0
-                keep_idx = None if bool(keep.all()) else np.nonzero(keep)[0]
-                yield RetrievedBatch(
-                    session=mb.session[keep],
-                    cand=cand,
-                    feats=feats if keep_idx is None
-                    else feats[torch.as_tensor(keep_idx, device=dev)],
-                    ts_order=ts_order,
-                    keep=keep_idx,
-                    index=n_batches - 1,
-                )
+                with timing.span("otto::retrieval.batch", n_batches - 1):
+                    with timing.span("otto::retrieval.lookup"):
+                        cluster, semb = self.sessions.lookup(mb.session)
+                    with timing.span("otto::retrieval.h2d"):
+                        padded = (put(mb.aid), put(mb.ts), put(mb.type))
+                        cluster, semb = put(cluster), put(semb)
+                    cand, feats, ts_order = retrieve_batch(
+                        padded, self.ctx, cluster, semb, trim, keep_aids, max_candidates,
+                    )
+                    with timing.span("otto::retrieval.keep"):
+                        keep = mb.session >= 0
+                        keep_idx = None if bool(keep.all()) else np.nonzero(keep)[0]
+                        batch = RetrievedBatch(
+                            session=mb.session[keep],
+                            cand=cand,
+                            feats=feats if keep_idx is None
+                            else feats[torch.as_tensor(keep_idx, device=dev)],
+                            ts_order=ts_order,
+                            keep=keep_idx,
+                            index=n_batches - 1,
+                        )
+                yield batch
 
 
 def join_labels(batches: List[RetrievedBatch], labels) -> List[np.ndarray]:

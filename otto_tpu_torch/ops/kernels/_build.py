@@ -19,15 +19,12 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
 from typing import Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-# guards the kernels' launch counters
-count_lock = threading.Lock()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

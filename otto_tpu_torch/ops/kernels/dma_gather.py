@@ -11,9 +11,10 @@ from __future__ import annotations
 import torch
 
 from otto_tpu_torch.ops.kernels import _build
+from otto_tpu_torch.utils import timing
 
-# kernel launches since the last reset (see gather.launches)
-launches = 0
+# kernel launches since the last reset (see gather.LAUNCHES)
+LAUNCHES = timing.counter("otto::kernels.gather_rows_hbm")
 
 _DTYPES = (torch.int32, torch.float32)
 
@@ -63,7 +64,5 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), N, V, D, stream,
         )
     _build.check(err, "gather_rows_hbm")
-    global launches
-    with _build.count_lock:   # the pipelined runners launch from two threads
-        launches += 1
+    LAUNCHES.add()   # the pipelined runners launch from two threads
     return out

@@ -17,10 +17,11 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from otto_tpu_torch.ops.kernels import _build
+from otto_tpu_torch.utils import timing
 
-# kernel launches since the last reset (a plain counter: chip_smoke.py
-# zeroes it before the main path and reads it after)
-launches = 0
+# kernel launches since the last reset (chip_smoke.py resets it before
+# the main path and reads it after)
+LAUNCHES = timing.counter("otto::kernels.gather_rows")
 
 _DTYPES = (torch.int32, torch.float32)
 # column pointers one launch takes (gather_rows.cu MAX_COLS)
@@ -113,8 +114,6 @@ def gather_rows(values: Columns, idx: torch.Tensor, check: bool = False) -> torc
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.otto_gather_rows(ptrs, B, idx.data_ptr(), out.data_ptr(), S, P, W, stream)
     _build.check(err, "gather_rows")
-    global launches
-    with _build.count_lock:   # the pipelined runners launch from two threads
-        launches += 1
+    LAUNCHES.add()   # the pipelined runners launch from two threads
     return out
 

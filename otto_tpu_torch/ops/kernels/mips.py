@@ -20,11 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from otto_tpu_torch.ops.kernels import _build
+from otto_tpu_torch.utils import timing
 
-# calls that launched the kernel since the last reset (see gather.launches):
+# calls that launched the kernel since the last reset (see gather.LAUNCHES):
 # one per call, which launches the corpus prep, the top-k kernel and, when
 # it splits the corpus (or V = 0), the merge
-launches = 0
+LAUNCHES = timing.counter("otto::kernels.mips_topk")
 
 NEG_INF = -3.4e38     # score of a missing entry (V < k)
 MAX_K = 32            # a warp inserts into a top-k list one entry per lane
@@ -181,7 +182,5 @@ def mips_topk(
             Q, V, queries.shape[1], k, int(l2), S, chunk, tile_w, stream,
         )
     _build.check(err, "mips_topk")
-    global launches
-    with _build.count_lock:   # the pipelined runners launch from two threads
-        launches += 1
+    LAUNCHES.add()   # the pipelined runners launch from two threads
     return out_s, out_i

@@ -12,9 +12,10 @@ from __future__ import annotations
 import torch
 
 from otto_tpu_torch.ops.kernels import _build
+from otto_tpu_torch.utils import timing
 
-# kernel launches since the last reset (see gather.launches)
-launches = 0
+# kernel launches since the last reset (see gather.LAUNCHES)
+LAUNCHES = timing.counter("otto::kernels.segmented_scan")
 
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 _OP_CODE = {"sum": 0, "min": 1, "max": 2}
@@ -103,7 +104,5 @@ def segmented_scan(
             B, S, P, _DTYPE_CODE[values.dtype], _OP_CODE[red], stream,
         )
     _build.check(err, "segmented_scan")
-    global launches
-    with _build.count_lock:   # the pipelined runners launch from two threads
-        launches += 1
+    LAUNCHES.add()   # the pipelined runners launch from two threads
     return out

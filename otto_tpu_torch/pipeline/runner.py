@@ -102,6 +102,7 @@ from otto_tpu_torch.models.ranker import Ranker, train_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
 from otto_tpu_torch.ops.kmeans import kmeans_fit, kmeans_fit_dp
+from otto_tpu_torch.utils import timing
 from otto_tpu_torch.utils.reports import report_name
 
 log = logging.getLogger(__name__)
@@ -507,16 +508,22 @@ def score_pass(
             pieces[tname][0].append(b.session)
             pieces[tname][1].append(multi[i])
 
-    pipelined_consume(retriever.iter_run(test, batch_sessions=batch_sessions), consume,
-                      overlap=overlap)
-    preds = {}
-    for tname in TYPES:
-        s = _cat_rows(pieces[tname][0], (0,), np.int32)
-        a = _cat_rows(pieces[tname][1], (0, KEEP_TOP_K), np.int32)
-        if getattr(retriever, "mesh", None) is not None:
-            s, a = retriever.mesh.gather_arrays(s.astype(np.int32), a.astype(np.int32))
-        order = np.argsort(s, kind="stable")
-        preds[tname] = (s[order], a[order])
+    # the request's spans give pipelined_consume's seconds: "produce" is
+    # retrieval.pack + retrieval.batch, "consume" runner.consume, "wait"
+    # runner.put_wait + runner.join
+    with timing.request("otto::runner.score_pass"):
+        pipelined_consume(retriever.iter_run(test, batch_sessions=batch_sessions), consume,
+                          overlap=overlap)
+        with timing.span("otto::runner.assemble"):
+            preds = {}
+            for tname in TYPES:
+                s = _cat_rows(pieces[tname][0], (0,), np.int32)
+                a = _cat_rows(pieces[tname][1], (0, KEEP_TOP_K), np.int32)
+                if getattr(retriever, "mesh", None) is not None:
+                    s, a = retriever.mesh.gather_arrays(s.astype(np.int32),
+                                                        a.astype(np.int32))
+                order = np.argsort(s, kind="stable")
+                preds[tname] = (s[order], a[order])
     return preds
 
 
@@ -553,7 +560,8 @@ def pipelined_consume(batch_iter, consume, pack=None, overlap: bool = True
         for b in batch_iter:
             meta = pack(b) if pack is not None else None
             t1 = time.perf_counter()
-            consume(b, meta)
+            with timing.span("otto::runner.consume", getattr(b, "index", None)):
+                consume(b, meta)
             t2 = time.perf_counter()
             seconds["produce"] += t1 - t
             seconds["consume"] += t2 - t1
@@ -562,33 +570,39 @@ def pipelined_consume(batch_iter, consume, pack=None, overlap: bool = True
 
     q: "queue.Queue" = queue.Queue(maxsize=1)
     errs: list = []
+    req = timing.current_request()
 
     def drain():
-        stream = None
-        while True:
-            item = q.get()
-            if item is None:
-                return
-            if errs:
-                continue   # discard: the producer's put() must never block
-            b, meta, ready = item
-            t = time.perf_counter()
-            try:
-                if ready is None:
-                    consume(b, meta)
-                else:
-                    dev = b.feats.device
-                    if stream is None:
-                        torch.cuda.set_device(dev)
-                        stream = torch.cuda.Stream(dev)
-                    stream.wait_event(ready)
-                    for x in b.device_tensors():
-                        x.record_stream(stream)
-                    with torch.cuda.stream(stream):
-                        consume(b, meta)
-            except BaseException as e:   # re-raised in the producer
-                errs.append(e)
-            seconds["consume"] += time.perf_counter() - t
+        # the consumer's spans: runner.consumer, the thread's life, split
+        # into runner.get_wait and runner.consume
+        with timing.joined(req), timing.span("otto::runner.consumer"):
+            stream = None
+            while True:
+                with timing.span("otto::runner.get_wait"):
+                    item = q.get()
+                if item is None:
+                    return
+                if errs:
+                    continue   # discard: the producer's put() must never block
+                b, meta, ready = item
+                t = time.perf_counter()
+                try:
+                    with timing.span("otto::runner.consume", getattr(b, "index", None)):
+                        if ready is None:
+                            consume(b, meta)
+                        else:
+                            dev = b.feats.device
+                            if stream is None:
+                                torch.cuda.set_device(dev)
+                                stream = torch.cuda.Stream(dev)
+                            stream.wait_event(ready)
+                            for x in b.device_tensors():
+                                x.record_stream(stream)
+                            with torch.cuda.stream(stream):
+                                consume(b, meta)
+                except BaseException as e:   # re-raised in the producer
+                    errs.append(e)
+                seconds["consume"] += time.perf_counter() - t
 
     worker = threading.Thread(target=drain, daemon=True, name="pipeline-consume")
     worker.start()
@@ -603,15 +617,17 @@ def pipelined_consume(batch_iter, consume, pack=None, overlap: bool = True
                 ready = torch.cuda.Event()
                 ready.record(torch.cuda.current_stream(b.feats.device))
             t1 = time.perf_counter()
-            q.put((b, meta, ready))
+            with timing.span("otto::runner.put_wait", getattr(b, "index", None)):
+                q.put((b, meta, ready))
             t2 = time.perf_counter()
             seconds["produce"] += t1 - t
             seconds["wait"] += t2 - t1
             t = time.perf_counter()
     finally:
         t = time.perf_counter()
-        q.put(None)
-        worker.join()
+        with timing.span("otto::runner.join"):
+            q.put(None)
+            worker.join()
         seconds["wait"] += time.perf_counter() - t
     if errs:
         raise errs[0]

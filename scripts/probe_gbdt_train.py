@@ -75,14 +75,14 @@ def main():
         cfg = GBDTConfig() if n_groups > 2000 else GBDTConfig(n_trees=10)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        gather.launches = 0
+        gather.LAUNCHES.reset()
         t = time.perf_counter()
         m = gbdt.train_gbdt_ranker(x[~vm], y[~vm], sess[~vm], names, cfg,
                                    valid=(x[vm], y[vm], sess[vm]), device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         print(f"# {n_groups} groups, {len(y)} rows: {cfg.n_trees} trees in {dt:.2f} s, peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K1 {gather.launches}, "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K1 {gather.LAUNCHES.value}, "
               f"valid ndcg {[(n, round(v, 5)) for n, v in m.eval_history]} ({smi})",
               flush=True)
         if n_groups == 2000:

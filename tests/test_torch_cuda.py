@@ -59,10 +59,10 @@ def test_cuda_gather_matches_twin(cuda_device, dtype, B, S, P, W, form):
         vals = torch.stack(arg)
     idx = torch.randint(0, P, (S, W), generator=g, device=cuda_device,
                         dtype=torch.int32)
-    before = gather.launches
+    before = gather.LAUNCHES.value
     got = gather.gather_rows(arg, idx, check=True)
     torch.cuda.synchronize()
-    assert gather.launches == before + 1
+    assert gather.LAUNCHES.value == before + 1
     want = gather.gather_rows_ref(arg, idx)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     if form != "stacked":
@@ -80,10 +80,10 @@ def test_cuda_segscan_matches_twin(cuda_device, red, dtype, P):
     vals = torch.randint(-50, 50, (B, S, P), generator=g,
                          device=cuda_device).to(dtype)
     first = torch.rand((S, P), generator=g, device=cuda_device) < 0.05
-    before = segscan.launches
+    before = segscan.LAUNCHES.value
     got = segscan.segmented_scan(vals, first, red)
     torch.cuda.synchronize()
-    assert segscan.launches == before + 1
+    assert segscan.LAUNCHES.value == before + 1
     # small integer values: float sums are exact in any order here
     assert torch.equal(got, segscan.segmented_scan_ref(vals, first, red))
 
@@ -137,10 +137,10 @@ def test_cuda_mips_matches_twin(cuda_device, metric, Q, V, D, k):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     q = torch.randn((Q, D), generator=g, device=cuda_device)
     c = torch.randn((V, D), generator=g, device=cuda_device)
-    before = mips.launches
+    before = mips.LAUNCHES.value
     got = mips.mips_topk(q, c, k, metric)
     torch.cuda.synchronize()
-    assert mips.launches == before + 1
+    assert mips.LAUNCHES.value == before + 1
     want = mips.mips_topk_ref(q, c, k, metric)
     assert got[0].shape == (Q, k) and got[1].dtype == torch.int32
     assert_topk_agree(got, want, q, c, metric)
@@ -210,10 +210,10 @@ def test_cuda_gather_hbm_matches_twin(cuda_device, V, D, N, dtype):
         table = torch.randn((V, D), generator=g, device=cuda_device)
     ids = torch.randint(-5, V + 5, (N,), generator=g, device=cuda_device,
                         dtype=torch.int32)
-    before = dma_gather.launches
+    before = dma_gather.LAUNCHES.value
     got = dma_gather.gather_rows_hbm(table, ids)
     torch.cuda.synchronize()
-    assert dma_gather.launches == before + (1 if N else 0)
+    assert dma_gather.LAUNCHES.value == before + (1 if N else 0)
     assert torch.equal(got, dma_gather.gather_rows_hbm_ref(table, ids))
 
 

@@ -101,7 +101,8 @@ def test_no_import_names_jax():
 
 
 def test_cpu_tensors_run_the_twins():
-    gather.launches = segscan.launches = 0
+    gather.LAUNCHES.reset()
+    segscan.LAUNCHES.reset()
     v = torch.arange(2 * 3 * 10, dtype=torch.int32).reshape(2, 3, 10)
     idx = torch.flip(torch.arange(10, dtype=torch.int32), [0]).expand(3, 10)
     out = gather.gather_rows(v, idx.contiguous())
@@ -110,17 +111,18 @@ def test_cpu_tensors_run_the_twins():
     first[:, 0] = True
     out = segscan.segmented_scan(v, first, "sum")
     assert torch.equal(out, torch.cumsum(v, dim=2, dtype=torch.int32))
-    assert gather.launches == 0 and segscan.launches == 0
+    assert gather.LAUNCHES.value == 0 and segscan.LAUNCHES.value == 0
 
 
 def test_cpu_tensors_run_the_k3_k4_twins():
-    mips.launches = dma_gather.launches = 0
+    mips.LAUNCHES.reset()
+    dma_gather.LAUNCHES.reset()
     c = torch.eye(6)
     s, i = mips.mips_topk(c[:2], c, 3, "dot")
     assert i[:, 0].tolist() == [0, 1] and i[0, 1:].tolist() == [1, 2]
     rows = dma_gather.gather_rows_hbm(c, torch.tensor([5, -3, 9], dtype=torch.int32))
     assert torch.equal(rows, c[[5, 0, 5]])
-    assert mips.launches == 0 and dma_gather.launches == 0
+    assert mips.LAUNCHES.value == 0 and dma_gather.LAUNCHES.value == 0
 
 
 def test_other_devices_are_refused():

@@ -190,9 +190,10 @@ def test_segscan_row_without_leading_flag():
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
-    gather.launches = segscan.launches = 0
+    gather.LAUNCHES.reset()
+    segscan.LAUNCHES.reset()
     v = torch.arange(24, dtype=torch.int32).reshape(1, 2, 12)
     gather.gather_rows(v, torch.zeros((2, 12), dtype=torch.int32))
     segscan.segmented_scan(v, torch.ones((2, 12), dtype=torch.bool), "sum")
-    assert gather.launches == 0 and segscan.launches == 0
+    assert gather.LAUNCHES.value == 0 and segscan.LAUNCHES.value == 0
 
