@@ -9,11 +9,12 @@ Phases, each printed before the last line:
 1. Device: the card's name and power limit, as nvidia-smi reports them.
 2. Build: compile the port's CUDA kernels (otto_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) for sm_90a; print the build seconds.
-3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search)
-   and K4 (table row gather) against their plain PyTorch twins on the card
-   at the main paths' shapes (K1 at the transport sort's and at the GBDT
-   tree walk's), with CUDA event times of kernel, twin and library call
-   and each kernel's bound; then one transport sort of 40 int32 columns
+3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search),
+   K4 (table row gather) and K5 (the GBDT walk) against their plain
+   PyTorch twins on the card at the main paths' shapes (K1 at the
+   transport sort's and at the GBDT validation walk's, K5 at serving's),
+   with CUDA event times of kernel, twin and library call and each
+   kernel's bound; then one transport sort of 40 int32 columns
    at [2048, 4096] with K1 reading the columns by pointer, held bit for
    bit to torch.sort plus the twin and to the same sort on the stacked
    columns, the two forms timed in turns.
@@ -245,17 +246,18 @@ UNSHARDED = {}
 
 
 def zero_launch_counts():
-    from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+    from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
 
-    for m in (gather, segscan, mips, dma_gather):
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk):
         m.LAUNCHES.reset()
 
 
 def launch_counts():
-    from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+    from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
 
     return {"gather_rows": gather.LAUNCHES.value, "segmented_scan": segscan.LAUNCHES.value,
-            "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value}
+            "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value,
+            "gbdt_walk": gbdt_walk.LAUNCHES.value}
 
 
 @contextlib.contextmanager
@@ -362,7 +364,7 @@ def phase_kernels(dev, smi):
     """Each kernel against its twin at main-path shapes. Returns
     {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}
     at the first (headline) shape; max_abs_err is the worst over shapes."""
-    from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+    from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -506,6 +508,44 @@ def phase_kernels(dev, smi):
         gbs = 2 * n * EMB_D * 4 / (ms * 1e-3) / 1e9
         print(f"#   {gbs:.1f} GB/s (row bytes read + written)")
         del table, got, want
+    del ids
+
+    # K5: one ranker's walk on a 2,048-session batch (BATCH x 512 rows of
+    # 104 features; 150 trees of depth 4 over 64 bins, a tenth of the
+    # splits no-ops), against the twin (searchsorted, the walk on K1, a
+    # float32 sum); bit-equal to the twin's leaves summed in float64 in
+    # the kernel's order; bound by the features read once and the scores written
+    # once (the trees' few kB besides); no one PyTorch call walks trees
+    from otto_tpu_torch.models import gbdt
+
+    M, F, T, D, n_bins = BATCH * 512, 104, 150, 4, 64
+    edges = torch.sort(torch.randn((F, n_bins - 1), generator=g, device=dev) * 3,
+                       dim=1).values
+    gfeat = torch.randint(0, F, (T, D, 2 ** (D - 1)), generator=g, device=dev,
+                          dtype=torch.int32)
+    thr = torch.randint(1, n_bins, gfeat.shape, generator=g, device=dev, dtype=torch.int32)
+    thr[torch.rand(gfeat.shape, generator=g, device=dev) < 0.1] = n_bins
+    leaf = 0.1 * torch.randn((T, 2 ** D), generator=g, device=dev)
+    x = torch.randn((M, F), generator=g, device=dev) * 4
+    got = gbdt_walk.gbdt_walk(x, edges, gfeat, thr, leaf)
+    val = gbdt._leaf_values(gbdt._bin_program(x, edges), gfeat, thr, leaf)
+    acc = torch.zeros(M, dtype=torch.float64, device=dev)
+    for a, b in gbdt_walk.leaf_sum_order(T):
+        run = torch.zeros_like(acc)
+        for t in range(a, b):
+            run += val[:, t].double()
+        acc += run
+    torch.cuda.synchronize()
+    require(torch.equal(got, acc.float()), "K5 equals the twin's leaves summed in float64")
+    err = float((got - val.sum(dim=1)).abs().max())
+    del val, acc
+    ms = cuda_ms(lambda: gbdt_walk.gbdt_walk(x, edges, gfeat, thr, leaf))
+    plain = cuda_ms(lambda: gbdt._predict_program(x, edges, gfeat, thr, leaf), reps=3)
+    n_bytes = 4 * (M * F + M + edges.numel() + gfeat.numel() + thr.numel() + leaf.numel())
+    report("gbdt_walk", (M, F, T, D), err, ms, plain, (*bound(n_bytes), None))
+    print(f"#   {4 * M * F / (ms * 1e-3) / 1e9:.1f} GB/s of features, "
+          f"{M * T * D / (ms * 1e-3) / 1e9:.1f} G tree levels/s")
+    del x, got
     return out
 
 
@@ -997,6 +1037,8 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
           f"{WALK['launches']['serving']} ({smi})")
     require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
             f"K1 and K2 launched on the serving path: {launches}")
+    require(launches["gbdt_walk"] > 0 and WALK["launches"]["serving"] == 0,
+            f"K5 walks the trees, K1 not: {launches}")
     for t, (s, a) in preds.items():
         require(s.shape == (n_test,) and a.shape == (n_test, 20), f"{t} shapes")
         require(((a >= -1) & (a < N_AIDS)).all(), f"{t} aids in range")
@@ -1104,7 +1146,8 @@ def phase_mlp(dev, smi, sp, retriever, work, ceiling, gbdt_recall, base_recall,
           f"{sorted(shapes.items(), key=lambda kv: (-kv[1], kv[0]))}")
     require(launches["gather_rows"] > 0 and launches["segmented_scan"] > 0,
             f"K1 and K2 launched on the MLP serving path: {launches}")
-    require(WALK["launches"]["mlp serving"] == 0, "no tree walk when the MLP scores")
+    require(WALK["launches"]["mlp serving"] == 0 and launches["gbdt_walk"] == 0,
+            "no tree walk when the MLP scores")
     for t, (s_, a) in preds.items():
         require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"MLP {t} shapes")
         require(((a >= -1) & (a < N_AIDS)).all(), f"MLP {t} aids in range")
@@ -1274,10 +1317,10 @@ def write_otto_jsonl(ev_path, lab_path, ev, labels):
 # counts to stderr at exit
 CLI_WITH_COUNTS = """
 import atexit, json, runpy, sys
-from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather)}), file=sys.stderr))
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk)}), file=sys.stderr))
 sys.argv = ["otto_tpu_torch.pipeline.cli"] + sys.argv[1:]
 runpy.run_module("otto_tpu_torch.pipeline.cli", run_name="__main__", alter_sys=True)
 """
@@ -1362,10 +1405,10 @@ FULLSCALE_STAGES = [
     "ranker carts (gbdt)", "ranker orders (gbdt)", "score (pass B)", "submit", "eval"]
 SCRIPT_WITH_COUNTS = """
 import atexit, json, runpy, sys
-from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather)}), file=sys.stderr))
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk)}), file=sys.stderr))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
@@ -2539,6 +2582,8 @@ def main():
                       "otto_tpu/ops/pallas/mips.py:87"),
         "gather_rows_hbm": ("otto_tpu_torch/csrc/gather_rows_hbm.cu",
                             "otto_tpu/ops/pallas/dma_gather.py:43"),
+        "gbdt_walk": ("otto_tpu_torch/csrc/gbdt_walk.cu",
+                      "none; subsumes the walk of otto_tpu/models/gbdt.py:425"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -38,9 +38,14 @@ in. Every rank grows the same trees from one device's column subset and
 row bag (`one_device_draws`; otto_tpu bags each shard's rows on its own),
 so a data-parallel training gives one device's ranker.
 
-Prediction bins the raw features (bin = number of edges <= x), then walks
-all trees at once: node state is [M, T], and at every level the per-row
-feature-bin fetch is ONE row gather [M, F] -> [M, T] on kernel K1.
+Prediction on the card is one launch of kernel K5 a ranker
+(`ops/kernels/gbdt_walk.py`): it bins, walks every tree and sums the
+leaves of each row in one pass. Its plain twin, which serves CPU tensors
+bit for bit as otto_tpu does, bins the raw features (bin = number of
+edges <= x), then walks all trees at once: node state is [M, T], and at
+every level the per-row feature-bin fetch is ONE row gather [M, F] ->
+[M, T] on kernel K1 (the training's validation scores walk that way on
+the card too).
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ import torch
 from otto_tpu_torch.config import GBDTConfig
 from otto_tpu_torch.models.ranker import _group_slots, ndcg_at_k
 from otto_tpu_torch.ops.kernels.gather import gather_rows
+from otto_tpu_torch.ops.kernels.gbdt_walk import gbdt_walk
 
 log = logging.getLogger(__name__)
 
@@ -425,11 +431,11 @@ def _bin_program(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32).t().contiguous()
 
 
-def _predict_binned_program(
+def _leaf_values(
     bins: torch.Tensor, gfeat: torch.Tensor, thr: torch.Tensor, leaf: torch.Tensor
 ) -> torch.Tensor:
     """bins [M, F] int32; gfeat/thr [T, D, W] int32, leaf [T, 2^D] f32 ->
-    scores [M] f32."""
+    the leaf value each row reaches in each tree, [M, T] f32."""
     M = bins.shape[0]
     T, depth, W = gfeat.shape
     n_leaves = leaf.shape[1]
@@ -442,8 +448,15 @@ def _predict_binned_program(
         t_thr = thr[:, level, :].reshape(-1)[at]
         b = gather_rows(bins[None], f)[0]
         node = node * 2 + (b >= t_thr).to(torch.int32)
-    val = leaf.reshape(-1)[(tree * n_leaves + node).long()]
-    return val.sum(dim=1)
+    return leaf.reshape(-1)[(tree * n_leaves + node).long()]
+
+
+def _predict_binned_program(
+    bins: torch.Tensor, gfeat: torch.Tensor, thr: torch.Tensor, leaf: torch.Tensor
+) -> torch.Tensor:
+    """bins [M, F] int32; gfeat/thr [T, D, W] int32, leaf [T, 2^D] f32 ->
+    scores [M] f32."""
+    return _leaf_values(bins, gfeat, thr, leaf).sum(dim=1)
 
 
 def _predict_program(x, edges, gfeat, thr, leaf) -> torch.Tensor:
@@ -494,24 +507,33 @@ class GBDTRanker:
         # thr == n_bins is the no-op split
         if thr.size and not (thr.min() >= 1 and thr.max() <= n_bins):
             raise ValueError(f"ranker split bins outside [1, {n_bins}]")
+        # binning counts edges by binary search (K5 compares one edge a
+        # split): both need each feature's edges ascending
+        edges = np.asarray(self.edges)
+        if np.isnan(edges).any() or not (edges[:, 1:] >= edges[:, :-1]).all():
+            raise ValueError("ranker bin edges are NaN or not ascending")
 
     def tensors(self, device: torch.device):
-        """(edges f32, gfeat i32, thr i32, leaf f32) on `device`, cached."""
+        """(edges f32, gfeat i32, thr i32, leaf f32) on `device`, cached,
+        contiguous as K5 takes them (trained edges come column-major from
+        `compute_bin_edges`)."""
         key = str(device)
         if key not in self._on_device:
-            self._on_device[key] = (
-                torch.as_tensor(np.asarray(self.edges, np.float32), device=device),
-                torch.as_tensor(np.asarray(self.gfeat, np.int32), device=device),
-                torch.as_tensor(np.asarray(self.thr, np.int32), device=device),
-                torch.as_tensor(np.asarray(self.leaf, np.float32), device=device),
-            )
+            self._on_device[key] = tuple(
+                torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+                for a, dtype in ((self.edges, np.float32), (self.gfeat, np.int32),
+                                 (self.thr, np.int32), (self.leaf, np.float32)))
         return self._on_device[key]
 
     def predict_scores_device(self, feats: torch.Tensor) -> torch.Tensor:
-        """feats [..., F] on a device -> scores [...] on the same device."""
+        """feats [..., F] on a device -> scores [...] on the same device:
+        K5 on a CUDA tensor, the plain twin elsewhere."""
         shape = feats.shape[:-1]
         flat = feats.reshape(-1, feats.shape[-1]).to(torch.float32)
-        scores = _predict_program(flat, *self.tensors(feats.device))
+        if flat.device.type == "cuda":
+            scores = gbdt_walk(flat.contiguous(), *self.tensors(feats.device))
+        else:
+            scores = _predict_program(flat, *self.tensors(feats.device))
         return scores.reshape(shape)
 
     def predict(self, feats: np.ndarray, device, batch: int = 1 << 16) -> np.ndarray:

@@ -138,6 +138,10 @@ def load() -> ctypes.CDLL:
     lib.otto_gather_rows_hbm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
                                          i32, i32, ptr]
     lib.otto_gather_rows_hbm.restype = i32
+    lib.otto_gbdt_walk.argtypes = [ptr] * 6 + [ctypes.c_longlong] + [i32] * 4 + [ptr]
+    lib.otto_gbdt_walk.restype = i32
+    lib.otto_gbdt_walk_smem.argtypes = [i32] * 3
+    lib.otto_gbdt_walk_smem.restype = i32
     return lib
 
 

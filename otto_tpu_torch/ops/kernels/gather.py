@@ -1,8 +1,9 @@
 """K1: batched row-wise gather `out[b, s, w] = values[b][s, idx[s, w]]`.
 
 B columns of one 4-byte dtype share one row-local index map; the index
-width W may differ from the row width P (the GBDT tree walk gathers
-T = 150 tree-bin columns from F = 104 feature columns). The columns come
+width W may differ from the row width P (the GBDT twin's tree walk, which
+GBDT training runs on the card for its validation scores, gathers T = 150
+tree-bin columns from F = 104 feature columns). The columns come
 either stacked, one [B, S, P] tensor, or as a sequence of B [S, P]
 tensors, which the kernel reads by pointer without stacking them. The
 CUDA kernel is `otto_tpu_torch/csrc/gather_rows.cu`; `gather_rows_ref` is

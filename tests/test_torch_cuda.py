@@ -11,7 +11,7 @@ machine with only PyTorch:
 import pytest
 import torch
 
-from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+from otto_tpu_torch.ops.kernels import _build, dma_gather, gather, gbdt_walk, mips, segscan
 
 
 @pytest.fixture
@@ -228,6 +228,118 @@ def test_cuda_gather_hbm_unaligned_table(cuda_device):
     got = dma_gather.gather_rows_hbm(table, ids)
     torch.cuda.synchronize()
     assert torch.equal(got, dma_gather.gather_rows_hbm_ref(table, ids))
+
+
+# K5: the GBDT walk against the twin (models/gbdt.py: _bin_program, the
+# walk on K1, the float32 sum). The tolerance on the leaf sum: the kernel
+# adds the T leaves in float64 in runs of trees (gbdt_walk.leaf_sum_order)
+# and rounds once, so it is bit for bit (0 ulps) the twin's leaves summed
+# that way; against the twin's own float32 sum it lies within that sum's
+# rounding bound, (T - 1) 2^-24 sum |leaf| (at most (T - 1) / 2 ulps of
+# sum |leaf|).
+def gbdt_case(dev, seed, M, T, D, n_bins, F=104):
+    """Edges of the serving cells' kind (ascending, a fifth of the features
+    +inf padded), a tenth of the splits no-ops (thr == n_bins), features
+    holding NaN, +-inf, -0.0, exact edges and values beyond the last edge."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    edges = torch.sort(torch.randn((F, n_bins - 1), generator=g, device=dev) * 3,
+                       dim=1).values
+    edges[torch.rand(F, generator=g, device=dev) < 0.2, -3:] = torch.inf
+    W = 2 ** (D - 1)
+    gfeat = torch.randint(0, F, (T, D, W), generator=g, device=dev, dtype=torch.int32)
+    thr = torch.randint(1, n_bins, (T, D, W), generator=g, device=dev, dtype=torch.int32)
+    thr[torch.rand((T, D, W), generator=g, device=dev) < 0.1] = n_bins
+    leaf = 0.1 * torch.randn((T, 2 ** D), generator=g, device=dev)
+    x = torch.randn((M, F), generator=g, device=dev) * 4
+    pick = torch.rand((M, F), generator=g, device=dev)
+    e = edges[torch.arange(F, device=dev),
+              torch.randint(0, n_bins - 1, (F,), generator=g, device=dev)]
+    x = torch.where(pick < 0.1, e.expand(M, -1), x)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 1e6,
+                            float(edges[torch.isfinite(edges)].max()) * 2], device=dev)
+    x = torch.where((pick >= 0.1) & (pick < 0.15),
+                    special[torch.randint(0, len(special), (M, F), generator=g, device=dev)], x)
+    return x, edges, gfeat, thr, leaf
+
+
+def assert_walk_matches_twin(x, edges, gfeat, thr, leaf, got):
+    from otto_tpu_torch.models import gbdt
+
+    val = gbdt._leaf_values(gbdt._bin_program(x, edges), gfeat, thr, leaf)
+    acc = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
+    for a, b in gbdt_walk.leaf_sum_order(val.shape[1]):
+        run = torch.zeros_like(acc)
+        for t in range(a, b):
+            run += val[:, t].double()
+        acc += run
+    assert torch.equal(got, acc.float())
+    twin = val.sum(dim=1)
+    bound = (val.shape[1] - 1) * 2.0 ** -24 * val.abs().sum(dim=1).double()
+    assert ((got.double() - twin.double()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T,D,n_bins", [
+    (1 << 20, 150, 4, 64),          # the serving shape: 2,048 sessions x 512
+    (1, 150, 4, 64), (255, 150, 4, 64), (1_000_003, 150, 4, 64), (0, 150, 4, 64),
+    (1000, 1, 1, 64), (10007, 150, 6, 64), (3000, 37, 4, 2),
+])
+def test_cuda_gbdt_walk_matches_twin(cuda_device, M, T, D, n_bins):
+    x, edges, gfeat, thr, leaf = gbdt_case(cuda_device, 11, M, T, D, n_bins)
+    before = gbdt_walk.LAUNCHES.value
+    got = gbdt_walk.gbdt_walk(x, edges, gfeat, thr, leaf)
+    torch.cuda.synchronize()
+    assert gbdt_walk.LAUNCHES.value == before + (1 if M else 0)
+    assert got.shape == (M,) and got.dtype == torch.float32
+    assert_walk_matches_twin(x, edges, gfeat, thr, leaf, got)
+
+
+@pytest.mark.cuda
+def test_cuda_gbdt_walk_identical_rows(cuda_device):
+    """One row copied over 40,000 rows (313 tiles, each block's tiles at
+    other places of its loop) scores the same everywhere."""
+    x, edges, gfeat, thr, leaf = gbdt_case(cuda_device, 12, 8, 150, 4, 64)
+    rows = x[3:4].expand(40_000, -1).contiguous()
+    got = gbdt_walk.gbdt_walk(rows, edges, gfeat, thr, leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got[:1].expand(40_000))
+    assert_walk_matches_twin(rows[:1], edges, gfeat, thr, leaf, got[:1])
+
+
+@pytest.mark.cuda
+def test_cuda_gbdt_ranker_runs_only_k5(cuda_device):
+    """GBDTRanker.predict_scores_device on CUDA features launches K5 once a
+    call and no K1, and gives the wrapper's scores."""
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models.gbdt import GBDTRanker
+
+    x, edges, gfeat, thr, leaf = gbdt_case(cuda_device, 13, 64 * 512, 150, 4, 64)
+    r = GBDTRanker(GBDTConfig(), edges.cpu().numpy(), gfeat.cpu().numpy(),
+                   thr.cpu().numpy(), leaf.cpu().numpy(),
+                   tuple(f"f{i}" for i in range(x.shape[1])))
+    feats = x.view(64, 512, -1)
+    k1, k5 = gather.LAUNCHES.value, gbdt_walk.LAUNCHES.value
+    got = [r.predict_scores_device(feats) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert gbdt_walk.LAUNCHES.value == k5 + 3
+    assert gather.LAUNCHES.value == k1
+    assert got[0].shape == (64, 512)
+    want = gbdt_walk.gbdt_walk(x, edges, gfeat, thr, leaf).view(64, 512)
+    assert all(torch.equal(s, want) for s in got)
+
+
+@pytest.mark.cuda
+def test_cuda_gbdt_walk_refuses_trees_beyond_smem(cuda_device):
+    """The library's shared-memory count is the wrapper's; trees that do
+    not fit a block raise before any launch."""
+    lib = _build.load()
+    for F, T, D in ((104, 150, 4), (104, 150, 6), (105, 1, 1), (3, 7, 9)):
+        assert lib.otto_gbdt_walk_smem(F, T, D) == gbdt_walk.smem_bytes(F, T, D)
+    x, edges, gfeat, thr, leaf = gbdt_case(cuda_device, 14, 100, 1000, 4, 64)
+    before = gbdt_walk.LAUNCHES.value
+    with pytest.raises(ValueError, match="shared memory"):
+        gbdt_walk.gbdt_walk(x, edges, gfeat, thr, leaf)
+    assert gbdt_walk.LAUNCHES.value == before
 
 
 # ---------------------------------------------------------------------------
