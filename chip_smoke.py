@@ -10,9 +10,10 @@ Phases, each printed before the last line:
 2. Build: compile the port's CUDA kernels (otto_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) for sm_90a; print the build seconds.
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search),
-   K4 (table row gather) and K5 (the GBDT walk) against their plain
-   PyTorch twins on the card at the main paths' shapes (K1 at the
-   transport sort's and at the GBDT validation walk's, K5 at serving's),
+   K4 (table row gather), K5 (the GBDT walk) and K6 (HSTU's pointwise
+   attention) against their plain PyTorch twins on the card at the main
+   paths' shapes (K1 at the transport sort's and at the GBDT validation
+   walk's, K5 at serving's, K6 at two of serving's length buckets),
    with CUDA event times of kernel, twin and library call and each
    kernel's bound; then one transport sort of 40 int32 columns
    at [2048, 4096] with K1 reading the columns by pointer, held bit for
@@ -82,6 +83,10 @@ Phases, each printed before the last line:
    groups; one train step and one batch's scoring timed; then score_pass
    over every test session with the towers (K1 and K2 launched, no tree
    walk), recall@20 beside the GBDT's, the ceiling and the baseline.
+5c. The HSTU ranker (ranker_backend "hstu", HSTUConfig() widths, weights
+   drawn from the seed, not trained) serves every test session through
+   score_pass: one K6 launch a block a batch, K4 reading the item rows;
+   its sessions/s and launch counts are printed.
 7. The batch runner from the cache: Pipeline.run on phase 4's work dir
    (every test session's retrieval kept on the card at once, C14 on the
    host, phase 4b's rankers): tables from the cache bit-equal to phase
@@ -197,6 +202,13 @@ MIPS_TOL = 1e-4
 # of the units that run them
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+# K6 against its twin (phase 3): a bound on the largest difference, as a
+# share of the twin's largest value. The kernel sums Q.K in its own order,
+# so an A near a bfloat16 rounding can round one step (2^-8) the other way;
+# a term A v is at most about y's largest value, and a few flips may meet
+# in one y
+K6_TOL = 5e-3
 
 
 def require(cond, msg):
@@ -246,18 +258,21 @@ UNSHARDED = {}
 
 
 def zero_launch_counts():
-    from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
+    from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
+                                            mips, segscan)
 
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk):
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention):
         m.LAUNCHES.reset()
 
 
 def launch_counts():
-    from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
+    from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
+                                            mips, segscan)
 
     return {"gather_rows": gather.LAUNCHES.value, "segmented_scan": segscan.LAUNCHES.value,
             "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value,
-            "gbdt_walk": gbdt_walk.LAUNCHES.value}
+            "gbdt_walk": gbdt_walk.LAUNCHES.value,
+            "hstu_attention": hstu_attention.LAUNCHES.value}
 
 
 @contextlib.contextmanager
@@ -546,6 +561,53 @@ def phase_kernels(dev, smi):
     print(f"#   {4 * M * F / (ms * 1e-3) / 1e9:.1f} GB/s of features, "
           f"{M * T * D / (ms * 1e-3) / 1e9:.1f} G tree levels/s")
     del x, got
+
+    # K6: HSTU's pointwise attention on 2,048-session batches of the pass-B
+    # cells' shapes (4 heads of 64): histories of 0-30 events and 0-330
+    # candidates (~180 tokens a session, at most one 64-key tile), and the
+    # 128 length bucket's, histories of 33-128 events and 140-165
+    # candidates (a second key tile; history query tiles whose last row is
+    # below L). q, k and v are views of one buffer as the ranker hands
+    # them over; each against the twin (rows in chunks over the padded
+    # history keys), within K6_TOL of it. Bound: the larger of Q, K, V read
+    # and Y written once at HBM's rate and the open pairs' two products at
+    # the dense bfloat16 peak. No PyTorch call computes SiLU attention (its
+    # attention kernels normalise with softmax)
+    from otto_tpu_torch.ops.kernels import hstu_attention as k6
+
+    S6, H6 = BATCH, 4
+    for l_lo, l_hi, c_lo, c_hi in ((0, 30, 0, 330), (33, 128, 140, 165)):
+        L6 = torch.randint(l_lo, l_hi + 1, (S6,), generator=g, device=dev)
+        C6 = torch.randint(c_lo, c_hi + 1, (S6,), generator=g, device=dev)
+        off = torch.zeros(S6 + 1, dtype=torch.int32, device=dev)
+        off[1:] = torch.cumsum(L6 + C6, 0).int()
+        N6 = int(off[-1])
+        buf = (torch.randn(N6, 3 * H6 * 64, generator=g, device=dev) * 0.7).bfloat16()
+        q, k, v = (buf[:, i * H6 * 64:(i + 1) * H6 * 64].view(N6, H6, 64) for i in range(3))
+        ts6 = torch.randint(0, 2_400_000, (N6,), generator=g, device=dev, dtype=torch.int32)
+        args = (q, k, v, off, L6.int(), ts6, torch.randn(201, generator=g, device=dev),
+                torch.randn(129, generator=g, device=dev), k6.time_bucket_thresholds(128, dev),
+                200.0)
+        k6.check_layout(off, args[4], N6, 201)
+        got = k6.hstu_attention(*args)
+        want = k6.hstu_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(err <= K6_TOL * float(want.abs().max()),
+                f"K6 within {K6_TOL} of the twin at L {l_lo}-{l_hi}: {err}")
+        ms = cuda_ms(lambda: k6.hstu_attention(*args))
+        plain = cuda_ms(lambda: k6.hstu_attention_ref(*args), reps=3)
+        Lk, Ck = L6.long(), C6.long()
+        pairs = int((Lk * (Lk + 1) // 2 + Ck * (Lk + 1)).sum())
+        n_bytes = (2 * N6 * H6 * 192 + 4 * N6 + 12 * (S6 + 1) + 4 * 201 + 12 * 129
+                   + 4 * N6 * H6 * 64)
+        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        by_ops = 2 * pairs * H6 * 128 / BF16_FLOPS * 1e3
+        head = (by_bytes, "bytes", None) if by_bytes >= by_ops else (by_ops, "operations", None)
+        report(f"hstu_attention L{l_lo}-{l_hi}", (S6, N6, H6, 64), err, ms, plain, head)
+        print(f"#   {n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of q, k, v and y, "
+              f"{2 * pairs * H6 * 128 / (ms * 1e-3) / 1e12:.2f} TFLOP/s over the open pairs")
+        del buf, q, k, v, got, want, args
     return out
 
 
@@ -1054,6 +1116,54 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
     return launches, recall, base
 
 
+def phase_hstu(dev, smi, sp, retriever, batch=BATCH):
+    """Phase 5c: the HSTU ranker (ranker_backend "hstu") at its default
+    widths, weights drawn from SEED over the N_AIDS items, serves the test
+    sessions through score_pass: one K6 launch a block and one K4 item
+    lookup a batch, every session listed. -> launch counts."""
+    from otto_tpu_torch.config import HSTUConfig, TYPES
+    from otto_tpu_torch.engine.retrieval import FEATURE_NAMES
+    from otto_tpu_torch.models import hstu
+    from otto_tpu_torch.pipeline.runner import score_pass
+
+    cfg = HSTUConfig()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = {}
+    for name, shape in hstu.param_shapes(cfg, N_AIDS, len(FEATURE_NAMES)).items():
+        std = 1.0 if name == "item_emb" else 0.5 if name.startswith(("w_pos", "w_time")) \
+            else 0.1 if name.startswith(("b1", "b2", "head_b", "type")) else shape[0] ** -0.5
+        params[name] = torch.randn(shape, generator=g, device=dev) * std
+    params["norm_mean"] = torch.zeros(len(FEATURE_NAMES), device=dev)
+    params["norm_std"] = torch.full((len(FEATURE_NAMES),), 2.0, device=dev)
+    ranker = hstu.HSTURanker(cfg, params, tuple(FEATURE_NAMES))
+    calls = []
+    inner = ranker.predict_scores_multi
+    ranker.predict_scores_multi = lambda b: calls.append(1) or inner(b)
+    rankers = {t: ranker for t in TYPES}
+    n_test = int(np.unique(sp.test.session).size)
+    ranker.predict_scores_multi(next(retriever.iter_run(sp.test, batch_sessions=batch)))
+    calls.clear()
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds = score_pass(retriever, sp.test, rankers, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"# HSTU serving: {n_test} sessions in {dt:.2f} s = {n_test / dt:.1f} sessions/s, "
+          f"{len(calls)} batches, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, launches {launches} ({smi})")
+    require(launches["hstu_attention"] == cfg.n_blocks * len(calls) > 0,
+            f"one K6 launch a block a batch: {launches}, {len(calls)} batches")
+    require(launches["gather_rows_hbm"] >= len(calls), f"K4 reads the items: {launches}")
+    for t, (s_, a) in preds.items():
+        require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"HSTU {t} shapes")
+        require((a[:, 0] >= 0).mean() > 0.99, f"HSTU {t} sessions get predictions")
+    del params, ranker, rankers
+    return launches
+
+
 # --------------------------------------------------------------------------
 # phase 5b: the MLP ranker, trained and served
 # --------------------------------------------------------------------------
@@ -1317,10 +1427,12 @@ def write_otto_jsonl(ev_path, lab_path, ev, labels):
 # counts to stderr at exit
 CLI_WITH_COUNTS = """
 import atexit, json, runpy, sys
-from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
+from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
+                                        segscan)
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk)}), file=sys.stderr))
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention)}),
+    file=sys.stderr))
 sys.argv = ["otto_tpu_torch.pipeline.cli"] + sys.argv[1:]
 runpy.run_module("otto_tpu_torch.pipeline.cli", run_name="__main__", alter_sys=True)
 """
@@ -1405,10 +1517,12 @@ FULLSCALE_STAGES = [
     "ranker carts (gbdt)", "ranker orders (gbdt)", "score (pass B)", "submit", "eval"]
 SCRIPT_WITH_COUNTS = """
 import atexit, json, runpy, sys
-from otto_tpu_torch.ops.kernels import dma_gather, gather, gbdt_walk, mips, segscan
+from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
+                                        segscan)
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk)}), file=sys.stderr))
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention)}),
+    file=sys.stderr))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
@@ -1473,7 +1587,10 @@ def phase_fullscale(smi, root):
     require(rec["generator"] == "device" and rec["spec"]["n_sessions"] == FULLSCALE_SESSIONS,
             "the events were drawn on the card at the asked scale")
     require("src_any" in rec["per_source"], "the per-source report is in the record")
-    require(all(v > 0 for v in launches.values()), f"K1-K4 launched by the script: {launches}")
+    # the script serves GBDT rankers: K1-K5 launch, K6 (the HSTU ranker's) does not
+    require(all(v > 0 for k, v in launches.items() if k != "hstu_attention")
+            and launches["hstu_attention"] == 0,
+            f"K1-K5 launched by the script, K6 not: {launches}")
     m = rec["metrics"]
 
     # the heuristic baseline on the same test sessions and co-visitation tables
@@ -2539,6 +2656,8 @@ def main():
         serve_launches, serve_recall, base_recall = phase_main_path(
             dev, smi, sp, retriever, rankers, pa_metrics)
         torch.cuda.empty_cache()
+        hstu_launches = phase_hstu(dev, smi, sp, retriever)
+        torch.cuda.empty_cache()
         mlp_tr_launches, mlp_launches = phase_mlp(dev, smi, sp, retriever, work, pa_metrics,
                                                   serve_recall, base_recall)
         torch.cuda.empty_cache()
@@ -2568,7 +2687,7 @@ def main():
     # (K1, K2), the two CLI runs (all), the multi-device stages (all, every
     # rank) and the reference-scale script (all)
     paths = {k: sum(p[k] for p in (build_launches, pa_launches, tr_launches,
-                                   serve_launches, mlp_tr_launches, mlp_launches,
+                                   serve_launches, hstu_launches, mlp_tr_launches, mlp_launches,
                                    batch_launches, tool_launches, mesh_launches,
                                    fullscale_launches))
              for k in build_launches}
@@ -2584,6 +2703,8 @@ def main():
                             "otto_tpu/ops/pallas/dma_gather.py:43"),
         "gbdt_walk": ("otto_tpu_torch/csrc/gbdt_walk.cu",
                       "none; subsumes the walk of otto_tpu/models/gbdt.py:425"),
+        "hstu_attention": ("otto_tpu_torch/csrc/hstu_attention.cu",
+                           "none; the HSTU ranker exists only in the port"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -170,6 +170,28 @@ class RankerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HSTUConfig:
+    """The HSTU multi-task ranker's shape (models/hstu.py;
+    `ranker_backend="hstu"`): d_model-wide tokens through n_blocks blocks
+    of n_heads pointwise-attention heads (d_qk-wide queries and keys,
+    d_v-wide values), history capped at its last max_seq_len events,
+    relative position biases for 0..max_seq_len and time-gap biases for
+    buckets 0..n_time_buckets, attention divided by the constant n_scale.
+    A saved ranker carries its shape; the port only serves one (no
+    training)."""
+
+    d_model: int = 256
+    n_heads: int = 4
+    d_qk: int = 64
+    d_v: int = 64
+    n_blocks: int = 8
+    max_seq_len: int = 200
+    n_time_buckets: int = 128
+    n_scale: float = 200.0
+    eps: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
 class GBDTConfig:
     """Histogram-GBDT lambdarank: the trees' shape (what scoring reads) and
     the training settings, with otto_tpu's names and defaults: 150 trees,
@@ -316,8 +338,9 @@ class Config:
     popularity: PopularityConfig = dataclasses.field(default_factory=PopularityConfig)
     ranker: RankerConfig = dataclasses.field(default_factory=RankerConfig)
     gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
-    # the rankers' model class: "gbdt" (histogram trees) or "mlp" (the
-    # LambdaRank tower)
+    # the rankers' model class: "gbdt" (histogram trees), "mlp" (the
+    # LambdaRank tower) or "hstu" (one multi-task sequential ranker,
+    # served only: models/hstu.py)
     ranker_backend: str = "gbdt"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

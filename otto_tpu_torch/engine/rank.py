@@ -160,30 +160,46 @@ def _topk_program(scores: torch.Tensor, cand: torch.Tensor, k: int):
     return top_s, torch.where(torch.isfinite(top_s), top_a, -1)
 
 
+def multi_task(rankers: List):
+    """The one multi-task ranker (one with predict_scores_multi, a task a
+    target type) that `rankers` (one a target type) all are, else None."""
+    first = rankers[0] if rankers else None
+    if (hasattr(first, "predict_scores_multi") and all(r is first for r in rankers)
+            and len(first.tasks) == len(rankers)):
+        return first
+    return None
+
+
 def score_topk_multi(
     b: RetrievedBatch, rankers: List, top_k: int = 20
 ) -> np.ndarray:
-    """Score one batch with every ranker on the device; pull one stacked
-    [n_rankers, S, k] aid array."""
+    """Score one batch with every ranker on the device (one call where
+    they are all one multi-task ranker, multi_task); pull
+    one stacked [n_rankers, S, k] aid array."""
     with timing.span("otto::rank.score"):
         cand = b.cand_device()
-        tops = torch.stack([
-            _topk_program(r.predict_scores_device(b.feats), cand, top_k)[1]
-            for r in rankers
-        ])
+        multi = multi_task(rankers)
+        if multi is not None:
+            scores = list(multi.predict_scores_multi(b))
+        else:
+            scores = [r.predict_scores_device(b.feats) for r in rankers]
+        tops = torch.stack([_topk_program(s, cand, top_k)[1] for s in scores])
     # the pull waits for the card
     with timing.span("otto::rank.pull"):
         return tops.cpu().numpy()
 
 
 def score_and_topk(
-    batches: List[RetrievedBatch], ranker, top_k: int = 20
+    batches: List[RetrievedBatch], ranker, top_k: int = 20, task: Optional[int] = None
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> (sessions [N], top-k aids [N, k] rank-ordered, scores [N, k]),
-    session-sorted."""
+    session-sorted. A multi-task ranker scores its target `task`."""
     sess_out, aid_out, score_out = [], [], []
     for b in batches:
-        scores = ranker.predict_scores_device(b.feats)
+        if task is not None:
+            scores = ranker.predict_scores_multi(b)[task]
+        else:
+            scores = ranker.predict_scores_device(b.feats)
         top_s, top_a = _topk_program(scores, b.cand_device(), top_k)
         sess_out.append(b.session)
         aid_out.append(top_a.cpu().numpy())

@@ -232,16 +232,19 @@ class RetrievedBatch:
     """One retrieval batch. `feats` [n_keep, C, F] stays on the device and
     arrives keep-filtered to the real sessions; `cand` / `ts_order` are
     kept as full [S, C] device tensors and filtered with `keep` (row
-    indices of the real sessions, None = all) on access. `index`: the
+    indices of the real sessions, None = all) on access, as is `history`,
+    the padded (aid, ts, type) [S, L] the batch was retrieved from (None
+    for a batch made elsewhere; the HSTU ranker reads it). `index`: the
     batch's place in one device's batch order (Retriever.iter_run's; None
     for a batch made elsewhere)."""
 
-    def __init__(self, session, cand, feats, ts_order, keep=None, index=None):
+    def __init__(self, session, cand, feats, ts_order, keep=None, index=None, history=None):
         self.session = session
         self.index = index
         self.feats = feats
         self._cand = cand
         self._ts_order = ts_order
+        self._history = tuple(history) if history is not None else None
         self._keep = keep
         self._host = {}
 
@@ -252,12 +255,19 @@ class RetrievedBatch:
 
     def device_tensors(self) -> List[torch.Tensor]:
         """The batch's tensors on its device (features, candidates,
-        ts_order)."""
-        return [self.feats, self._cand, self._ts_order]
+        ts_order, the history's three)."""
+        return [self.feats, self._cand, self._ts_order, *(self._history or ())]
 
     def cand_device(self) -> torch.Tensor:
         """[n_keep, C] int32 candidates on the device."""
         return self._filtered(self._cand)
+
+    def history_device(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(aid, ts, type) [n_keep, L] int32 on the device: each session's
+        events left-aligned, aid -1 past its end."""
+        if self._history is None:
+            raise ValueError("this RetrievedBatch carries no history")
+        return tuple(self._filtered(x) for x in self._history)
 
     def _pull(self, name: str, x: torch.Tensor) -> np.ndarray:
         if name not in self._host:
@@ -960,6 +970,7 @@ class Retriever:
                             ts_order=ts_order,
                             keep=keep_idx,
                             index=n_batches - 1,
+                            history=padded,
                         )
                 yield batch
 

@@ -142,6 +142,9 @@ def load() -> ctypes.CDLL:
     lib.otto_gbdt_walk.restype = i32
     lib.otto_gbdt_walk_smem.argtypes = [i32] * 3
     lib.otto_gbdt_walk_smem.restype = i32
+    lib.otto_hstu_attention.argtypes = ([ptr] * 11 + [ctypes.c_longlong] + [i32] * 5
+                                        + [ctypes.c_float, ptr])
+    lib.otto_hstu_attention.restype = i32
     return lib
 
 

@@ -51,7 +51,7 @@ from otto_tpu_torch.pipeline.runner import Pipeline, run_synthetic
 log = logging.getLogger(__name__)
 
 # Config.ranker_backend's values
-BACKENDS = ("gbdt", "mlp")
+BACKENDS = ("gbdt", "mlp", "hstu")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:

@@ -13,7 +13,8 @@ functions:
   per-source retrieval eval (C14) and negative downsampling (C15), whose
   rows are persisted per target before any training;
 - `train_ranker_cached`: one target's ranker (C16) from those rows, a
-  GBDT or an MLP as `Config.ranker_backend` says;
+  GBDT or an MLP as `Config.ranker_backend` says (an HSTU ranker,
+  "hstu", is served from its saved file and never trained here);
 - `score_pass`: re-retrieve the test sessions, score every batch with the
   three target rankers on the device, keep the top-20 per target;
 - `submit_and_eval`: write the submission file and evaluate recall@20;
@@ -98,6 +99,7 @@ from otto_tpu_torch.eval.per_source import (
 )
 from otto_tpu_torch.eval.recall import evaluate_submission_file, evaluate_topk, recall_at_k
 from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
+from otto_tpu_torch.models.hstu import HSTURanker
 from otto_tpu_torch.models.ranker import Ranker, train_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
@@ -681,15 +683,27 @@ def _load_ranker(path: str, cfg: Config):
     """A saved ranker of cfg.ranker_backend's class."""
     if cfg.ranker_backend == "gbdt":
         return GBDTRanker.load(path)
+    if cfg.ranker_backend == "hstu":
+        return HSTURanker.load(path)
     return Ranker.load(path, cfg.ranker)
+
+
+def refuse_training(cfg: Config) -> None:
+    """The port trains GBDT and MLP rankers only."""
+    if cfg.ranker_backend == "hstu":
+        raise ValueError(
+            "ranker_backend 'hstu': the port serves a saved HSTU ranker "
+            f"({_ranker_path('<work_dir>', 'clicks', 'hstu')}) but does not train one; "
+            "run without labels, or train a 'gbdt' or 'mlp' ranker")
 
 
 def load_rankers(work_dir: str, cfg: Config = Config()) -> Dict[str, object]:
     """Read the three `ranker-{backend}-{clicks,carts,orders}.npz` files
     (backend: cfg.ranker_backend) that a training run of either package
-    wrote into its work dir; each must be a ranker over retrieval's
+    wrote into its work dir, or for "hstu" the one `ranker-hstu.npz` that
+    serves every target; each must be a ranker over retrieval's
     FEATURE_NAMES."""
-    rankers = {}
+    rankers, loaded = {}, {}
     for tname in TYPES:
         path = _ranker_path(work_dir, tname, cfg.ranker_backend)
         if not os.path.exists(path):
@@ -697,7 +711,9 @@ def load_rankers(work_dir: str, cfg: Config = Config()) -> Dict[str, object]:
                 f"no trained {cfg.ranker_backend} ranker for '{tname}' at {path}; "
                 "run the pipeline with labels first to train rankers"
             )
-        rankers[tname] = _load_ranker(path, cfg)
+        if path not in loaded:
+            loaded[path] = _load_ranker(path, cfg)
+        rankers[tname] = loaded[path]
         check_serving_features(tname, rankers[tname])
     return rankers
 
@@ -723,6 +739,8 @@ class PassAReport:
 
 
 def _ranker_path(work_dir: str, tname: str, backend: str) -> str:
+    if backend == "hstu":   # one multi-task ranker for every target
+        return os.path.join(work_dir, "ranker-hstu.npz")
     return os.path.join(work_dir, f"ranker-{backend}-{tname}.npz")
 
 
@@ -1010,6 +1028,7 @@ def train_ranker_cached(
         dist.barrier()
     if cached:
         return _load_ranker(path, cfg)
+    refuse_training(cfg)
     feats, y, sess = rows_fn()
     u_sess = np.unique(sess)
     n_train = max(1, int(len(u_sess) * 0.75))
@@ -1136,6 +1155,8 @@ def run_streaming(
     -> metrics: pass A's and recall@20 per type and total ({} without
     labels)."""
     check_mesh_device(device, mesh)
+    if labels is not None:
+        refuse_training(cfg)
     guard_work_dir(work_dir, cfg, n_aids, use_cache, mesh)
     retriever, _ = build_retriever(
         train, test, n_aids, device, cfg.w2vec, None, cfg.covis, cfg.popularity,
@@ -1257,6 +1278,8 @@ class Pipeline:
         batch and the submission is written (metrics stay empty). With a
         mesh, each data rank keeps the batches dealt to it; the files
         rank 0 writes are those of one device."""
+        if labels is not None:
+            refuse_training(self.cfg)
         batches, targets, metrics = self.retrieve_with_features(
             train, test, labels, batch_sessions=batch_sessions)
         if labels is not None:
@@ -1402,9 +1425,11 @@ class Pipeline:
         """Each target's (sessions, top-20 aids) over the batches
         (score_and_topk), session-sorted; with a mesh, every rank's."""
         preds = {}
-        for t in TYPES:
+        multi = rank_engine.multi_task([rankers[t] for t in TYPES])
+        for i, t in enumerate(TYPES):
             if batches:
-                s, a, _ = rank_engine.score_and_topk(batches, rankers[t])
+                s, a, _ = rank_engine.score_and_topk(batches, rankers[t],
+                                                     task=None if multi is None else i)
             else:
                 s, a = np.zeros(0, np.int32), np.zeros((0, KEEP_TOP_K), np.int32)
             if self.mesh is not None:

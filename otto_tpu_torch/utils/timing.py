@@ -176,6 +176,7 @@ class SpanRecord(NamedTuple):
     parent: Optional[int]  # the enclosing span's id, None for a request's root
     request: int
     batch: Optional[int]  # RetrievedBatch.index where the span has one
+    index: Optional[int] = None  # the span's place among its siblings of one name
 
 
 class Counter:
@@ -247,11 +248,13 @@ _NO_SPAN = _NoSpan()
 
 
 class _Span:
-    __slots__ = ("name", "batch", "id", "parent", "start", "range")
+    __slots__ = ("name", "batch", "index", "id", "parent", "start", "range")
 
-    def __init__(self, name: str, batch: Optional[int], id: Optional[int] = None):
+    def __init__(self, name: str, batch: Optional[int], id: Optional[int] = None,
+                 index: Optional[int] = None):
         self.name = name
         self.batch = batch
+        self.index = index
         self.id = id
         self.range = None
 
@@ -302,7 +305,7 @@ class _Span:
         if self.range is not None:
             self.range.__exit__(None, None, None)
         rec = SpanRecord(self.name, self.start, end, threading.current_thread().name,
-                         self.id, self.parent, _here.req.id, self.batch)
+                         self.id, self.parent, _here.req.id, self.batch, self.index)
         with _lock:
             tot = _totals.get(self.name)
             if tot is None:
@@ -313,12 +316,13 @@ class _Span:
             _closed += 1
 
 
-def span(name: str, batch: Optional[int] = None):
+def span(name: str, batch: Optional[int] = None, index: Optional[int] = None):
     """A span of the calling thread's request (a shared no-op while none
-    records): `with span(...):`, or `span(...).open()` ... `.close()`."""
+    records): `with span(...):`, or `span(...).open()` ... `.close()`.
+    `index` numbers repeated spans of one name (an encoder's blocks)."""
     if not _active or _here.req is None:
         return _NO_SPAN
-    return _Span(name, batch)
+    return _Span(name, batch, index=index)
 
 
 @contextlib.contextmanager

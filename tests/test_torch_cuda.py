@@ -687,3 +687,129 @@ def mlp_batches(rng, B, G, F, src, n=3):
         labels = ((rng.random((B, G)) < 0.05) & mask).astype(np.float32)
         out.append(tuple(torch.from_numpy(a) for a in (feats, labels, mask)))
     return out
+
+
+# K6 (HSTU's pointwise attention) at the serving shape and at the layout's
+# edges: (sessions, largest history, most candidates, fixed L, fixed C).
+# The kernel sums Q.K and A.V in another order than the twin and rounds A
+# to bfloat16 after its own float32 sum, so an A near a bfloat16 rounding
+# can round one step (2^-8) the other way; a term A v is at most about y's
+# largest value and a few flips may meet in one y: K6_TOL of y's largest
+# value (chip_smoke.py's bound; 1.5e-3 read at the serving shape)
+K6_TOL = 5e-3
+K6_CASES = {"serve": (2048, 30, 200, None, None), "L1": (300, 1, 40, 1, None),
+            "C0": (64, 200, 0, None, 0), "C512": (16, 200, 512, None, 512),
+            "one_session": (1, 200, 512, None, None)}
+
+
+def k6_case(dev, S, Lmax, Cmax, Lfix, Cfix, H=4, seed=0):
+    from otto_tpu_torch.ops.kernels import hstu_attention as k6
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = (torch.randint(0, Lmax + 1, (S,), generator=g, device=dev) if Lfix is None
+         else torch.full((S,), Lfix, device=dev))
+    C = (torch.randint(0, Cmax + 1, (S,), generator=g, device=dev) if Cfix is None
+         else torch.full((S,), Cfix, device=dev))
+    off = torch.zeros(S + 1, dtype=torch.int32, device=dev)
+    off[1:] = torch.cumsum(L + C, 0).int()
+    N = int(off[-1])
+    # q, k and v as the ranker hands them over: views of one [N, 3 H 64] buffer
+    buf = (torch.randn(N, 3 * H * 64, generator=g, device=dev) * 0.7).bfloat16()
+    q, k, v = (buf[:, i * H * 64:(i + 1) * H * 64].view(N, H, 64) for i in range(3))
+    ts = torch.randint(0, 2_400_000, (N,), generator=g, device=dev, dtype=torch.int32)
+    w_pos = torch.randn(201, generator=g, device=dev)
+    w_time = torch.randn(129, generator=g, device=dev)
+    return q, k, v, off, L.int(), ts, w_pos, w_time, k6.time_bucket_thresholds(128, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_cuda_hstu_attention_matches_twin(cuda_device, case):
+    from otto_tpu_torch.ops.kernels import hstu_attention as k6
+
+    args = k6_case(cuda_device, *K6_CASES[case])
+    k6.check_layout(args[3], args[4], args[0].shape[0], args[6].shape[0])
+    before = k6.LAUNCHES.value
+    got = k6.hstu_attention(*args, 200.0)
+    assert k6.LAUNCHES.value == before + 1
+    want = k6.hstu_attention_ref(*args, 200.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= K6_TOL * want.abs().max().clamp(min=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["cpu_tensor", "head_dim", "unaligned", "biases", "dtype"])
+def test_cuda_hstu_attention_refuses(cuda_device, fault):
+    from otto_tpu_torch.ops.kernels import hstu_attention as k6
+
+    q, k, v, off, L, ts, w_pos, w_time, thr = k6_case(cuda_device, 4, 5, 6, None, None)
+    if fault == "cpu_tensor":
+        ts = ts.cpu()
+    elif fault == "head_dim":
+        q, k, v = (x[:, :, :32] for x in (q, k, v))
+    elif fault == "unaligned":
+        N = q.shape[0]
+        buf = torch.zeros(N, 3 * 4 * 64 + 4, dtype=torch.bfloat16, device=cuda_device)
+        q, k, v = (buf[:, 4 + i * 256:4 + (i + 1) * 256].view(N, 4, 64) for i in range(3))
+    elif fault == "biases":
+        w_pos = torch.zeros(k6.MAX_POS + 1, device=cuda_device)
+    else:
+        v = v.half()
+    before = k6.LAUNCHES.value
+    with pytest.raises((TypeError, ValueError)):
+        k6.hstu_attention(q, k, v, off, L, ts, w_pos, w_time, thr, 200.0)
+    assert k6.LAUNCHES.value == before
+
+
+@pytest.mark.cuda
+def test_cuda_hstu_ranker_matches_reference(cuda_device):
+    """The HSTU ranker at the published widths through score_topk_multi on
+    a 2,048-session batch: one K6 launch a block, the items read through
+    K4, and every served list within 0.05 of the reference's order (a
+    sample of sessions scored by tests/hstu_reference.py, float32, TF32
+    off)."""
+    import numpy as np
+
+    from otto_tpu_torch.config import HSTUConfig
+    from otto_tpu_torch.engine import rank
+    from otto_tpu_torch.engine.retrieval import FEATURE_NAMES, RetrievedBatch
+    from otto_tpu_torch.models import hstu
+    from otto_tpu_torch.ops.kernels import hstu_attention as k6
+    # by their own names: pytest puts this directory first on sys.path, and
+    # another installed package may be called `tests`
+    import hstu_reference as ref
+    from test_torch_hstu import draw_batch, draw_params
+
+    cfg = HSTUConfig()
+    params = {k: v.to(cuda_device) for k, v in draw_params(cfg, 5000, seed=1).items()}
+    r = hstu.HSTURanker(cfg, params, tuple(FEATURE_NAMES))
+    aid, ts, typ, cand, feats = (x.to(cuda_device) for x in
+                                 draw_batch(2048, seed=2, max_len=128, max_cand=300,
+                                            c_slots=512, min_cand=100))
+    aid = aid % 5000
+    cand = torch.where(cand >= 0, cand % 5000, -1)
+    b = RetrievedBatch(np.arange(2048), cand, feats, torch.zeros_like(cand),
+                       history=(aid, ts, typ))
+    k6_before, k4_before = k6.LAUNCHES.value, dma_gather.LAUNCHES.value
+    tops = rank.score_topk_multi(b, [r, r, r])
+    assert k6.LAUNCHES.value - k6_before == cfg.n_blocks
+    assert dma_gather.LAUNCHES.value - k4_before == 1
+    ref.no_tf32()
+    worst = 0.0
+    for s in range(0, 2048, 97):
+        n = int((aid[s] >= 0).sum())
+        ok = cand[s] >= 0
+        want = ref.session_scores(params, cfg, aid[s, :n].cpu(), ts[s, :n].cpu(),
+                                  typ[s, :n].cpu(), cand[s][ok].cpu(), feats[s][ok])
+        by_aid = dict(zip(cand[s][ok].tolist(), want.T.tolist()))
+        for t in range(3):
+            got = tops[t, s][tops[t, s] >= 0]
+            assert len(got) == min(20, int(ok.sum()))
+            served = np.array([by_aid[a][t] for a in got.tolist()])
+            best = np.sort(want[t].cpu().numpy())[::-1][:len(got)]
+            worst = max(worst, float((best - served).max()))
+    # the reference itself, computed on the card and on the CPU, differs by
+    # up to 0.013 at these widths (eight blocks carry float32 summing orders
+    # across bfloat16 roundings); the float8 control by 0.24-0.49
+    assert worst <= 0.05

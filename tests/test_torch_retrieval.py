@@ -199,3 +199,64 @@ def test_context_moves_as_a_whole():
     assert type(moved.covis[0]) is type(ctx.covis[0])
     assert all(t.device.type == "meta" for t in moved.tensors())
     assert [t.shape for t in moved.tensors()] == [t.shape for t in tabs]
+
+
+def test_history_reaches_the_consumer():
+    """Each batch of the port's iter_run carries the padded (aid, ts, type)
+    it was retrieved from, keep-filtered like its candidates: row i holds
+    session i's last events (at most the bucket's lanes), left-aligned."""
+    w = build_world()
+    t = w["port_test"]
+    n_rows = 0
+    for b in w["port"].iter_run(t, batch_sessions=BATCH):
+        aid, ts, typ = (x.numpy() for x in b.history_device())
+        assert aid.shape[0] == len(b.session) == b.cand_device().shape[0]
+        for i, s in enumerate(b.session):
+            m = t.session == s
+            n = min(int(m.sum()), aid.shape[1])
+            np.testing.assert_array_equal(aid[i, :n], t.aid[m][-n:])
+            np.testing.assert_array_equal(ts[i, :n], t.ts[m][-n:])
+            np.testing.assert_array_equal(typ[i, :n], t.type[m][-n:])
+            assert (aid[i, n:] == -1).all()
+            n_rows += 1
+    assert n_rows == len(np.unique(t.session))
+
+
+def test_hstu_serves_through_score_pass():
+    """ranker_backend "hstu" on the port's serving path: score_pass with
+    one HSTU ranker for the three targets ranks each session's retrieved
+    candidates as the plain reference scores them from its events
+    (tests/hstu_reference.py; gaps within test_torch_hstu.TOL)."""
+    from otto_tpu_torch.config import TYPES
+    from otto_tpu_torch.models.hstu import HSTURanker
+    from otto_tpu_torch.pipeline import runner
+    import hstu_reference as ref_hstu
+    from test_torch_hstu import CFG, TOL, draw_params
+
+    w = build_world()
+    t = w["port_test"]
+    params = draw_params(n_aids=N_AIDS, seed=3)
+    r = HSTURanker(CFG, params, tuple(port_retrieval.FEATURE_NAMES))
+    preds = runner.score_pass(w["port"], t, {tn: r for tn in TYPES}, BATCH)
+    cand_of = {}
+    for b in w["port"].iter_run(t, batch_sessions=BATCH):
+        for i, s in enumerate(b.session):
+            cand_of[int(s)] = (b.cand[i], b.feats[i].numpy())
+    checked = 0
+    for ti, tn in enumerate(TYPES):
+        sess, aids = preds[tn]
+        np.testing.assert_array_equal(sess, np.unique(t.session))
+        for s, row in list(zip(sess, aids))[::7]:
+            m = t.session == s
+            cand, feats = cand_of[int(s)]
+            ok = cand >= 0
+            want = ref_hstu.session_scores(params, CFG, t.aid[m][-32:], t.ts[m][-32:],
+                                           t.type[m][-32:], cand[ok], feats[ok])[ti].numpy()
+            got = row[row >= 0]
+            assert len(got) == min(20, int(ok.sum()))
+            by_aid = dict(zip(cand[ok].tolist(), want.tolist()))
+            served = np.array([by_aid[a] for a in got.tolist()])
+            best = np.sort(want)[::-1][:len(got)]
+            assert (best - served).max(initial=0.0) <= TOL
+            checked += 1
+    assert checked > 100
