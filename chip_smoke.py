@@ -10,10 +10,11 @@ Phases, each printed before the last line:
 2. Build: compile the port's CUDA kernels (otto_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) for sm_90a; print the build seconds.
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search),
-   K4 (table row gather), K5 (the GBDT walk) and K6 (HSTU's pointwise
-   attention) against their plain PyTorch twins on the card at the main
-   paths' shapes (K1 at the transport sort's and at the GBDT validation
-   walk's, K5 at serving's, K6 at two of serving's length buckets),
+   K4 (table row gather), K5 (the GBDT walk), K6 (HSTU's pointwise
+   attention) and K7 (retrieval's Stage E features) against their plain
+   PyTorch twins on the card at the main paths' shapes (K1 at the
+   transport sort's and at the GBDT validation walk's, K5 at serving's,
+   K6 at two of serving's length buckets, K7 at pass B's 2,048 x 512),
    with CUDA event times of kernel, twin and library call and each
    kernel's bound; then one transport sort of 40 int32 columns
    at [2048, 4096] with K1 reading the columns by pointer, held bit for
@@ -154,12 +155,12 @@ Phases, each printed before the last line:
    written there and linked from the work dir, and every stage's entry
    must carry the bytes on disk, in the tmpfs dir and written.
 
-Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase 10 runs after
-phase 9 in a work dir of its own; phase 6 runs last.
-Then one JSON line with the kernels' results and, last, the result line
-{"ok": true, "device": {...}}. Any failed check raises: the exit code is
-then non-zero and the result line is not printed.
-"""
+Every phase that retrieves on the card checks one K7 launch a batch it
+retrieved there. Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase
+10 runs after phase 9 in a work dir of its own; phase 6 runs last. Then
+one JSON line with the kernels' results and, last, the result line {"ok":
+true, "device": {...}}. Any failed check raises: the exit code is then
+non-zero and the result line is not printed."""
 import contextlib
 import dataclasses
 import hashlib
@@ -203,6 +204,11 @@ MIPS_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+# K7 against its twin (phase 3): cos_sim_ses_aid and eucl_dist_ses_aid sum
+# a 100-wide dot product and two norms in the kernel's order (the twin's
+# in cuBLAS's and linalg.norm's): float32 rounding, as tests/test_torch_
+# retrieval.py holds the port to otto_tpu (FLOAT_RTOL, FLOAT_ATOL)
+K7_RTOL = K7_ATOL = 1e-5
 # K6 against its twin (phase 3): a bound on the largest difference, as a
 # share of the twin's largest value. The kernel sums Q.K in its own order,
 # so an A near a bfloat16 rounding can round one step (2^-8) the other way;
@@ -259,20 +265,53 @@ UNSHARDED = {}
 
 def zero_launch_counts():
     from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
-                                            mips, segscan)
+                                            mips, retrieval_features, segscan)
 
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention):
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
+              retrieval_features):
         m.LAUNCHES.reset()
 
 
 def launch_counts():
     from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
-                                            mips, segscan)
+                                            mips, retrieval_features, segscan)
 
     return {"gather_rows": gather.LAUNCHES.value, "segmented_scan": segscan.LAUNCHES.value,
             "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value,
             "gbdt_walk": gbdt_walk.LAUNCHES.value,
-            "hstu_attention": hstu_attention.LAUNCHES.value}
+            "hstu_attention": hstu_attention.LAUNCHES.value,
+            "retrieval_features": retrieval_features.LAUNCHES.value}
+
+
+@contextlib.contextmanager
+def batches_retrieved():
+    """Count the retrieve_batch calls made meanwhile, from any thread, on
+    CUDA inputs (Retriever.iter_run calls it through its module): each is
+    one K7 launch. Yields a one-element list holding the count."""
+    import threading
+
+    from otto_tpu_torch.engine import retrieval
+
+    n, lock, inner = [0], threading.Lock(), retrieval.retrieve_batch
+
+    def call(padded, *args, **kwargs):
+        out = inner(padded, *args, **kwargs)
+        if padded[0].device.type == "cuda":
+            with lock:
+                n[0] += 1
+        return out
+
+    retrieval.retrieve_batch = call
+    try:
+        yield n
+    finally:
+        retrieval.retrieve_batch = inner
+
+
+def require_k7(launches, n_batches, where):
+    require(launches["retrieval_features"] == n_batches > 0,
+            f"one K7 launch a batch retrieved on the card ({where}): "
+            f"{launches['retrieval_features']} launches, {n_batches} batches")
 
 
 @contextlib.contextmanager
@@ -608,7 +647,76 @@ def phase_kernels(dev, smi):
         print(f"#   {n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of q, k, v and y, "
               f"{2 * pairs * H6 * 128 / (ms * 1e-3) / 1e12:.2f} TFLOP/s over the open pairs")
         del buf, q, k, v, got, want, args
+    retrieval_features_check(dev, report)
     return out
+
+
+def retrieval_features_check(dev, report):
+    """K7 at the pass-B shape: one retrieve_batch of BATCH sessions of the
+    32 length bucket on seeded tables of N_AIDS aids at production width
+    (32 kept aids, 512 slots), its Stage E inputs caught and run through
+    the kernel and through the twin: candidates, ts_order and every
+    feature bit-equal but the two similarity ones (within K7_RTOL), the
+    CUDA event times of both, and the kernel's bound: the bytes these
+    inputs need at HBM's rate (every slot's sort key and outputs, the two
+    moved columns of a filled slot, the other 80 columns, the item row and
+    three popularity ranks of a valid one, the session stats and
+    embeddings once). No one PyTorch call computes the features."""
+    from otto_tpu_torch.config import RetrievalConfig
+    from otto_tpu_torch.data.batching import pack_sessions
+    from otto_tpu_torch.data.synthetic import SyntheticSpec, generate_device
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.ops.kernels import retrieval_features as k7
+
+    cfg = RetrievalConfig()
+    ev = generate_device(SyntheticSpec(n_sessions=8000, n_aids=N_AIDS, max_len=32,
+                                       mean_len=14, seed=SEED), dev)
+    p = pack_sessions(ev, (32,))[0]
+    require(p.n_sessions >= BATCH, f"{BATCH} sessions in the 32 bucket: {p.n_sessions}")
+    ctx = seeded_context(N_AIDS, dev, SEED)
+    cluster, semb = session_lookup(ev, SEED).lookup(p.session[:BATCH])
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x[:BATCH])).to(dev)
+
+    trim = torch.tensor([cfg.trim_max_at_order_1, cfg.trim_min,
+                         (cfg.trim_max_at_order_1 - cfg.trim_min) / (cfg.trim_min_at_order - 1)],
+                        dtype=torch.float32, device=dev)
+    caught = []
+    stage_e = retrieval._stage_e
+    with mock.patch.object(retrieval, "_stage_e", lambda *a: caught.append(a) or stage_e(*a)):
+        retrieval.retrieve_batch((put(p.aid), put(p.ts), put(p.type)), ctx, put(cluster),
+                                 put(semb), trim, cfg.max_session_aids, cfg.max_candidates)
+    args = caught[0]
+    pk = args[0]
+    got = stage_e(*args)
+    want = retrieval._features_program(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+            "K7 candidates and ts_order equal to the twin's")
+    sim = [retrieval.FEATURE_INDEX[n] for n in ("cos_sim_ses_aid", "eucl_dist_ses_aid")]
+    words, words_t = got[1].view(torch.int32), want[1].view(torch.int32)
+    off = [n for j, n in enumerate(retrieval.FEATURE_NAMES)
+           if j not in sim and not torch.equal(words[..., j], words_t[..., j])]
+    require(not off, f"K7 features bit-equal to the twin's: {off} differ")
+    a, b = got[1][..., sim], want[1][..., sim]
+    err = float((a - b).abs().max())
+    require(bool(torch.allclose(a, b, rtol=K7_RTOL, atol=K7_ATOL)),
+            f"K7 similarity features within {K7_RTOL} of the twin's: {err}")
+    ms = cuda_ms(lambda: stage_e(*args), reps=20)
+    plain = cuda_ms(lambda: retrieval._features_program(*args), reps=3)
+    S, C = pk.shape
+    filled = int((pk != retrieval.SENT).sum())
+    valid = int((got[0] >= 0).sum())
+    D = ctx.aid_emb.shape[1]
+    n_bytes = (4 * S * C + 4 * 2 * filled + 4 * (len(k7.COLUMNS) - 2 + D + 3) * valid
+               + 4 * S * (len(k7.STATS) + D)
+               + 4 * S * cfg.max_candidates * (k7.N_FEATURES + 2))
+    report("retrieval_features", (S, C, k7.N_FEATURES), err, ms, plain,
+           (*bound(n_bytes), None))
+    print(f"#   {n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s; {valid} valid of {S * C} slots "
+          f"({filled} filled); all {S * C} slots read in full would be "
+          f"{bound(4 * S * C * (len(k7.COLUMNS) + 1 + D + 3 + k7.N_FEATURES + 2))[0]:.3f} ms")
 
 
 def transport_sort_forms(dev, g, smi):
@@ -968,8 +1076,9 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics, rep = pass_a(retriever, sp.test, sp.labels, RankerConfig(), work,
-                          batch_sessions=batch)
+    with batches_retrieved() as n_batches:
+        metrics, rep = pass_a(retriever, sp.test, sp.labels, RankerConfig(), work,
+                              batch_sessions=batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     UNSHARDED["pass A"] = dt
@@ -1011,6 +1120,7 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
     require(rep.sessions == n_test, "pass A covers every test session")
     require(pa_launches["gather_rows"] > 0 and pa_launches["segmented_scan"] > 0,
             f"K1 and K2 launched in pass A: {pa_launches}")
+    require_k7(pa_launches, n_batches[0], "pass A")
     require(all(rep.rows[t] > 0 and rep.positive_sessions[t] > 0 for t in TYPES),
             "every target has rows")
     require(0.0 < metrics["ceiling_total"] < 1.0, "ceiling recall in (0, 1)")
@@ -1079,7 +1189,7 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with k1_calls("serving") as shapes:
+    with k1_calls("serving") as shapes, batches_retrieved() as n_batches:
         preds = score_pass(retriever, sp.test, rankers, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1101,6 +1211,7 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
             f"K1 and K2 launched on the serving path: {launches}")
     require(launches["gbdt_walk"] > 0 and WALK["launches"]["serving"] == 0,
             f"K5 walks the trees, K1 not: {launches}")
+    require_k7(launches, n_batches[0], "serving")
     for t, (s, a) in preds.items():
         require(s.shape == (n_test,) and a.shape == (n_test, 20), f"{t} shapes")
         require(((a >= -1) & (a < N_AIDS)).all(), f"{t} aids in range")
@@ -1147,7 +1258,8 @@ def phase_hstu(dev, smi, sp, retriever, batch=BATCH):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    preds = score_pass(retriever, sp.test, rankers, batch)
+    with batches_retrieved() as n_batches:
+        preds = score_pass(retriever, sp.test, rankers, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
@@ -1157,6 +1269,7 @@ def phase_hstu(dev, smi, sp, retriever, batch=BATCH):
     require(launches["hstu_attention"] == cfg.n_blocks * len(calls) > 0,
             f"one K6 launch a block a batch: {launches}, {len(calls)} batches")
     require(launches["gather_rows_hbm"] >= len(calls), f"K4 reads the items: {launches}")
+    require_k7(launches, n_batches[0], "HSTU serving")
     for t, (s_, a) in preds.items():
         require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"HSTU {t} shapes")
         require((a[:, 0] >= 0).mean() > 0.99, f"HSTU {t} sessions get predictions")
@@ -1241,7 +1354,7 @@ def phase_mlp(dev, smi, sp, retriever, work, ceiling, gbdt_recall, base_recall,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with k1_calls("mlp serving") as shapes:
+    with k1_calls("mlp serving") as shapes, batches_retrieved() as n_batches:
         preds = score_pass(retriever, sp.test, rankers, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1258,6 +1371,7 @@ def phase_mlp(dev, smi, sp, retriever, work, ceiling, gbdt_recall, base_recall,
             f"K1 and K2 launched on the MLP serving path: {launches}")
     require(WALK["launches"]["mlp serving"] == 0 and launches["gbdt_walk"] == 0,
             "no tree walk when the MLP scores")
+    require_k7(launches, n_batches[0], "MLP serving")
     for t, (s_, a) in preds.items():
         require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"MLP {t} shapes")
         require(((a >= -1) & (a < N_AIDS)).all(), f"MLP {t} aids in range")
@@ -1360,7 +1474,8 @@ def phase_batch_runner(dev, smi, sp, retriever, work, serve_recall, batch=BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics = pipe.run(sp.train, sp.test, sp.labels, batch_sessions=batch)
+    with batches_retrieved() as n_batches:
+        metrics = pipe.run(sp.train, sp.test, sp.labels, batch_sessions=batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
@@ -1380,6 +1495,7 @@ def phase_batch_runner(dev, smi, sp, retriever, work, serve_recall, batch=BATCH)
     launches_ok = launches["gather_rows"] > 0 and launches["segmented_scan"] > 0
     require(launches_ok and launches["mips_topk"] == 0 and launches["gather_rows_hbm"] == 0,
             f"K1 and K2 launched, K3 and K4 not (their tables cached): {launches}")
+    require_k7(launches, n_batches[0], "batch runner")
     for name, want in passa.items():
         with open(os.path.join(work, name)) as fh:
             close(json.load(fh), want, name)
@@ -1427,12 +1543,15 @@ def write_otto_jsonl(ev_path, lab_path, ev, labels):
 # counts to stderr at exit
 CLI_WITH_COUNTS = """
 import atexit, json, runpy, sys
+import chip_smoke
 from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
-                                        segscan)
+                                        retrieval_features, segscan)
+_counting = chip_smoke.batches_retrieved()   # held: its exit would unwrap
+_batches = _counting.__enter__()
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention)}),
-    file=sys.stderr))
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
+              retrieval_features)}) + "\\nBATCHES " + str(_batches[0]), file=sys.stderr))
 sys.argv = ["otto_tpu_torch.pipeline.cli"] + sys.argv[1:]
 runpy.run_module("otto_tpu_torch.pipeline.cli", run_name="__main__", alter_sys=True)
 """
@@ -1480,6 +1599,8 @@ def phase_tool(smi, sp, root):
                 f"{out.stderr[-3000:]}")
         metrics = json.loads(out.stdout[out.stdout.index("{"):])
         launches = json.loads(out.stderr.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+        require_k7(launches, int(out.stderr.rsplit("BATCHES ", 1)[1].split()[0]),
+                   f"CLI run {i + 1}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         print(f"# run-synthetic --tiny (run {i + 1}): {dt:.2f} s of command, launches "
@@ -1517,12 +1638,15 @@ FULLSCALE_STAGES = [
     "ranker carts (gbdt)", "ranker orders (gbdt)", "score (pass B)", "submit", "eval"]
 SCRIPT_WITH_COUNTS = """
 import atexit, json, runpy, sys
+import chip_smoke
 from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
-                                        segscan)
+                                        retrieval_features, segscan)
+_counting = chip_smoke.batches_retrieved()   # held: its exit would unwrap
+_batches = _counting.__enter__()
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention)}),
-    file=sys.stderr))
+    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
+              retrieval_features)}) + "\\nBATCHES " + str(_batches[0]), file=sys.stderr))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
@@ -1577,6 +1701,8 @@ def phase_fullscale(smi, root):
             and last["tmpfs_bytes"] == tmpfs_bytes and last["disk_bytes"] > 0,
             f"every stage's byte columns, the last one's tmpfs bytes {tmpfs_bytes}: {last}")
     launches = json.loads(out.stderr.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+    require_k7(launches, int(out.stderr.rsplit("BATCHES ", 1)[1].split()[0]),
+               "the reference-scale script")
     stages = rec["stages"]
     require([e["stage"] for e in stages] == FULLSCALE_STAGES,
             f"the record's stages: {[e['stage'] for e in stages]}")
@@ -1587,10 +1713,11 @@ def phase_fullscale(smi, root):
     require(rec["generator"] == "device" and rec["spec"]["n_sessions"] == FULLSCALE_SESSIONS,
             "the events were drawn on the card at the asked scale")
     require("src_any" in rec["per_source"], "the per-source report is in the record")
-    # the script serves GBDT rankers: K1-K5 launch, K6 (the HSTU ranker's) does not
+    # the script serves GBDT rankers: K1-K5 and K7 launch, K6 (the HSTU
+    # ranker's) does not
     require(all(v > 0 for k, v in launches.items() if k != "hstu_attention")
             and launches["hstu_attention"] == 0,
-            f"K1-K5 launched by the script, K6 not: {launches}")
+            f"K1-K5 and K7 launched by the script, K6 not: {launches}")
     m = rec["metrics"]
 
     # the heuristic baseline on the same test sessions and co-visitation tables
@@ -1710,7 +1837,7 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
         inp = pickle.load(fh)
     sp = inp["split"]
     full = sp.train.concat(sp.test)
-    out = {"seconds": {}, "launches": {}, "peak": {}, "digest": {}}
+    out = {"seconds": {}, "launches": {}, "batches": {}, "peak": {}, "digest": {}}
     mesh = make_mesh(world, 1, device=dev)
     check_collectives(mesh, dev)
 
@@ -1720,10 +1847,12 @@ def mesh_rank(rank, work, tag, world, device="cuda"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = fn()
+        with batches_retrieved() as n_batches:
+            res = fn()
         torch.cuda.synchronize()
         out["seconds"][name] = time.perf_counter() - t0
         out["launches"][name] = launch_counts()
+        out["batches"][name] = n_batches[0]
         out["peak"][name] = torch.cuda.max_memory_allocated()
         return res
 
@@ -1985,6 +2114,8 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, batch_ref,
         require(ln["gbdt"]["gather_rows"] > 0, "K1 launched in dp GBDT")
         require(ln["batch runner"]["gather_rows"] > 0 and ln["batch runner"]["segmented_scan"] > 0,
                 "K1 and K2 launched in the batch runner on the mesh")
+        for st in ("pass A", "serving", "batch runner"):
+            require_k7(ln[st], run["batches"][st], f"{st} on the mesh")
     return {k: sum(run["launches"][st][k] for run in [a] + b for st in run["launches"])
             for k in a["launches"]["serving"]}
 
@@ -2705,6 +2836,8 @@ def main():
                       "none; subsumes the walk of otto_tpu/models/gbdt.py:425"),
         "hstu_attention": ("otto_tpu_torch/csrc/hstu_attention.cu",
                            "none; the HSTU ranker exists only in the port"),
+        "retrieval_features": ("otto_tpu_torch/csrc/retrieval_features.cu",
+                               "none; otto_tpu's Stage E is XLA ops under jit"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -23,7 +23,10 @@ the true self value propagates (0/NULL when the candidate is not a session
 aid).
 
 Stages C, D and E are sorted-layout groupbys (ops/segment.py): their
-column moves run on kernel K1 and their scans on kernel K2.
+column moves run on kernel K1 and their scans on kernel K2. Stage E's
+features, after its transport sort, are one launch of kernel K7 on the
+card (ops/kernels/retrieval_features.py) and its twin _features_program
+elsewhere.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from otto_tpu_torch.engine.session_stats import (
     compute_session_stats,
 )
 from otto_tpu_torch.ops import segment as seg
+from otto_tpu_torch.ops.kernels import retrieval_features as k7
 from otto_tpu_torch.utils import timing
 
 SENT = seg.SENTINEL
@@ -645,27 +649,54 @@ def retrieve_batch(
     # ---------------- Stage E: compaction ------------------------------------
     # one transport sort keyed on the per-candidate ts_order priority
     # (segment ends only) compacts the groupby result and applies the
-    # top-C cut together
+    # top-C cut together: only the C kept lanes move, and only the columns
+    # the features read
     ts_order = torch.where(end2, _null_to(red2["ts_order_aid"], SENT, 999), SENT)
     prio = torch.where(end2, ts_order.clamp(0, 999), SENT)
-    names2 = list(red2)
-    pk, comp = seg.rowwise_transport_sort(
-        prio,
-        [torch.where(end2, ks2, -1), ts_order] + [red2[n] for n in names2],
-    )
-    del red2
     # a cap beyond the union's lane width is a no-op (there can be no more
     # candidates than lanes)
-    C = min(max_candidates, pk.shape[1])
-    slot_ok = pk[:, :C] != SENT
-    cand = torch.where(slot_ok, comp[0][:, :C], -1)
+    C = min(max_candidates, prio.shape[1])
+    pk, comp = seg.rowwise_transport_sort(
+        prio,
+        [torch.where(end2, ks2, -1), ts_order] + [red2[n] for n in k7.COLUMNS[2:]],
+        width=C,
+    )
+    del red2
+    idents = {n: seg._reduce_identity(cols2p[n][0].dtype, cols2p[n][1])
+              for n in k7.COLUMNS[2:]}
+    del cols2p
+    cand, feats, ts_out = _stage_e(pk, dict(zip(k7.COLUMNS, comp)), idents, ss, ctx,
+                                   ses_emb, max_candidates)
+    stage.close()
+    return cand, feats, ts_out
+
+
+def _stage_e(pk, moved, idents, ss, ctx, ses_emb, max_candidates):
+    """Stage E after the transport sort: one K7 launch for a batch on the
+    card, its twin _features_program elsewhere."""
+    if pk.device.type == "cuda":
+        return k7.retrieval_features(
+            pk, [moved[n] for n in k7.COLUMNS], [getattr(ss, n) for n in k7.STATS],
+            ctx.pop_cl1_rank, ctx.aid_emb, ses_emb, max_candidates)
+    return _features_program(pk, moved, idents, ss, ctx, ses_emb, max_candidates)
+
+
+def _features_program(pk, moved, idents, ss, ctx, ses_emb, max_candidates):
+    """K7's plain twin (ops/kernels/retrieval_features.py): the features of
+    the C kept lanes from the sorted keys pk [S, C] and the moved columns
+    {name: [S, C]} (cand, ts_order and the Stage D reductions; an empty
+    slot takes its reducer's identity from `idents`), the session stats
+    `ss`, the popularity ranks and the embeddings. -> (cand [S,
+    max_candidates] int32 (-1 pad), feats [S, max_candidates, F] float32,
+    ts_order [S, max_candidates] int32)."""
+    C = pk.shape[1]
+    slot_ok = pk != SENT
+    cand = torch.where(slot_ok, moved["cand"], -1)
     valid = cand >= 0
-    ts_order_c = torch.where(slot_ok, comp[1][:, :C], SENT)
-    r2: Dict[str, torch.Tensor] = {}
-    for i, n in enumerate(names2):
-        ident = seg._reduce_identity(cols2p[n][0].dtype, cols2p[n][1])
-        r2[n] = torch.where(slot_ok, comp[2 + i][:, :C], ident)
-    del comp, cols2p
+    ts_order_c = torch.where(slot_ok, moved["ts_order"], SENT)
+    r2: Dict[str, torch.Tensor] = {
+        n: torch.where(slot_ok, moved[n], ident) for n, ident in idents.items()
+    }
 
     # ---------------- final feature assembly --------------------------------
     f: Dict[str, torch.Tensor] = {}
@@ -827,7 +858,6 @@ def retrieve_batch(
         cand = torch.nn.functional.pad(cand, (0, pad), value=-1)
         feats = torch.nn.functional.pad(feats, (0, 0, 0, pad))
         ts_out = torch.nn.functional.pad(ts_out, (0, pad), value=999)
-    stage.close()
     return cand, feats, ts_out
 
 

@@ -145,6 +145,10 @@ def load() -> ctypes.CDLL:
     lib.otto_hstu_attention.argtypes = ([ptr] * 11 + [ctypes.c_longlong] + [i32] * 5
                                         + [ctypes.c_float, ptr])
     lib.otto_hstu_attention.restype = i32
+    lib.otto_retrieval_features.argtypes = ([ptr, i32, ptr, i32, ptr, ctypes.c_longlong,
+                                             ptr, i32, i32, ptr, i32, ptr, i32]
+                                            + [ptr] * 3 + [i32] * 3 + [ptr])
+    lib.otto_retrieval_features.restype = i32
     return lib
 
 

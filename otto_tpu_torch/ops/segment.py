@@ -258,13 +258,17 @@ def rowwise_sort(
 
 
 def rowwise_transport_sort(
-    key: torch.Tensor, arrays: Sequence[torch.Tensor]
+    key: torch.Tensor, arrays: Sequence[torch.Tensor], width: Optional[int] = None
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Stable-sort `arrays` by `key` [S, C] along the last axis: one key
     sort, then every column moves through the permutation in one K1 gather
     per dtype (per MAX_COLS columns), which reads the columns where they
-    lie. Returns (sorted_key, [sorted_arrays...])."""
+    lie. With `width`, only the first min(width, C) lanes of the sorted
+    order are kept and moved (K1 reads whole rows, writes those lanes).
+    Returns (sorted_key, [sorted_arrays...])."""
     ks, perm = torch.sort(key, dim=-1, stable=True)
+    if width is not None:
+        ks, perm = ks[..., :width], perm[..., :width]
     if not arrays:
         return ks, []
     perm32 = perm.to(torch.int32)

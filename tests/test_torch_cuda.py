@@ -813,3 +813,190 @@ def test_cuda_hstu_ranker_matches_reference(cuda_device):
     # up to 0.013 at these widths (eight blocks carry float32 summing orders
     # across bfloat16 roundings); the float8 control by 0.24-0.49
     assert worst <= 0.05
+
+
+# K7: retrieve_batch on the card at production widths (five co-visitation
+# tables of 10-20 neighbours, two kNN tables of 20, 128 popularity
+# candidates of 50 clusters, 100-d embeddings, 32 kept aids, 512 slots),
+# its Stage E inputs caught at `_stage_e` and run through the twin too
+K7_AIDS = 1 << 14
+
+
+def _k7_context(dev, seed, D=100):
+    """Seeded tables: neighbour lists near each aid (so sources overlap),
+    descending counts, partly empty rows, 5% of the aids without an
+    embedding, popularity candidates beyond the sessions' aids."""
+    from otto_tpu_torch.config import COVIS_FIRST_N
+    from otto_tpu_torch.engine.covis import CoVisTables
+    from otto_tpu_torch.engine.retrieval import RetrievalContext
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A, i32 = K7_AIDS, torch.int32
+    aid = torch.arange(A, device=dev)[:, None]
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    def near(n):
+        return ((aid + ri(-64, 65, (A, n))) % A).to(i32)
+
+    covis = []
+    for n in COVIS_FIRST_N.values():
+        present = torch.arange(n, device=dev)[None, :] < ri(0, n + 1, (A, 1))
+        count = torch.sort(ri(1, 1000, (A, n)), dim=1, descending=True).values
+        count = torch.where(present, count, 0)
+        covis.append(CoVisTables(
+            neighbor=torch.where(present, near(n), -1), count=count.to(i32),
+            count_pop=torch.where(present, ri(0, 10_000, (A, n)), 0).to(i32),
+            perc_pop=torch.where(present, ri(0, 10_000, (A, n)), 0).to(i32),
+            count_rel=(count * 100 // count[:, :1].clamp(min=1)).to(i32)))
+
+    def knn():
+        return near(20), torch.sort(torch.rand((A, 20), generator=g, device=dev), dim=1).values
+
+    emb = torch.randn((A, D), generator=g, device=dev)
+    emb[torch.rand(A, generator=g, device=dev) < 0.05] = 0.0
+    return RetrievalContext(
+        covis=tuple(covis), knn_all=knn(), knn_1_2=knn(),
+        pop_cl50_cand=ri(0, A, (50, 128)).to(i32),
+        pop_cl50_ranks=ri(1, 60, (50, 128, 6)).to(i32),
+        pop_cl1_rank=ri(1, 999, (A, 6)).to(i32), aid_emb=emb)
+
+
+def _k7_batch(dev, L, S, seed, D=100):
+    """A padded [S, L] batch of bucket L: each session 1-L events from a
+    few aids near its own centre, rising timestamps, mostly clicks; from
+    S >= 16 on, the last S // 16 rows all padding (session -1, as a
+    bucket's tail batch has them, with cluster 0 and a zero embedding)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = torch.randint(max(1, L // 4), L + 1, (S,), generator=g, device=dev)
+    if S >= 16:
+        n[-(S // 16):] = 0
+    lane = torch.arange(L, device=dev)[None, :]
+    real = lane < n[:, None]
+    centre = torch.randint(0, K7_AIDS, (S, 1), generator=g, device=dev)
+    pool = (centre + torch.randint(-40, 41, (S, L), generator=g, device=dev)) % K7_AIDS
+    pick = torch.randint(0, max(2, L // 3), (S, L), generator=g, device=dev)
+    aid = torch.where(real, pool.gather(1, pick), -1).int()
+    ts = 1_600_000_000 + torch.cumsum(torch.randint(0, 900, (S, L), generator=g, device=dev), 1)
+    ts = torch.where(real, ts, 0).int()
+    typ = torch.multinomial(torch.tensor([0.8, 0.15, 0.05], device=dev), S * L,
+                            replacement=True, generator=g).view(S, L)
+    typ = torch.where(real, typ, 0).int()
+    cluster = torch.randint(0, 50, (S,), generator=g, device=dev).int()
+    semb = torch.randn((S, D), generator=g, device=dev)
+    pad = n == 0
+    return (aid, ts, typ), torch.where(pad, 0, cluster), torch.where(pad[:, None], 0.0, semb)
+
+
+def _k7_run(dev, monkeypatch, L, S, keep_aids=32, max_candidates=512, seed=0, D=100,
+            table=lambda emb: emb):
+    """retrieve_batch on the card, and the twin on the Stage E inputs K7
+    took; `table` may lay the item embeddings out anew. -> (K7's (cand,
+    feats, ts_order), the twin's, Stage E's pk)."""
+    from otto_tpu_torch.config import RetrievalConfig
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.ops.kernels import retrieval_features as k7
+
+    caught = []
+    stage_e = retrieval._stage_e
+
+    def spy(*args):
+        caught.append(args)
+        return stage_e(*args)
+
+    monkeypatch.setattr(retrieval, "_stage_e", spy)
+    ctx = _k7_context(dev, seed, D)
+    ctx = ctx._replace(aid_emb=table(ctx.aid_emb))
+    padded, cluster, semb = _k7_batch(dev, L, S, seed + 1, D)
+    cfg = RetrievalConfig()
+    trim = torch.tensor([cfg.trim_max_at_order_1, cfg.trim_min,
+                         (cfg.trim_max_at_order_1 - cfg.trim_min) / (cfg.trim_min_at_order - 1)],
+                        device=dev)
+    before = k7.LAUNCHES.value
+    got = retrieval.retrieve_batch(padded, ctx, cluster, semb, trim, keep_aids, max_candidates)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES.value == before + 1 and len(caught) == 1
+    twin = retrieval._features_program(*caught[0])
+    torch.cuda.synchronize()
+    return got, twin, caught[0][0]
+
+
+def _k7_compare(got, twin):
+    """cand and ts_order equal; every feature but the two similarity ones
+    bit for bit (compared as words: -0.0 is not 0.0); those within 1e-5
+    relative (and 1e-5 absolute near zero, as tests/test_torch_retrieval.py
+    holds them)."""
+    from otto_tpu_torch.engine.retrieval import FEATURE_INDEX, FEATURE_NAMES
+
+    (cand, feats, ts), (cand_t, feats_t, ts_t) = got, twin
+    assert torch.equal(cand, cand_t) and torch.equal(ts, ts_t)
+    assert feats.shape == feats_t.shape
+    sim = [FEATURE_INDEX["cos_sim_ses_aid"], FEATURE_INDEX["eucl_dist_ses_aid"]]
+    words, words_t = feats.view(torch.int32), feats_t.view(torch.int32)
+    off = [FEATURE_NAMES[j] for j in range(len(FEATURE_NAMES))
+           if j not in sim and not torch.equal(words[..., j], words_t[..., j])]
+    assert not off, f"features not bit-equal to the twin: {off}"
+    assert torch.allclose(feats[..., sim], feats_t[..., sim], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 256, 2048])
+@pytest.mark.parametrize("L", [8, 32, 128])
+def test_cuda_retrieval_features_match_twin(cuda_device, monkeypatch, L, S):
+    """K7 against its twin on the same transported lanes, at the pass-B
+    cells' widths in three length buckets: among the lanes, aids without
+    an embedding, popularity-only candidates (ts_order 999) and, from S =
+    256 on, all-padding session rows."""
+    from otto_tpu_torch.engine.retrieval import FEATURE_INDEX
+
+    got, twin, pk = _k7_run(cuda_device, monkeypatch, L, S, seed=L + S)
+    _k7_compare(got, twin)
+    cand, feats, ts = got
+    valid = cand >= 0
+    assert pk.shape == (S, 512) and int(valid.sum()) > 100 * S
+    assert bool((valid & (ts == 999)).any()), "no popularity-only candidate"
+    if S > 1:
+        no_emb = valid & (feats[..., FEATURE_INDEX["eucl_dist_ses_aid"]] == -1)
+        assert bool(no_emb.any()), "no candidate without an embedding"
+        pad_rows = (feats[..., FEATURE_INDEX["n_events_session"]] == 0).all(1)
+        assert bool(pad_rows.any()), "no all-padding session row"
+
+
+@pytest.mark.cuda
+def test_cuda_retrieval_features_pad_past_the_lanes(cuda_device, monkeypatch):
+    """A cap above the lanes kept (one kept aid: 121 + 128 lanes, cap
+    512): K7 writes the padding slots (cand -1, ts_order 999, features 0)
+    as the twin's F.pad does."""
+    got, twin, pk = _k7_run(cuda_device, monkeypatch, 8, 256, keep_aids=1)
+    _k7_compare(got, twin)
+    C = pk.shape[1]
+    cand, feats, ts = got
+    assert C < 512
+    assert bool((cand[:, C:] == -1).all()) and bool((ts[:, C:] == 999).all())
+    assert bool((feats[:, C:].view(torch.int32) == 0).all())
+
+
+def _unaligned(emb):
+    """The same table at a 4-byte offset: its rows are not 16-byte aligned."""
+    buf = torch.empty(emb.numel() + 1, dtype=emb.dtype, device=emb.device)
+    out = buf[1:].view(emb.shape)
+    out.copy_(emb)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["unaligned", "width_37"])
+def test_cuda_retrieval_features_scalar_loads(cuda_device, monkeypatch, layout):
+    """Item rows that 16-byte loads cannot read (a table at an odd word
+    offset; D = 37) take the kernel's 4-byte loads into the same four
+    strands: the unaligned table gives the aligned one's features bit for
+    bit, and both layouts match the twin."""
+    if layout == "unaligned":
+        got, twin, _ = _k7_run(cuda_device, monkeypatch, 32, 256, seed=5, table=_unaligned)
+        aligned, _, _ = _k7_run(cuda_device, monkeypatch, 32, 256, seed=5)
+        for a, b in zip(got, aligned):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    else:
+        got, twin, _ = _k7_run(cuda_device, monkeypatch, 32, 256, seed=6, D=37)
+    _k7_compare(got, twin)
