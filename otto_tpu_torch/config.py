@@ -338,9 +338,7 @@ class Config:
     popularity: PopularityConfig = dataclasses.field(default_factory=PopularityConfig)
     ranker: RankerConfig = dataclasses.field(default_factory=RankerConfig)
     gbdt: GBDTConfig = dataclasses.field(default_factory=GBDTConfig)
-    # the rankers' model class: "gbdt" (histogram trees), "mlp" (the
-    # LambdaRank tower) or "hstu" (one multi-task sequential ranker,
-    # served only: models/hstu.py)
+    # the rankers' model class: a key of pipeline.runner.RANKER_BACKENDS
     ranker_backend: str = "gbdt"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

@@ -6,8 +6,8 @@ Counterpart of otto_tpu/pipeline/cli.py, with its commands: `synth`,
 the pipeline take `--device` (default `cuda`: without a card they fail,
 they never fall back to the CPU; `--device cpu` runs there). Stage
 artifacts and their reuse live in otto_tpu_torch.pipeline.runner.
-`run` and `run-synthetic` take `--ranker-backend` (`gbdt`, the default, or
-`mlp`); `rank` serves with the backend of the work dir's config.json.
+`run` and `run-synthetic` take `--ranker-backend` (runner.RANKER_BACKENDS);
+`rank` serves with the backend of the work dir's config.json.
 `synth`, `ingest`, `split`, `run` and `rank` read or write parquet, which
 needs pyarrow; `run-synthetic` needs nothing but the port.
 
@@ -46,12 +46,9 @@ from otto_tpu_torch.config import (
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.data.split import split_events
 from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
-from otto_tpu_torch.pipeline.runner import Pipeline, run_synthetic
+from otto_tpu_torch.pipeline.runner import RANKER_BACKENDS, Pipeline, run_synthetic
 
 log = logging.getLogger(__name__)
-
-# Config.ranker_backend's values
-BACKENDS = ("gbdt", "mlp", "hstu")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -275,7 +272,7 @@ def main(argv=None) -> int:
     p.add_argument("--batch-sessions", type=int, default=256)
     p.add_argument("--streaming", action="store_true", help=streaming_help)
     p.add_argument("--no-streaming", action="store_true", help="force the batch runner")
-    p.add_argument("--ranker-backend", choices=BACKENDS, help=backend_help)
+    p.add_argument("--ranker-backend", choices=list(RANKER_BACKENDS), help=backend_help)
     _add_common(p)
     p.set_defaults(fn=cmd_run)
 
@@ -296,7 +293,7 @@ def main(argv=None) -> int:
     p.add_argument("--tiny", action="store_true", help="small-model config (fast demo)")
     p.add_argument("--streaming", action="store_true", help=streaming_help)
     p.add_argument("--no-streaming", action="store_true", help="force the batch runner")
-    p.add_argument("--ranker-backend", choices=BACKENDS, help=backend_help)
+    p.add_argument("--ranker-backend", choices=list(RANKER_BACKENDS), help=backend_help)
     _add_common(p)
     p.set_defaults(fn=cmd_run_synthetic)
 

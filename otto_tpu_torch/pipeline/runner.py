@@ -12,8 +12,8 @@ functions:
 - `pass_a`: retrieve the test sessions with labels: the label join, the
   per-source retrieval eval (C14) and negative downsampling (C15), whose
   rows are persisted per target before any training;
-- `train_ranker_cached`: one target's ranker (C16) from those rows, a
-  GBDT or an MLP as `Config.ranker_backend` says (an HSTU ranker,
+- `train_ranker_cached`: one target's ranker (C16) from those rows, as
+  `RANKER_BACKENDS` says for `Config.ranker_backend` (an HSTU ranker,
   "hstu", is served from its saved file and never trained here);
 - `score_pass`: re-retrieve the test sessions, score every batch with the
   three target rankers on the device, keep the top-20 per target;
@@ -501,14 +501,11 @@ def score_pass(
     -> {type name: (sessions [N] sorted, top-20 aids [N, 20])}."""
     for tname in TYPES:
         check_serving_features(tname, rankers[tname])
-    pieces = {t: ([], []) for t in TYPES}
+    parts = []
     ranker_list = [rankers[t] for t in TYPES]
 
     def consume(b, meta):
-        multi = rank_engine.score_topk_multi(b, ranker_list)
-        for i, tname in enumerate(TYPES):
-            pieces[tname][0].append(b.session)
-            pieces[tname][1].append(multi[i])
+        parts.append((b.session, rank_engine.score_topk_multi(b, ranker_list)))
 
     # the request's spans give pipelined_consume's seconds: "produce" is
     # retrieval.pack + retrieval.batch, "consume" runner.consume, "wait"
@@ -517,15 +514,22 @@ def score_pass(
         pipelined_consume(retriever.iter_run(test, batch_sessions=batch_sessions), consume,
                           overlap=overlap)
         with timing.span("otto::runner.assemble"):
-            preds = {}
-            for tname in TYPES:
-                s = _cat_rows(pieces[tname][0], (0,), np.int32)
-                a = _cat_rows(pieces[tname][1], (0, KEEP_TOP_K), np.int32)
-                if getattr(retriever, "mesh", None) is not None:
-                    s, a = retriever.mesh.gather_arrays(s.astype(np.int32),
-                                                        a.astype(np.int32))
-                order = np.argsort(s, kind="stable")
-                preds[tname] = (s[order], a[order])
+            return assemble_preds(parts, getattr(retriever, "mesh", None))
+
+
+def assemble_preds(parts: list, mesh=None) -> Dict[str, tuple]:
+    """Each target's (sessions [N] sorted, top-20 aids [N, 20]) from the
+    (sessions [S], score_topk_multi's [3, S, 20] aids) of every batch
+    scored, in batch order: concatenated, with `mesh` gathered from every
+    data rank, then stably sorted by session."""
+    sessions = _cat_rows([p[0] for p in parts], (0,), np.int32)
+    preds = {}
+    for i, tname in enumerate(TYPES):
+        s, a = sessions, _cat_rows([p[1][i] for p in parts], (0, KEEP_TOP_K), np.int32)
+        if mesh is not None:
+            s, a = mesh.gather_arrays(s.astype(np.int32), a.astype(np.int32))
+        order = np.argsort(s, kind="stable")
+        preds[tname] = (s[order], a[order])
     return preds
 
 
@@ -679,40 +683,85 @@ def _submit_on_main(work_dir: str, preds, labels: Optional[Labels], mesh,
     return res[0]
 
 
-def _load_ranker(path: str, cfg: Config):
-    """A saved ranker of cfg.ranker_backend's class."""
-    if cfg.ranker_backend == "gbdt":
-        return GBDTRanker.load(path)
-    if cfg.ranker_backend == "hstu":
-        return HSTURanker.load(path)
-    return Ranker.load(path, cfg.ranker)
+def _train_gbdt(work_dir, tname, feats, y, sess, valid, cfg: Config, device, mesh):
+    """train_gbdt_ranker with cfg.gbdt, data-parallel over the mesh's data
+    ranks; rank 0 writes its gain importance (`feat-importance-{t}.csv`)."""
+    dp = mesh if mesh is not None and mesh.n_data > 1 else None
+    ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, cfg.gbdt, valid=valid,
+                               device=device, mesh_ctx=dp)
+    if mesh is None or mesh.is_main:
+        imp = ranker.feature_importance("gain")
+        with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
+            fh.write("feature,gain_importance\n")
+            for i in np.argsort(-imp):
+                fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
+    log.info("ranker %s: %d rows, valid ndcg %s", tname, len(y), ranker.eval_history)
+    return ranker
+
+
+def _train_mlp(work_dir, tname, feats, y, sess, valid, cfg: Config, device, mesh):
+    """train_ranker on float32 rows with cfg.ranker, alike on every rank."""
+    ranker = train_ranker(feats.astype(np.float32, copy=False), y, sess, FEATURE_NAMES,
+                          cfg.ranker, valid=valid, device=device)
+    log.info("ranker %s (mlp): %d rows, %d steps, best epoch %d, valid ndcg %s",
+             tname, len(y), ranker.steps, ranker.best_epoch, [h[2] for h in ranker.history])
+    return ranker
+
+
+@dataclasses.dataclass(frozen=True)
+class RankerBackend:
+    """One Config.ranker_backend: `file`, its saved rankers' name in the
+    work dir (one a target type where it holds "{target}", else one for
+    all three); `load(path, cfg)`; `train(work_dir, tname, feats, y,
+    sessions, valid, cfg, device, mesh)` for one target, or None where
+    the port serves the backend but does not train it."""
+
+    file: str
+    load: Callable[[str, Config], object]
+    train: Optional[Callable] = None
+
+
+# Config.ranker_backend's values. Adding one takes its model file, its
+# row here and its config section.
+RANKER_BACKENDS: Dict[str, RankerBackend] = {
+    "gbdt": RankerBackend("ranker-gbdt-{target}.npz",
+                          lambda path, cfg: GBDTRanker.load(path), _train_gbdt),
+    "mlp": RankerBackend("ranker-mlp-{target}.npz",
+                         lambda path, cfg: Ranker.load(path, cfg.ranker), _train_mlp),
+    "hstu": RankerBackend("ranker-hstu.npz", lambda path, cfg: HSTURanker.load(path)),
+}
+
+
+def _ranker_path(work_dir: str, tname: str, cfg: Config) -> str:
+    name = RANKER_BACKENDS[cfg.ranker_backend].file.format(target=tname)
+    return os.path.join(work_dir, name)
 
 
 def refuse_training(cfg: Config) -> None:
-    """The port trains GBDT and MLP rankers only."""
-    if cfg.ranker_backend == "hstu":
+    """The port trains the backends that have a trainer in RANKER_BACKENDS."""
+    if RANKER_BACKENDS[cfg.ranker_backend].train is None:
+        trained = [name for name, b in RANKER_BACKENDS.items() if b.train is not None]
         raise ValueError(
-            "ranker_backend 'hstu': the port serves a saved HSTU ranker "
-            f"({_ranker_path('<work_dir>', 'clicks', 'hstu')}) but does not train one; "
-            "run without labels, or train a 'gbdt' or 'mlp' ranker")
+            f"ranker_backend {cfg.ranker_backend!r}: the port serves a saved ranker "
+            f"({_ranker_path('<work_dir>', 'clicks', cfg)}) but does not train one; "
+            f"run without labels, or train one of {trained}")
 
 
 def load_rankers(work_dir: str, cfg: Config = Config()) -> Dict[str, object]:
-    """Read the three `ranker-{backend}-{clicks,carts,orders}.npz` files
-    (backend: cfg.ranker_backend) that a training run of either package
-    wrote into its work dir, or for "hstu" the one `ranker-hstu.npz` that
-    serves every target; each must be a ranker over retrieval's
-    FEATURE_NAMES."""
+    """Read the rankers of cfg.ranker_backend that a training run of either
+    package wrote into its work dir (RANKER_BACKENDS names their files:
+    `ranker-{backend}-{clicks,carts,orders}.npz`, or one file that serves
+    every target); each must be a ranker over retrieval's FEATURE_NAMES."""
     rankers, loaded = {}, {}
     for tname in TYPES:
-        path = _ranker_path(work_dir, tname, cfg.ranker_backend)
+        path = _ranker_path(work_dir, tname, cfg)
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"no trained {cfg.ranker_backend} ranker for '{tname}' at {path}; "
                 "run the pipeline with labels first to train rankers"
             )
         if path not in loaded:
-            loaded[path] = _load_ranker(path, cfg)
+            loaded[path] = RANKER_BACKENDS[cfg.ranker_backend].load(path, cfg)
         rankers[tname] = loaded[path]
         check_serving_features(tname, rankers[tname])
     return rankers
@@ -736,12 +785,6 @@ class PassAReport:
     phases: Dict[str, float]
     rows: Dict[str, int]
     positive_sessions: Dict[str, int]
-
-
-def _ranker_path(work_dir: str, tname: str, backend: str) -> str:
-    if backend == "hstu":   # one multi-task ranker for every target
-        return os.path.join(work_dir, "ranker-hstu.npz")
-    return os.path.join(work_dir, f"ranker-{backend}-{tname}.npz")
 
 
 def _rows_path(work_dir: str, tname: str) -> str:
@@ -1006,20 +1049,18 @@ def train_ranker_cached(
     mesh=None,
     stage: StageFn = _no_stage,
 ):
-    """One target's ranker of cfg.ranker_backend's class:
-    `ranker-{backend}-{t}.npz` from work_dir when cached; else rows_fn() ->
-    (feats, y, sessions), the sessions split 75/25 in ascending id order
-    into train / valid (no valid set with fewer than 8 valid sessions),
-    trained on `device` (train_gbdt_ranker with cfg.gbdt, or train_ranker
-    on float32 rows with cfg.ranker), then saved to work_dir; a GBDT also
-    writes its gain importance (`feat-importance-{t}.csv`).
+    """One target's ranker of cfg.ranker_backend: its file in work_dir
+    (RANKER_BACKENDS) when cached; else rows_fn() -> (feats, y, sessions),
+    the sessions split 75/25 in ascending id order into train / valid (no
+    valid set with fewer than 8 valid sessions), then the backend's
+    trainer (_train_gbdt, _train_mlp) fits it on `device`, and it is saved
+    to work_dir.
 
-    With `mesh` (every rank calling with the same rows) a GBDT trains
-    data-parallel over the data ranks (train_gbdt_ranker(mesh_ctx=...)),
-    an MLP on every rank alike; every rank returns the same ranker and
-    rank 0 writes the files. `stage` (StageFn) hears "ranker {t}
-    ({backend})" when a ranker was trained (not when read)."""
-    path = _ranker_path(work_dir, tname, cfg.ranker_backend)
+    With `mesh` (every rank calling with the same rows) every rank returns
+    the same ranker and rank 0 writes the files. `stage` (StageFn) hears
+    "ranker {t} ({backend})" when a ranker was trained (not when read)."""
+    backend = RANKER_BACKENDS[cfg.ranker_backend]
+    path = _ranker_path(work_dir, tname, cfg)
     main = mesh is None or mesh.is_main
     if mesh is not None:
         dist.barrier()   # every rank sees the cache as it stands now
@@ -1027,7 +1068,7 @@ def train_ranker_cached(
     if mesh is not None:
         dist.barrier()
     if cached:
-        return _load_ranker(path, cfg)
+        return backend.load(path, cfg)
     refuse_training(cfg)
     feats, y, sess = rows_fn()
     u_sess = np.unique(sess)
@@ -1037,26 +1078,9 @@ def train_ranker_cached(
         vmask = np.isin(sess, u_sess[n_train:])
         valid = (feats[vmask], y[vmask], sess[vmask])
         feats, y, sess = feats[~vmask], y[~vmask], sess[~vmask]
-    if cfg.ranker_backend != "gbdt":
-        ranker = train_ranker(feats.astype(np.float32, copy=False), y, sess, FEATURE_NAMES,
-                              cfg.ranker, valid=valid, device=device)
-        if main:
-            ranker.save(path)
-        log.info("ranker %s (mlp): %d rows, %d steps, best epoch %d, valid ndcg %s",
-                 tname, len(y), ranker.steps, ranker.best_epoch,
-                 [h[2] for h in ranker.history])
-    else:
-        dp = mesh if mesh is not None and mesh.n_data > 1 else None
-        ranker = train_gbdt_ranker(feats, y, sess, FEATURE_NAMES, cfg.gbdt,
-                                   valid=valid, device=device, mesh_ctx=dp)
-        if main:
-            ranker.save(path)
-            imp = ranker.feature_importance("gain")
-            with open(os.path.join(work_dir, f"feat-importance-{tname}.csv"), "w") as fh:
-                fh.write("feature,gain_importance\n")
-                for i in np.argsort(-imp):
-                    fh.write(f"{FEATURE_NAMES[i]},{imp[i]:.6g}\n")
-        log.info("ranker %s: %d rows, valid ndcg %s", tname, len(y), ranker.eval_history)
+    ranker = backend.train(work_dir, tname, feats, y, sess, valid, cfg, device, mesh)
+    if main:
+        ranker.save(path)
     stage(f"ranker {tname} ({cfg.ranker_backend})", f"{len(y)} rows", None)
     return ranker
 
@@ -1169,8 +1193,7 @@ def run_streaming(
         return {}
 
     pm_path = os.path.join(work_dir, "passA-metrics.json")
-    have_ranker = {t: use_cache and os.path.exists(
-                       _ranker_path(work_dir, t, cfg.ranker_backend))
+    have_ranker = {t: use_cache and os.path.exists(_ranker_path(work_dir, t, cfg))
                    for t in TYPES}
     resumed = use_cache and os.path.exists(pm_path) and all(
         have_ranker[t] or os.path.exists(_rows_path(work_dir, t)) for t in TYPES)
@@ -1422,22 +1445,12 @@ class Pipeline:
         return rank_engine.session_sorted(*rows, tid)
 
     def _score(self, batches, rankers) -> Dict[str, tuple]:
-        """Each target's (sessions, top-20 aids) over the batches
-        (score_and_topk), session-sorted; with a mesh, every rank's."""
-        preds = {}
-        multi = rank_engine.multi_task([rankers[t] for t in TYPES])
-        for i, t in enumerate(TYPES):
-            if batches:
-                s, a, _ = rank_engine.score_and_topk(batches, rankers[t],
-                                                     task=None if multi is None else i)
-            else:
-                s, a = np.zeros(0, np.int32), np.zeros((0, KEEP_TOP_K), np.int32)
-            if self.mesh is not None:
-                s, a = self.mesh.gather_arrays(s, a)
-                order = np.argsort(s, kind="stable")
-                s, a = s[order], a[order]
-            preds[t] = (s, a)
-        return preds
+        """score_pass's scoring and assembly of the kept batches; with a
+        mesh, every rank's."""
+        ranker_list = [rankers[t] for t in TYPES]
+        return assemble_preds(
+            [(b.session, rank_engine.score_topk_multi(b, ranker_list)) for b in batches],
+            self.mesh)
 
     def _train_ranker_cached(self, tname: str, rows_fn, t0: float):
         return train_ranker_cached(self.work_dir, tname, rows_fn, self.cfg, self.device,

@@ -21,6 +21,7 @@ from otto_tpu_torch.data.schema import Events
 from otto_tpu_torch.engine import baseline
 from otto_tpu_torch.engine.covis import CoVisCounter
 from otto_tpu_torch.eval.recall import evaluate_topk
+import torch_threads  # noqa: F401
 
 N_AIDS = 800
 COUNTER = dict(capacity=1 << 15, pair_budget=1 << 14, bucket_lens=(8, 32, 64))

@@ -17,7 +17,6 @@ says why); the co-visitation and popularity tables, neighbours, session
 ids, cluster labels and the served top-20 are equal (the seeded rankers
 split only on integer-valued features, see test_torch_slice.py).
 """
-import contextlib
 import dataclasses
 import functools
 
@@ -53,6 +52,7 @@ from otto_tpu_torch.pipeline import runner as port_runner
 from test_torch_retrieval import BATCH, CFG, N_AIDS, PORT_CFG, build_world
 from test_torch_session_embed import assert_within_f16_ulp
 from test_torch_slice import _ref_pipeline, seeded_rankers
+import torch_threads  # noqa: F401
 
 N_CLUSTERS = 50
 FIRST_N = 200     # kNN queries: fewer than the vocabulary, so some rows stay -1
@@ -237,22 +237,10 @@ def _ev(e):
     return Events(e.session, e.aid, e.ts, e.type)
 
 
-@contextlib.contextmanager
-def one_thread():
-    """One intra-op thread: these builds run thousands of small ops, where
-    a thread pool only adds waits."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 def _port_build(both, models, **kw):
     """The port's build as build_both runs it."""
     sp = both["w"]["split"]
-    with one_thread(), pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_kmeans, "init_centroids", lambda x, k, s, g: torch.from_numpy(both["init"]))
         return port_runner.build_retriever(
             _ev(sp.train), _ev(sp.test), N_AIDS, "cpu", models=models,
@@ -289,9 +277,8 @@ def test_missing_models_are_trained(both):
     assert list(report.w2vec) == ["w2v-1-2"] and report.w2vec["w2v-1-2"].mode == "pair"
     sp = both["w"]["split"]
     full = _ev(sp.train).concat(_ev(sp.test))
-    with one_thread():
-        trained = train_word2vec_device(full, w2vec["w2v-1-2"], N_AIDS, device="cpu")
-        want = build_knn_tables(trained, N_AIDS, "cpu")
+    trained = train_word2vec_device(full, w2vec["w2v-1-2"], N_AIDS, device="cpu")
+    want = build_knn_tables(trained, N_AIDS, "cpu")
     assert torch.equal(port.ctx.knn_1_2[0], want.neighbor)
     assert torch.equal(port.ctx.knn_1_2[1], want.dist)
     assert torch.equal(port.ctx.knn_all[0], both["port"].ctx.knn_all[0])

@@ -21,18 +21,9 @@ from otto_tpu.data.synthetic import generate as ref_generate
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.data import split
 from otto_tpu_torch.pipeline import cli, runner
+import torch_threads  # noqa: F401
 
 SMALL = ["--sessions", "400", "--aids", "300", "--seed", "7"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: these runs are thousands of small ops, where a
-    thread pool contending with other test processes only adds waits."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

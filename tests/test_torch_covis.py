@@ -29,6 +29,7 @@ from otto_tpu_torch.engine import covis as port_covis
 from otto_tpu_torch.ops import counts as port_counts
 from otto_tpu_torch.ops import pairs as port_pairs
 from test_covis import oracle_counts, table_to_dict
+import torch_threads  # noqa: F401
 
 SENT = port_counts.SENTINEL
 N_AIDS = 500

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from otto_tpu_torch.ops.kernels import _build, dma_gather, gather, gbdt_walk, mips, segscan
+import torch_threads  # noqa: F401
 
 
 @pytest.fixture

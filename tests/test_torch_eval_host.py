@@ -20,6 +20,7 @@ from otto_tpu_torch.data.schema import Labels
 from otto_tpu_torch.engine import rank
 from otto_tpu_torch.engine.retrieval import FEATURE_INDEX, RetrievedBatch, label_keys_device
 from otto_tpu_torch.eval import per_source, recall
+import torch_threads  # noqa: F401
 
 TYPES = ("clicks", "carts", "orders")
 

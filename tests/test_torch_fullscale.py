@@ -6,7 +6,6 @@ places the events and tables in a directory of their own (the
 OTTO_FS_TMPFS knob), the second runs without the knob on the links it
 left, and a third runs fresh without the knob in a work dir of its own
 from a copy of the first's events."""
-import contextlib
 import dataclasses
 import json
 import shutil
@@ -24,6 +23,7 @@ from otto_tpu_torch.data.split import split_events
 from otto_tpu_torch.data.synthetic import SyntheticSpec
 from otto_tpu_torch.pipeline import runner as port_runner
 from test_torch_training_slice import BATCH, CFG, SPEC
+import torch_threads  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import run_fullscale_torch as fs  # noqa: E402
@@ -37,18 +37,6 @@ PIPELINE_STAGES = [
 RESUMED_STAGES = PIPELINE_STAGES[:7] + ["pass A + rankers (cached)"] + PIPELINE_STAGES[-3:]
 
 
-@contextlib.contextmanager
-def two_threads():
-    """Two intra-op threads: retrieval's batches halve their time on two,
-    and more only contend with the other test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("fullscale")
@@ -57,33 +45,32 @@ def runs(tmp_path_factory):
     spec = SyntheticSpec(**dataclasses.asdict(SPEC))
     work = root / "work"
     out = {"tmpfs": root / "shm", "work": work, "cfg": cfg}
-    with two_threads():
-        for name, tmpfs in (("first", str(out["tmpfs"])), ("second", None)):
-            path = root / f"{name}.json"
-            ret = fs.run(spec, str(work), str(path), batch=BATCH, device="cpu", cfg=cfg,
-                         tmpfs=tmpfs)
-            with open(path) as fh:
-                out[name] = json.load(fh)
-            assert out[name]["metrics"] == ret["metrics"]
-            out[f"{name}_path"] = path
-        out["plain_work"] = root / "plain"
-        out["plain_work"].mkdir()
-        shutil.copy(work / "events.npz", out["plain_work"])
-        out["plain"] = fs.run(spec, str(out["plain_work"]), str(root / "plain.json"),
-                              batch=BATCH, device="cpu", cfg=cfg)
-        # the same events through the port's run_streaming, in a work dir of its
-        # own that holds the script's co-visitation tables (counting them
-        # again would double the test's time; every later stage runs anew)
-        z = np.load(work / "events.npz")
-        sp = split_events(Events(z["session"], z["aid"], z["ts"], z["type"]),
-                          cfg.data.test_days, cfg.data.seed)
-        (root / "direct").mkdir()
-        shutil.copy(work / "covis.pkl", root / "direct")
-        out["direct"] = port_runner.run_streaming(
-            sp.train, sp.test, sp.labels, SPEC.n_aids, str(root / "direct"), "cpu",
-            cfg=cfg.replace(ranker=dataclasses.replace(cfg.ranker, device_select=True)),
-            batch_sessions=BATCH)
-        out["n_test_sessions"] = len(np.unique(sp.test.session))
+    for name, tmpfs in (("first", str(out["tmpfs"])), ("second", None)):
+        path = root / f"{name}.json"
+        ret = fs.run(spec, str(work), str(path), batch=BATCH, device="cpu", cfg=cfg,
+                     tmpfs=tmpfs)
+        with open(path) as fh:
+            out[name] = json.load(fh)
+        assert out[name]["metrics"] == ret["metrics"]
+        out[f"{name}_path"] = path
+    out["plain_work"] = root / "plain"
+    out["plain_work"].mkdir()
+    shutil.copy(work / "events.npz", out["plain_work"])
+    out["plain"] = fs.run(spec, str(out["plain_work"]), str(root / "plain.json"),
+                          batch=BATCH, device="cpu", cfg=cfg)
+    # the same events through the port's run_streaming, in a work dir of its
+    # own that holds the script's co-visitation tables (counting them
+    # again would double the test's time; every later stage runs anew)
+    z = np.load(work / "events.npz")
+    sp = split_events(Events(z["session"], z["aid"], z["ts"], z["type"]),
+                      cfg.data.test_days, cfg.data.seed)
+    (root / "direct").mkdir()
+    shutil.copy(work / "covis.pkl", root / "direct")
+    out["direct"] = port_runner.run_streaming(
+        sp.train, sp.test, sp.labels, SPEC.n_aids, str(root / "direct"), "cpu",
+        cfg=cfg.replace(ranker=dataclasses.replace(cfg.ranker, device_select=True)),
+        batch_sessions=BATCH)
+    out["n_test_sessions"] = len(np.unique(sp.test.session))
     return out
 
 

@@ -12,6 +12,7 @@ from otto_tpu_torch import convert
 from otto_tpu_torch.engine import rank as port_rank
 from otto_tpu_torch.engine.retrieval import FEATURE_NAMES
 from otto_tpu_torch.models.gbdt import GBDTRanker
+import torch_threads  # noqa: F401
 
 F = len(FEATURE_NAMES)
 

@@ -35,6 +35,7 @@ from otto_tpu.models import ranker as ref_ranker
 from otto_tpu_torch.config import GBDTConfig
 from otto_tpu_torch.models import gbdt as port
 from otto_tpu_torch.models import ranker as port_ranker
+import torch_threads  # noqa: F401
 
 GRAD_RTOL = 1e-5      # relative to the group's largest |grad| / |hess|
 # leaves from the same gradients; across whole trainings a gradient an ulp

@@ -11,6 +11,7 @@ import torch
 
 from otto_tpu_torch.models import gbdt
 from otto_tpu_torch.ops.kernels import gbdt_walk as k5
+import torch_threads  # noqa: F401
 
 F32 = torch.float32
 

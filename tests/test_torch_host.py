@@ -21,6 +21,7 @@ from otto_tpu_torch.data import batching, split, synthetic
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.eval import recall
 from otto_tpu_torch.models import word2vec
+import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from otto_tpu_torch.engine.retrieval import FEATURE_NAMES, RetrievedBatch
 from otto_tpu_torch.models import hstu
 from otto_tpu_torch.ops.kernels import hstu_attention as k6
 import hstu_reference as ref
+import torch_threads  # noqa: F401
 
 CFG = HSTUConfig(d_model=32, n_heads=2, d_qk=16, d_v=16, n_blocks=2, max_seq_len=24)
 N_AIDS = 500
@@ -292,7 +293,6 @@ def test_npz_round_trip(tmp_path):
     loaded = runner.load_rankers(str(tmp_path), Config(ranker_backend="hstu"))
     assert list(loaded) == list(TYPES)
     assert all(x is loaded["clicks"] for x in loaded.values())
-    assert rank.multi_task([loaded[t] for t in TYPES]) is loaded["clicks"]
     with pytest.raises(ValueError):
         hstu.HSTURanker(HSTUConfig(d_model=32, n_heads=2, d_qk=16, d_v=16, n_blocks=3,
                                    max_seq_len=24), r.params, r.feature_names)
@@ -343,15 +343,30 @@ def test_score_topk_multi_scores_once(monkeypatch):
         np.testing.assert_array_equal(got[t], want)
 
 
-def test_batch_runner_scores_each_target():
-    """score_and_topk (the batch runner's scoring) takes a multi-task
-    ranker's target `task`: the same lists as score_topk_multi."""
-    r = ranker()
-    aid, ts, typ, cand, feats = draw_batch(7, seed=11, min_cand=1)
-    b = RetrievedBatch(np.arange(7)[::-1].copy(), cand, feats, torch.zeros_like(cand),
-                       history=(aid, ts, typ))
-    multi = rank.score_topk_multi(b, [r, r, r], top_k=20)
-    for t in range(3):
-        sess, aids, _ = rank.score_and_topk([b], r, task=t)
-        np.testing.assert_array_equal(sess, np.arange(7))
-        np.testing.assert_array_equal(aids, multi[t][::-1])
+def test_batch_runner_scores_once_a_batch(tmp_path, monkeypatch):
+    """The batch runner's scoring (Pipeline._score) of the HSTU ranker that
+    load_rankers reads for the three targets: one predict_scores_multi call
+    a batch, and each target's lists as score_topk_multi gives them, in
+    session order."""
+    from otto_tpu_torch.pipeline import runner
+
+    cfg = Config(ranker_backend="hstu")
+    ranker().save(str(tmp_path / "ranker-hstu.npz"))
+    rankers = runner.load_rankers(str(tmp_path), cfg)
+    r = rankers["clicks"]
+    batches = []
+    for i, seed in enumerate((11, 12)):
+        aid, ts, typ, cand, feats = draw_batch(7, seed=seed, min_cand=1)
+        batches.append(RetrievedBatch(np.arange(7 * i, 7 * i + 7)[::-1].copy(), cand, feats,
+                                      torch.zeros_like(cand), history=(aid, ts, typ)))
+    want = [rank.score_topk_multi(b, [r, r, r], top_k=20) for b in batches]
+    calls = []
+    orig = r.predict_scores_multi
+    monkeypatch.setattr(r, "predict_scores_multi", lambda b_: calls.append(1) or orig(b_))
+    pipe = runner.Pipeline(cfg, str(tmp_path / "work"), N_AIDS, device="cpu")
+    preds = pipe._score(batches, rankers)
+    assert len(calls) == len(batches)
+    for t, tname in enumerate(TYPES):
+        sess, aids = preds[tname]
+        np.testing.assert_array_equal(sess, np.arange(14))
+        np.testing.assert_array_equal(aids, np.concatenate([m[t][::-1] for m in want]))

@@ -13,6 +13,7 @@ import torch
 
 from otto_tpu_torch.device import pin_fp32, resolve
 from otto_tpu_torch.ops.kernels import dma_gather, gather, mips, segscan
+import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -11,6 +11,7 @@ import pytest
 from otto_tpu.data import jsonl as ref_jsonl
 from otto_tpu_torch.data import jsonl
 from otto_tpu_torch.ops.kernels import _build
+import torch_threads  # noqa: F401
 
 
 @pytest.fixture()

@@ -15,6 +15,7 @@ import torch
 from otto_tpu.ops.pallas.gather import gather_rows as pallas_gather_rows
 from otto_tpu.ops.pallas.segscan import segmented_scan_pallas
 from otto_tpu_torch.ops.kernels import gather, segscan
+import torch_threads  # noqa: F401
 
 
 def _vals(rng, shape, dtype):

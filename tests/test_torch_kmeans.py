@@ -22,6 +22,7 @@ import torch
 
 from otto_tpu.ops import kmeans as ref_kmeans
 from otto_tpu_torch.ops import kmeans
+import torch_threads  # noqa: F401
 
 TOL = 1e-5
 

@@ -22,6 +22,7 @@ from otto_tpu.ops.knn import knn_search as ref_knn_search
 from otto_tpu.ops.pallas.mips import mips_topk_pallas
 from otto_tpu_torch.ops import knn
 from otto_tpu_torch.ops.kernels import mips
+import torch_threads  # noqa: F401
 
 TOL = 1e-5
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from otto_tpu_torch.ops.kernels import mips
+import torch_threads  # noqa: F401
 
 # as chip_smoke.py and tests/test_torch_cuda.py hold the kernel to the twin:
 # scores within MIPS_TOL * (1 + the largest |score|), an index differing

@@ -38,6 +38,7 @@ import pytest
 import torch
 
 import torch_mesh_ranks as ranks
+import torch_threads
 from otto_tpu.config import CoVisConfig as RefCoVisConfig
 from otto_tpu.config import GBDTConfig as RefGBDTConfig
 from otto_tpu.config import PopularityConfig as RefPopularityConfig
@@ -229,13 +230,21 @@ def world(tmp_path_factory):
     inp = make_inputs()
     with open(tmp / "inputs.pkl", "wb") as fh:
         pickle.dump(inp, fh)
-    spawn_ranks(ranks.run_parallel_cases, 4, args=(str(tmp),), device="cpu", threads=1,
-                store_path=str(tmp / "store"))
+    spawn_ranks(ranks.run_parallel_cases, 4, args=(str(tmp),), device="cpu",
+                threads=torch_threads.THREADS, store_path=str(tmp / "store"))
     out = []
     for r in RANKS:
         with open(tmp / f"rank{r}.pkl", "rb") as fh:
             out.append(pickle.load(fh))
     return inp, out
+
+
+def test_one_intra_op_thread(world):
+    """The thread rule (tests/torch_threads.py) holds in this process and
+    in every rank that spawn_ranks starts with its value."""
+    _, out = world
+    assert torch.get_num_threads() == torch_threads.THREADS == 1
+    assert [out[r]["threads"] for r in RANKS] == [torch_threads.THREADS] * len(RANKS)
 
 
 def replicated(out, mesh, key):

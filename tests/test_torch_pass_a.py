@@ -30,6 +30,7 @@ from otto_tpu_torch.engine import rank as port_rank
 from otto_tpu_torch.engine import retrieval as port_retrieval
 from otto_tpu_torch.eval import per_source as port_per_source
 from otto_tpu_torch.pipeline import runner as port_runner
+import torch_threads  # noqa: F401
 
 F = len(ref_retrieval.FEATURE_NAMES)
 S, C, N_AIDS = 1500, 40, 3000

@@ -18,6 +18,7 @@ from otto_tpu_torch import config
 from otto_tpu_torch.data.synthetic import SyntheticSpec
 from otto_tpu_torch.models.ranker import Ranker
 from otto_tpu_torch.pipeline import cli, runner
+import torch_threads  # noqa: F401
 
 
 class Batch:
@@ -126,14 +127,9 @@ def test_pipeline_guards(tmp_path):
         assert not (tmp_path / "a" / "config.json").exists()
     # the MLP backend at a tiny size: trains three towers, serves them
     mlp = dataclasses.replace(cli.tiny_config(), ranker_backend="mlp")
-    torch_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        metrics = runner.run_synthetic(mlp, str(tmp_path / "b"),
-                                       SyntheticSpec(n_sessions=150, n_aids=120, seed=7),
-                                       batch_sessions=64, device="cpu")
-    finally:
-        torch.set_num_threads(torch_threads)
+    metrics = runner.run_synthetic(mlp, str(tmp_path / "b"),
+                                   SyntheticSpec(n_sessions=150, n_aids=120, seed=7),
+                                   batch_sessions=64, device="cpu")
     assert 0.0 < metrics["total"] <= metrics["ceiling_total"]
     rankers = runner.Pipeline(mlp, str(tmp_path / "b"), 120, device="cpu").load_rankers()
     assert set(rankers) == set(config.TYPES)

@@ -20,7 +20,6 @@ ceilings within 1e-12 and the ranked metrics within 1e-12.
 """
 import argparse
 import json
-import os
 import pickle
 import subprocess
 import sys
@@ -32,6 +31,7 @@ import pytest
 import torch
 
 import torch_mesh_ranks as ranks
+import torch_threads
 from otto_tpu.data.split import split_events
 from otto_tpu.data.synthetic import SyntheticSpec, generate
 from otto_tpu_torch.config import TYPES
@@ -66,8 +66,8 @@ def runs(tmp_path_factory):
            "labels": (sp.labels.session, sp.labels.aid, sp.labels.type)}
     with open(tmp / "inputs.pkl", "wb") as fh:
         pickle.dump(inp, fh)
-    spawn_ranks(ranks.run_pipeline, 4, args=(str(tmp),), device="cpu", threads=1,
-                store_path=str(tmp / "store"))
+    spawn_ranks(ranks.run_pipeline, 4, args=(str(tmp),), device="cpu",
+                threads=torch_threads.THREADS, store_path=str(tmp / "store"))
     n = []
     for r in range(4):
         with open(tmp / f"rank{r}.pkl", "rb") as fh:
@@ -212,7 +212,7 @@ def test_build_mesh_single_device_runs_unsharded(mesh):
 def test_cli_mesh_run_synthetic(tmp_path):
     """`run-synthetic --mesh data=2` under torchrun: two CPU ranks run the
     whole pipeline and rank 0 prints the metrics once."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = torch_threads.child_env(PYTHONPATH=str(REPO))
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
          "2", "-m", "otto_tpu_torch.pipeline.cli", "run-synthetic", "--tiny", "--device",
@@ -226,7 +226,7 @@ def test_cli_mesh_run_synthetic(tmp_path):
 
 
 def test_cli_world_size_mismatch_fails(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = torch_threads.child_env(PYTHONPATH=str(REPO))
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
          "2", "-m", "otto_tpu_torch.pipeline.cli", "run-synthetic", "--tiny", "--device",
@@ -242,7 +242,7 @@ def test_cli_world_size_mismatch_fails(tmp_path):
 def test_dead_rank_and_oversized_mesh_fail(tmp_path):
     with pytest.raises(Exception, match="rank 1 dies"):
         spawn_ranks(ranks.fail_on_rank_one, 2, args=(str(tmp_path),), device="cpu",
-                    threads=1, store_path=str(tmp_path / "store"))
+                    threads=torch_threads.THREADS, store_path=str(tmp_path / "store"))
     for r in range(2):
         assert (tmp_path / f"rank{r}.txt").read_text() == "mesh 4x1 != 2 devices"
 

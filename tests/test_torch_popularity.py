@@ -17,6 +17,7 @@ from otto_tpu.engine.popularity import compute_popularity as ref_popularity
 from otto_tpu_torch.config import PopularityConfig
 from otto_tpu_torch.data.schema import Events
 from otto_tpu_torch.engine.popularity import PopularityTables, compute_popularity
+import torch_threads  # noqa: F401
 
 DAY = 24 * 60 * 60
 

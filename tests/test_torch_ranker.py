@@ -34,6 +34,7 @@ from otto_tpu_torch.config import RankerConfig
 from otto_tpu_torch.models import ranker
 
 from test_ranker import make_ranking_data
+import torch_threads  # noqa: F401
 
 SCORE_RTOL = 2.0 ** -6
 SCORE_ATOL = 1e-3

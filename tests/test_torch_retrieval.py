@@ -27,6 +27,7 @@ from otto_tpu_torch import convert
 from otto_tpu_torch.data.schema import Events as PortEvents
 from otto_tpu_torch.device import resolve
 from otto_tpu_torch.engine import retrieval as port_retrieval
+import torch_threads  # noqa: F401
 
 N_AIDS = 300
 EMB_D = 16

@@ -16,6 +16,7 @@ from otto_tpu_torch.ops import segment as seg
 from otto_tpu_torch.ops.kernels import _build
 from otto_tpu_torch.ops.kernels import retrieval_features as k7
 from test_torch_retrieval import BATCH, PORT_CFG, build_world
+import torch_threads  # noqa: F401
 
 SRC = _build.CSRC_DIR / "retrieval_features.cu"
 

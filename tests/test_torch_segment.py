@@ -14,6 +14,7 @@ from otto_tpu.engine import session_stats as ref_stats
 from otto_tpu.ops import segment as ref_seg
 from otto_tpu_torch.engine import session_stats as port_stats
 from otto_tpu_torch.ops import segment as port_seg
+import torch_threads  # noqa: F401
 
 S, C = 7, 300  # odd row count, lanes not a multiple of 128
 

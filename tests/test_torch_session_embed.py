@@ -32,6 +32,7 @@ from otto_tpu_torch.data import batching
 from otto_tpu_torch.data.schema import Events
 from otto_tpu_torch.engine import session_embed as se
 from otto_tpu_torch.ops.kernels import dma_gather
+import torch_threads  # noqa: F401
 
 N_AIDS = 500
 

@@ -22,10 +22,12 @@ from otto_tpu.models.gbdt import GBDTRanker as RefGBDT
 from otto_tpu.models.gbdt import compute_bin_edges
 from otto_tpu.pipeline.runner import Pipeline
 from otto_tpu_torch import convert
+from otto_tpu_torch.config import Config as PortConfig
 from otto_tpu_torch.data.schema import Labels as PortLabels
 from otto_tpu_torch.engine import rank as port_rank
 from otto_tpu_torch.pipeline import runner as port_runner
-from test_torch_retrieval import BATCH, CFG, FLOAT_FEATURES, build_world
+from test_torch_retrieval import BATCH, CFG, FLOAT_FEATURES, N_AIDS, build_world
+import torch_threads  # noqa: F401
 
 SPLIT_FEATURES = np.array(
     [FEATURE_INDEX[n] for n in FEATURE_NAMES if n not in FLOAT_FEATURES]
@@ -131,6 +133,20 @@ def test_score_and_topk_equal():
         list(w["port"].iter_run(w["port_test"], BATCH)), convert.gbdt_from_numpy(ranker))
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x)
+
+
+def test_batch_runner_scores_as_score_pass(tmp_path_factory, tmp_path):
+    """The batch runner's scoring (Pipeline._score) of the kept batches
+    gives score_pass's (sessions, top-20 aids) for the GBDT rankers, byte
+    for byte."""
+    r = _run(tmp_path_factory)
+    w = build_world()
+    rankers = port_runner.load_rankers(str(r["port"][2]))
+    pipe = port_runner.Pipeline(PortConfig(), str(tmp_path), N_AIDS, device="cpu")
+    got = pipe._score(w["port"].run(w["port_test"], batch_sessions=BATCH), rankers)
+    for t in TYPES:
+        for g, x in zip(got[t], r["port"][0][t]):
+            assert g.dtype == x.dtype and g.shape == x.shape and g.tobytes() == x.tobytes()
 
 
 def test_submission_file_equal(tmp_path_factory):

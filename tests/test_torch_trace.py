@@ -17,6 +17,7 @@ import torch
 
 from otto_tpu_torch.pipeline import runner
 from otto_tpu_torch.utils import timing
+import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -29,15 +30,6 @@ READERS = ("retrieval.host_us", "rank.host_us", "rank.pull_us",
 PRODUCER = {"otto::retrieval.pack", "otto::retrieval.batch", "otto::runner.put_wait",
             "otto::runner.join", "otto::runner.assemble"}
 CONSUMER = {"otto::runner.get_wait", "otto::runner.consume"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny shapes: torch's CPU pool only adds contention beside other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

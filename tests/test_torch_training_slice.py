@@ -37,7 +37,6 @@ picks whichever gain its float32 sums round higher, while the port's exact
 sums tie and it takes the first. Such a tree sends every row to the same
 leaf; the test checks exactly that.
 """
-import contextlib
 import dataclasses
 import functools
 import json
@@ -72,6 +71,7 @@ from otto_tpu_torch.models import gbdt as port_gbdt
 from otto_tpu_torch.ops import kmeans as port_kmeans
 from otto_tpu_torch.pipeline import runner as port_runner
 from test_torch_gbdt_train import TRAIN_LEAF_TOL, ref_draws
+import torch_threads  # noqa: F401
 
 TYPES = ("clicks", "carts", "orders")
 SPEC = SyntheticSpec(n_sessions=2500, n_aids=1200, mean_len=10, span_days=21, seed=11)
@@ -343,7 +343,7 @@ def mlp_runs(both, tmp_path_factory):
     assert cfg.ranker_backend == "mlp" and cfg.ranker.hidden_dims == (32, 16)
     own_work = _mlp_work_dir(both["port"][1], root / "port", port=True)
     calls = []
-    with one_thread(), pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_runner, "pass_a", lambda *a, **k: calls.append(1))
         served = port_runner.run_streaming(train, test, labels, SPEC.n_aids, str(serve_work),
                                            "cpu", cfg=cfg, batch_sessions=BATCH)
@@ -369,11 +369,10 @@ def test_mlp_serving_from_reference_towers(mlp_runs):
     got = rank_engine.read_submission(str(work / "submission.csv"))
     cfg = port_cfg(str(work))
     train, test, _ = _port_split(mlp_runs["split"])
-    with one_thread():
-        retriever, _ = port_runner.build_retriever(
-            train, test, SPEC.n_aids, "cpu", cfg.w2vec, None, cfg.covis, cfg.popularity,
-            cfg.retrieval, cfg.kmeans, cache_dir=str(work))
-        batches = retriever.run(test, batch_sessions=BATCH)
+    retriever, _ = port_runner.build_retriever(
+        train, test, SPEC.n_aids, "cpu", cfg.w2vec, None, cfg.covis, cfg.popularity,
+        cfg.retrieval, cfg.kmeans, cache_dir=str(work))
+    batches = retriever.run(test, batch_sessions=BATCH)
     rankers = port_runner.load_rankers(str(work), cfg)
     n_diff = 0
     for t in TYPES:
@@ -425,28 +424,11 @@ def _port_split(sp):
             Labels(lab.session, lab.type, lab.aid))
 
 
-@contextlib.contextmanager
-def one_thread():
-    """One intra-op thread: these runs are thousands of small ops, where a
-    thread pool contending with other test processes only adds waits."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def batch_runs(both, tmp_path_factory):
     """Pipeline.run (labelled, then unlabelled) on a copy of the port's work
     dir and (labelled) on a copy of otto_tpu's; every table and ranker
     must come from the cache."""
-    with one_thread():
-        return _batch_runs(both, tmp_path_factory)
-
-
-def _batch_runs(both, tmp_path_factory):
     cfg = port_cfg(both["ref"][1])
     train, test, labels = _port_split(both["split"])
     out = {}
@@ -483,10 +465,10 @@ def test_batch_runner_on_reference_work_dir(both, batch_runs):
 
 def test_batch_runner_matches_streaming(both, batch_runs):
     """otto_tpu's test_streaming_runner_matches_batch on the port: the batch
-    runner (host C14 eval, score_and_topk in turn) against the streaming run
-    (device C14 eval, overlapped score_pass) on the same work dir: metrics
-    and reports within 1e-9, the same submission; the unlabelled run (the
-    CLI's rank) writes that submission too."""
+    runner (host C14 eval, the kept batches scored in turn) against the
+    streaming run (device C14 eval, overlapped score_pass) on the same
+    work dir: metrics and reports within 1e-9, the same submission; the
+    unlabelled run (the CLI's rank) writes that submission too."""
     (stream_m, port_dir), (got, work, sub) = both["port"], batch_runs["port"]
     for k, v in got.items():
         assert abs(v - stream_m[k]) <= 1e-9, (k, v, stream_m[k])
@@ -518,9 +500,8 @@ def test_reference_reads_the_port_cache(both, tmp_path):
         sp.train, sp.test)
     assert mtimes == {f: os.stat(work / f).st_mtime_ns for f in mtimes}
     train, test, _ = _port_split(sp)
-    with one_thread():
-        port = port_runner.Pipeline(port_cfg(both["ref"][1]), str(work), SPEC.n_aids,
-                                    device="cpu").build_retriever(train, test)
+    port = port_runner.Pipeline(port_cfg(both["ref"][1]), str(work), SPEC.n_aids,
+                                device="cpu").build_retriever(train, test)
     want = [np.asarray(x) for x in jax.tree_util.tree_leaves(ref.ctx)]
     got = [t.numpy() for t in port.ctx.tensors()]
     assert len(got) == len(want)
@@ -537,12 +518,11 @@ def test_pass_a_overlapped_equals_sequential(both, tmp_path):
     (_, port_dir), sp = both["port"], both["split"]
     train, test, labels = _port_split(sp)
     cfg = port_cfg(both["ref"][1])
-    with one_thread():
-        retriever, _ = port_runner.build_retriever(
-            train, test, SPEC.n_aids, "cpu", cfg.w2vec, None, cfg.covis, cfg.popularity,
-            cfg.retrieval, cfg.kmeans, cache_dir=port_dir)
-        _, rep = port_runner.pass_a(retriever, test, labels, cfg.ranker, str(tmp_path),
-                                    BATCH, overlap=False)
+    retriever, _ = port_runner.build_retriever(
+        train, test, SPEC.n_aids, "cpu", cfg.w2vec, None, cfg.covis, cfg.popularity,
+        cfg.retrieval, cfg.kmeans, cache_dir=port_dir)
+    _, rep = port_runner.pass_a(retriever, test, labels, cfg.ranker, str(tmp_path),
+                                BATCH, overlap=False)
     assert rep.phases["waiting for the consumer"] == 0.0
     for name in ("eval_retrieved.json", "eval_retrieved_sources.json", "passA-metrics.json"):
         assert (tmp_path / name).read_text() == open(os.path.join(port_dir, name)).read()

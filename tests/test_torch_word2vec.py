@@ -39,21 +39,11 @@ from otto_tpu_torch.data.schema import Events
 from otto_tpu_torch.models import word2vec as w2v
 from otto_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from test_word2vec import simple_events
+import torch_threads  # noqa: F401
 
 STEP_RTOL = 1e-5
 STEP_ATOL = 1e-6
 SEPARATION_TOL = 0.1
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """These trainings run thousands of small ops: one intra-op thread is
-    faster than a pool of them, and leaves the cores to the other test
-    workers. Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_events(ev):

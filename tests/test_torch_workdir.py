@@ -19,6 +19,7 @@ from otto_tpu.pipeline.runner import Pipeline
 from otto_tpu_torch import config
 from otto_tpu_torch.data.schema import Labels
 from otto_tpu_torch.pipeline import runner
+import torch_threads  # noqa: F401
 
 N_AIDS = 1000
 

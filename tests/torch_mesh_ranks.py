@@ -2,7 +2,8 @@
 tests/test_torch_pipeline_mesh.py.
 
 A spawned rank imports the module that holds its function, so this one
-imports torch, numpy and otto_tpu_torch only (never jax or otto_tpu). The
+imports torch, numpy, otto_tpu_torch and the tests' thread rule
+(torch_threads) only (never jax or otto_tpu). The
 test process writes the inputs (numpy arrays, and otto_tpu's draws where
 a case injects them) into `inputs.pkl`; every rank runs every case on
 each of its meshes and writes its results to `rank{r}.pkl`.
@@ -39,6 +40,7 @@ from otto_tpu_torch.parallel.collectives import (
     make_sharded_table,
 )
 from otto_tpu_torch.parallel.mesh import make_mesh
+import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 # the data-sharded meshes, (data, model), and the SGNS ones
@@ -86,7 +88,7 @@ def ev_of(d) -> Events:
 def run_parallel_cases(rank: int, tmp: str) -> None:
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as fh:
         inp = pickle.load(fh)
-    out = {}
+    out = {"threads": torch.get_num_threads()}
     for d, m in DATA_MESHES:
         mesh = make_mesh(d, m)
         out[mesh_name(d, m)] = data_cases(mesh, inp)
