@@ -11,10 +11,11 @@ Phases, each printed before the last line:
    nvcc per source, all at once) for sm_90a; print the build seconds.
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search),
    K4 (table row gather), K5 (the GBDT walk), K6 (HSTU's pointwise
-   attention) and K7 (retrieval's Stage E features) against their plain
-   PyTorch twins on the card at the main paths' shapes (K1 at the
-   transport sort's and at the GBDT validation walk's, K5 at serving's,
-   K6 at two of serving's length buckets, K7 at pass B's 2,048 x 512),
+   attention), K7 (retrieval's Stage E features) and K8 (Stage D's
+   columns) against their plain PyTorch twins on the card at the main
+   paths' shapes (K1 at the transport sort's and at the GBDT validation
+   walk's, K5 at serving's, K6 at two of serving's length buckets, K7 at
+   pass B's 2,048 x 512, K8 at its 2,048 x 4,000),
    with CUDA event times of kernel, twin and library call and each
    kernel's bound; then one transport sort of 40 int32 columns
    at [2048, 4096] with K1 reading the columns by pointer, held bit for
@@ -155,12 +156,13 @@ Phases, each printed before the last line:
    written there and linked from the work dir, and every stage's entry
    must carry the bytes on disk, in the tmpfs dir and written.
 
-Every phase that retrieves on the card checks one K7 launch a batch it
-retrieved there. Phases 4, 4b, 5, 5b, 7, 8 and 9 share one work dir; phase
-10 runs after phase 9 in a work dir of its own; phase 6 runs last. Then
-one JSON line with the kernels' results and, last, the result line {"ok":
-true, "device": {...}}. Any failed check raises: the exit code is then
-non-zero and the result line is not printed."""
+Every phase that retrieves on the card checks one K7 launch and one K8
+column launch a batch it retrieved there. Phases 4, 4b, 5, 5b, 7, 8 and 9
+share one work dir; phase 10 runs after phase 9 in a work dir of its own;
+phase 6 runs last. Then one JSON line with the kernels' results and,
+last, the result line {"ok": true, "device": {...}}. Any failed check
+raises: the exit code is then non-zero and the result line is not
+printed."""
 import contextlib
 import dataclasses
 import hashlib
@@ -265,29 +267,33 @@ UNSHARDED = {}
 
 def zero_launch_counts():
     from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
-                                            mips, retrieval_features, segscan)
+                                            mips, retrieval_columns, retrieval_features,
+                                            segscan)
 
     for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
-              retrieval_features):
+              retrieval_features, retrieval_columns):
         m.LAUNCHES.reset()
 
 
 def launch_counts():
     from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
-                                            mips, retrieval_features, segscan)
+                                            mips, retrieval_columns, retrieval_features,
+                                            segscan)
 
     return {"gather_rows": gather.LAUNCHES.value, "segmented_scan": segscan.LAUNCHES.value,
             "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value,
             "gbdt_walk": gbdt_walk.LAUNCHES.value,
             "hstu_attention": hstu_attention.LAUNCHES.value,
-            "retrieval_features": retrieval_features.LAUNCHES.value}
+            "retrieval_features": retrieval_features.LAUNCHES.value,
+            "retrieval_columns": retrieval_columns.LAUNCHES.value}
 
 
 @contextlib.contextmanager
 def batches_retrieved():
     """Count the retrieve_batch calls made meanwhile, from any thread, on
     CUDA inputs (Retriever.iter_run calls it through its module): each is
-    one K7 launch. Yields a one-element list holding the count."""
+    one K7 launch and one K8 column launch. Yields a one-element list
+    holding the count."""
     import threading
 
     from otto_tpu_torch.engine import retrieval
@@ -312,6 +318,12 @@ def require_k7(launches, n_batches, where):
     require(launches["retrieval_features"] == n_batches > 0,
             f"one K7 launch a batch retrieved on the card ({where}): "
             f"{launches['retrieval_features']} launches, {n_batches} batches")
+
+
+def require_k8(launches, n_batches, where):
+    require(launches["retrieval_columns"] == n_batches > 0,
+            f"one K8 column launch a batch retrieved on the card ({where}): "
+            f"{launches['retrieval_columns']} launches, {n_batches} batches")
 
 
 @contextlib.contextmanager
@@ -647,7 +659,7 @@ def phase_kernels(dev, smi):
         print(f"#   {n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of q, k, v and y, "
               f"{2 * pairs * H6 * 128 / (ms * 1e-3) / 1e12:.2f} TFLOP/s over the open pairs")
         del buf, q, k, v, got, want, args
-    retrieval_features_check(dev, report)
+    retrieval_columns_check(report, retrieval_features_check(dev, report))
     return out
 
 
@@ -682,9 +694,11 @@ def retrieval_features_check(dev, report):
     trim = torch.tensor([cfg.trim_max_at_order_1, cfg.trim_min,
                          (cfg.trim_max_at_order_1 - cfg.trim_min) / (cfg.trim_min_at_order - 1)],
                         dtype=torch.float32, device=dev)
-    caught = []
-    stage_e = retrieval._stage_e
-    with mock.patch.object(retrieval, "_stage_e", lambda *a: caught.append(a) or stage_e(*a)):
+    caught, caught_d = [], []
+    stage_e, stage_d = retrieval._stage_e, retrieval._stage_d
+    with mock.patch.object(retrieval, "_stage_e", lambda *a: caught.append(a) or stage_e(*a)), \
+            mock.patch.object(retrieval, "_stage_d",
+                              lambda *a: caught_d.append(a) or stage_d(*a)):
         retrieval.retrieve_batch((put(p.aid), put(p.ts), put(p.type)), ctx, put(cluster),
                                  put(semb), trim, cfg.max_session_aids, cfg.max_candidates)
     args = caught[0]
@@ -717,6 +731,73 @@ def retrieval_features_check(dev, report):
     print(f"#   {n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s; {valid} valid of {S * C} slots "
           f"({filled} filled); all {S * C} slots read in full would be "
           f"{bound(4 * S * C * (len(k7.COLUMNS) + 1 + D + 3 + k7.N_FEATURES + 2))[0]:.3f} ms")
+    return caught_d[0]
+
+
+def retrieval_columns_check(report, args):
+    """K8 at the pass-B shape, on the Stage D inputs of the batch
+    retrieval_features_check retrieves (2,048 sessions of the 32 bucket, 32 kept aids: 3,872
+    level-1 lanes and 128 popularity slots): its key launch and, after the
+    key sort, its column launch against the twin, key2 and every column at
+    every sorted lane bit-equal (the twin's columns moved to sort order);
+    CUDA event times of K8's two launches and of what they replace (the
+    twin and its columns' transport sort on K1); the bound: the bytes the
+    two launches need at HBM's rate (every lane's key, index, flags and
+    columns written; a kept level-1 lane's 13 trim words and 47 column
+    words, a popularity slot's ranks)."""
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.ops import segment
+    from otto_tpu_torch.ops.kernels import retrieval_columns as k8
+
+    ks1, red1, end1, min_ts, cluster, ctx, trim = args
+    inputs = [red1[n] for n in k8.INPUTS]
+
+    def keys():
+        return k8.retrieval_keys(ks1, end1, inputs, trim, cluster, ctx.pop_cl50_cand,
+                                 ctx.pop_cl50_ranks)
+
+    key2, flags = keys()
+    key2_t, cols = retrieval._columns_program(*args)
+    require(torch.equal(key2, key2_t), "K8 key2 equal to the twin's")
+    ks2, perm = torch.sort(key2, dim=-1, stable=True)
+
+    def columns():
+        return k8.retrieval_columns(ks2, perm, flags, inputs, min_ts, cluster,
+                                    ctx.pop_cl50_ranks)
+
+    groups, first, is_end = columns()
+    got = torch.cat(groups[:-1] + [groups[-1].view(torch.int32)])
+    want = torch.stack([torch.gather(cols[n][0], 1, perm).view(torch.int32)
+                        for n in k8.COLUMNS])
+    torch.cuda.synchronize()
+    off = [n for j, n in enumerate(k8.COLUMNS) if not torch.equal(got[j], want[j])]
+    require(not off, f"K8 columns bit-equal to the twin's in sort order: {off} differ")
+    require(torch.equal(first, ks2 != segment._prev(ks2, segment.NEG_SENTINEL))
+            and torch.equal(is_end, segment._next(first, True) & (ks2 != segment.SENTINEL)),
+            "K8 segment flags equal to the sorted keys'")
+    del got, want
+
+    def twin():
+        key2_p, cols_p = retrieval._columns_program(*args)
+        return segment.rowwise_transport_sort(key2_p, [c for c, _ in cols_p.values()])
+
+    ms = cuda_ms(lambda: (keys(), columns()), reps=20)
+    ms_keys = cuda_ms(keys, reps=20)
+    plain = cuda_ms(twin, reps=3)
+    S, P1 = ks1.shape
+    P2 = ks2.shape[1]
+    T, K = ctx.pop_cl50_ranks.shape[1:]
+    valid = int(end1.sum())
+    kept = int((key2[:, :P1] != retrieval.SENT).sum())
+    pop = int((key2[:, P1:] != retrieval.SENT).sum())
+    n_bytes = (5 * S * P1 + 4 * 13 * valid + 4 * S * T * (1 + K) + 4 * S * P2 + S * P1
+               + (4 + 8 + 2 + 4 * len(k8.COLUMNS)) * S * P2 + (1 + 4 * 47) * kept
+               + 4 * k8.N_POP * pop + 8 * S)
+    report("retrieval_columns", (S, P2, len(k8.COLUMNS)), 0.0, ms, plain,
+           (*bound(n_bytes), None))
+    print(f"#   {n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s; key launch {ms_keys:.3f} ms, column "
+          f"launch {ms - ms_keys:.3f} ms; {valid} level-1 entries, {kept} kept, {pop} "
+          f"popularity candidates of {S * P2} sorted lanes")
 
 
 def transport_sort_forms(dev, g, smi):
@@ -1121,6 +1202,7 @@ def phase_training(dev, smi, sp, retriever, work, batch=BATCH):
     require(pa_launches["gather_rows"] > 0 and pa_launches["segmented_scan"] > 0,
             f"K1 and K2 launched in pass A: {pa_launches}")
     require_k7(pa_launches, n_batches[0], "pass A")
+    require_k8(pa_launches, n_batches[0], "pass A")
     require(all(rep.rows[t] > 0 and rep.positive_sessions[t] > 0 for t in TYPES),
             "every target has rows")
     require(0.0 < metrics["ceiling_total"] < 1.0, "ceiling recall in (0, 1)")
@@ -1212,6 +1294,7 @@ def phase_main_path(dev, smi, sp, retriever, rankers, ceiling, batch=BATCH):
     require(launches["gbdt_walk"] > 0 and WALK["launches"]["serving"] == 0,
             f"K5 walks the trees, K1 not: {launches}")
     require_k7(launches, n_batches[0], "serving")
+    require_k8(launches, n_batches[0], "serving")
     for t, (s, a) in preds.items():
         require(s.shape == (n_test,) and a.shape == (n_test, 20), f"{t} shapes")
         require(((a >= -1) & (a < N_AIDS)).all(), f"{t} aids in range")
@@ -1270,6 +1353,7 @@ def phase_hstu(dev, smi, sp, retriever, batch=BATCH):
             f"one K6 launch a block a batch: {launches}, {len(calls)} batches")
     require(launches["gather_rows_hbm"] >= len(calls), f"K4 reads the items: {launches}")
     require_k7(launches, n_batches[0], "HSTU serving")
+    require_k8(launches, n_batches[0], "HSTU serving")
     for t, (s_, a) in preds.items():
         require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"HSTU {t} shapes")
         require((a[:, 0] >= 0).mean() > 0.99, f"HSTU {t} sessions get predictions")
@@ -1372,6 +1456,7 @@ def phase_mlp(dev, smi, sp, retriever, work, ceiling, gbdt_recall, base_recall,
     require(WALK["launches"]["mlp serving"] == 0 and launches["gbdt_walk"] == 0,
             "no tree walk when the MLP scores")
     require_k7(launches, n_batches[0], "MLP serving")
+    require_k8(launches, n_batches[0], "MLP serving")
     for t, (s_, a) in preds.items():
         require(s_.shape == (n_test,) and a.shape == (n_test, 20), f"MLP {t} shapes")
         require(((a >= -1) & (a < N_AIDS)).all(), f"MLP {t} aids in range")
@@ -1496,6 +1581,7 @@ def phase_batch_runner(dev, smi, sp, retriever, work, serve_recall, batch=BATCH)
     require(launches_ok and launches["mips_topk"] == 0 and launches["gather_rows_hbm"] == 0,
             f"K1 and K2 launched, K3 and K4 not (their tables cached): {launches}")
     require_k7(launches, n_batches[0], "batch runner")
+    require_k8(launches, n_batches[0], "batch runner")
     for name, want in passa.items():
         with open(os.path.join(work, name)) as fh:
             close(json.load(fh), want, name)
@@ -1545,13 +1631,14 @@ CLI_WITH_COUNTS = """
 import atexit, json, runpy, sys
 import chip_smoke
 from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
-                                        retrieval_features, segscan)
+                                        retrieval_columns, retrieval_features, segscan)
 _counting = chip_smoke.batches_retrieved()   # held: its exit would unwrap
 _batches = _counting.__enter__()
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
     for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
-              retrieval_features)}) + "\\nBATCHES " + str(_batches[0]), file=sys.stderr))
+              retrieval_features, retrieval_columns)}) + "\\nBATCHES " + str(_batches[0]),
+    file=sys.stderr))
 sys.argv = ["otto_tpu_torch.pipeline.cli"] + sys.argv[1:]
 runpy.run_module("otto_tpu_torch.pipeline.cli", run_name="__main__", alter_sys=True)
 """
@@ -1601,6 +1688,8 @@ def phase_tool(smi, sp, root):
         launches = json.loads(out.stderr.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
         require_k7(launches, int(out.stderr.rsplit("BATCHES ", 1)[1].split()[0]),
                    f"CLI run {i + 1}")
+        require_k8(launches, int(out.stderr.rsplit("BATCHES ", 1)[1].split()[0]),
+                   f"CLI run {i + 1}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         print(f"# run-synthetic --tiny (run {i + 1}): {dt:.2f} s of command, launches "
@@ -1640,13 +1729,14 @@ SCRIPT_WITH_COUNTS = """
 import atexit, json, runpy, sys
 import chip_smoke
 from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
-                                        retrieval_features, segscan)
+                                        retrieval_columns, retrieval_features, segscan)
 _counting = chip_smoke.batches_retrieved()   # held: its exit would unwrap
 _batches = _counting.__enter__()
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
     m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
     for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
-              retrieval_features)}) + "\\nBATCHES " + str(_batches[0]), file=sys.stderr))
+              retrieval_features, retrieval_columns)}) + "\\nBATCHES " + str(_batches[0]),
+    file=sys.stderr))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
@@ -1703,6 +1793,8 @@ def phase_fullscale(smi, root):
     launches = json.loads(out.stderr.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
     require_k7(launches, int(out.stderr.rsplit("BATCHES ", 1)[1].split()[0]),
                "the reference-scale script")
+    require_k8(launches, int(out.stderr.rsplit("BATCHES ", 1)[1].split()[0]),
+               "the reference-scale script")
     stages = rec["stages"]
     require([e["stage"] for e in stages] == FULLSCALE_STAGES,
             f"the record's stages: {[e['stage'] for e in stages]}")
@@ -1713,11 +1805,11 @@ def phase_fullscale(smi, root):
     require(rec["generator"] == "device" and rec["spec"]["n_sessions"] == FULLSCALE_SESSIONS,
             "the events were drawn on the card at the asked scale")
     require("src_any" in rec["per_source"], "the per-source report is in the record")
-    # the script serves GBDT rankers: K1-K5 and K7 launch, K6 (the HSTU
-    # ranker's) does not
+    # the script serves GBDT rankers: K1-K5, K7 and K8 launch, K6 (the
+    # HSTU ranker's) does not
     require(all(v > 0 for k, v in launches.items() if k != "hstu_attention")
             and launches["hstu_attention"] == 0,
-            f"K1-K5 and K7 launched by the script, K6 not: {launches}")
+            f"K1-K5, K7 and K8 launched by the script, K6 not: {launches}")
     m = rec["metrics"]
 
     # the heuristic baseline on the same test sessions and co-visitation tables
@@ -2116,6 +2208,7 @@ def phase_multi_device(smi, sp, work, pop, preds, recall, unsharded, batch_ref,
                 "K1 and K2 launched in the batch runner on the mesh")
         for st in ("pass A", "serving", "batch runner"):
             require_k7(ln[st], run["batches"][st], f"{st} on the mesh")
+            require_k8(ln[st], run["batches"][st], f"{st} on the mesh")
     return {k: sum(run["launches"][st][k] for run in [a] + b for st in run["launches"])
             for k in a["launches"]["serving"]}
 
@@ -2838,6 +2931,8 @@ def main():
                            "none; the HSTU ranker exists only in the port"),
         "retrieval_features": ("otto_tpu_torch/csrc/retrieval_features.cu",
                                "none; otto_tpu's Stage E is XLA ops under jit"),
+        "retrieval_columns": ("otto_tpu_torch/csrc/retrieval_columns.cu",
+                              "none; otto_tpu's Stage D is XLA ops under jit"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -23,10 +23,12 @@ the true self value propagates (0/NULL when the candidate is not a session
 aid).
 
 Stages C, D and E are sorted-layout groupbys (ops/segment.py): their
-column moves run on kernel K1 and their scans on kernel K2. Stage E's
-features, after its transport sort, are one launch of kernel K7 on the
-card (ops/kernels/retrieval_features.py) and its twin _features_program
-elsewhere.
+column moves run on kernel K1 and their scans on kernel K2. On the card,
+Stage D's trim and columns are kernel K8's two launches around the key
+sort (ops/kernels/retrieval_columns.py), which writes the columns in sort
+order, and Stage E's features, after its transport sort, one launch of
+kernel K7 (ops/kernels/retrieval_features.py); elsewhere their twins
+_columns_program and _features_program run.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from otto_tpu_torch.engine.session_stats import (
     compute_session_stats,
 )
 from otto_tpu_torch.ops import segment as seg
+from otto_tpu_torch.ops.kernels import retrieval_columns as k8
 from otto_tpu_torch.ops.kernels import retrieval_features as k7
 from otto_tpu_torch.utils import timing
 
@@ -501,6 +504,72 @@ def retrieve_batch(
 
     ks1, red1, end1, _ = seg.rowwise_groupby_scan(key1, cols1)
     del cols1
+
+    stage = stage.then("otto::retrieval.stage_d")
+    # ---------------- Stage D: trim + level-2 groupby candidate --------------
+    ks2, red2, end2 = _stage_d(ks1, red1, end1, ss.min_ts, cluster, ctx, trim_params)
+    del red1
+
+    stage = stage.then("otto::retrieval.stage_e")
+    # ---------------- Stage E: compaction ------------------------------------
+    # one transport sort keyed on the per-candidate ts_order priority
+    # (segment ends only) compacts the groupby result and applies the
+    # top-C cut together: only the C kept lanes move, and only the columns
+    # the features read
+    ts_order = torch.where(end2, _null_to(red2["ts_order_aid"], SENT, 999), SENT)
+    prio = torch.where(end2, ts_order.clamp(0, 999), SENT)
+    # a cap beyond the union's lane width is a no-op (there can be no more
+    # candidates than lanes)
+    C = min(max_candidates, prio.shape[1])
+    pk, comp = seg.rowwise_transport_sort(
+        prio,
+        [torch.where(end2, ks2, -1), ts_order] + [red2[n] for n in k7.COLUMNS[2:]],
+        width=C,
+    )
+    del red2
+    idents = {n: seg._reduce_identity(*k8.REDUCERS[n]) for n in k7.COLUMNS[2:]}
+    cand, feats, ts_out = _stage_e(pk, dict(zip(k7.COLUMNS, comp)), idents, ss, ctx,
+                                   ses_emb, max_candidates)
+    stage.close()
+    return cand, feats, ts_out
+
+
+def _stage_d(ks1, red1, end1, min_ts, cluster, ctx, trim_params):
+    """The trim and the level-2 groupby by candidate: for a batch on the
+    card, K8's key launch, the key sort, K8's column launch and one K2 scan
+    a column group as it lies; elsewhere the twin _columns_program and
+    rowwise_groupby_scan. -> (ks2 [S, P2] sorted keys, {name: scanned
+    [S, P2]} for every name of k8.COLUMNS, is_end [S, P2])."""
+    if ks1.device.type != "cuda":
+        ks2, red2, end2, _ = seg.rowwise_groupby_scan(
+            *_columns_program(ks1, red1, end1, min_ts, cluster, ctx, trim_params))
+        return ks2, red2, end2
+    inputs = [red1[n] for n in k8.INPUTS]
+    key2, flags = k8.retrieval_keys(ks1, end1, inputs, trim_params, cluster,
+                                    ctx.pop_cl50_cand, ctx.pop_cl50_ranks)
+    ks2, perm = torch.sort(key2, dim=-1, stable=True)
+    groups, first, end2 = k8.retrieval_columns(ks2, perm, flags, inputs, min_ts, cluster,
+                                              ctx.pop_cl50_ranks)
+    red2: Dict[str, torch.Tensor] = {}
+    for (_, red, names), cols in zip(k8.GROUPS, groups):
+        red2.update(zip(names, seg.segmented_scan(cols, first, red)))
+    return ks2, red2, end2
+
+
+def _columns_program(ks1, red1, end1, min_ts, cluster, ctx, trim_params):
+    """K8's plain twin (ops/kernels/retrieval_columns.py): from the level-1
+    groupby's sorted keys ks1, reductions red1 {name: [S, P1]} and segment
+    ends end1, the recency-adaptive trim and the level-2 groupby's input:
+    -> (key2 [S, P1 + T] int32, {name: (column [S, P1 + T], reducer)}) for
+    the names of k8.COLUMNS, the popularity candidates in the last T
+    lanes."""
+    S, P1 = ks1.shape
+    dev = ks1.device
+    n_cov = len(ctx.covis)
+
+    def full(shape, value, dtype=I32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
     # sorted layout: reduced values live at segment-END lanes only
     e_valid = end1
     e_cand = torch.where(ks1 != SENT, ks1 & AID_MASK, -1)
@@ -532,8 +601,7 @@ def retrieve_batch(
         is_self | (best_co.to(F32) <= th) | (best_w2v.to(F32) <= th)
     )
 
-    stage = stage.then("otto::retrieval.stage_d")
-    # ---------------- Stage D: level-2 groupby candidate ---------------------
+    # ---------------- level-2 groupby candidate ------------------------------
     key2_main = torch.where(keep, e_cand, SENT)
 
     def masked(arr, ident):
@@ -548,7 +616,7 @@ def retrieve_batch(
         cols2[name] = (masked(stat_of(name), 0), "sum")
 
     mt = stat_of("max_ts_aid")
-    min_ts_col = ss.min_ts[:, None]  # session-start-relative sums stay in i32
+    min_ts_col = min_ts[:, None]  # session-start-relative sums stay in i32
     cols2["max_ts_aid"] = (masked(_null_to(mt, NULL, NEG_SENT), NEG_SENT), "max")
     cols2["sum_rel_max_ts_aid"] = (
         masked(torch.where(mt == NULL, 0, mt - min_ts_col), 0), "sum")
@@ -578,7 +646,6 @@ def retrieve_batch(
         rk = red1[f"cov{t}_rank"]
         cols2[f"cov{t}_num_rank"] = (
             masked(torch.where(rk == SENT, 0, rk), 0) * cnt, "sum")
-        cols2[f"cov{t}_best_rank"] = (masked(rk, SENT), "min")
 
     for kind in ("w2v_all", "w2v_12"):
         rk = red1[f"{kind}_rank"]
@@ -617,7 +684,6 @@ def retrieve_batch(
     cols2["slf_ts_order_carts"] = slf("ts_order_aid_carts", "min", SENT, SENT)
     cols2["slf_ts_order_orders"] = slf("ts_order_aid_orders", "min", SENT, SENT)
     cols2["slf_left_in_cart"] = slf("left_in_cart", "sum", 0)
-    del red1
 
     # popularity candidates appended as extra entries (outer join); only
     # the top-20-by-any-rank ones are kept
@@ -642,33 +708,7 @@ def retrieve_batch(
         cols2p[f"pop_{pi}"] = (torch.cat([full((S, P1), SENT), pr], dim=1), "min")
     cols2p["pop_present"] = (
         torch.cat([full((S, P1), 0), pop_valid.to(I32)], dim=1), "sum")
-
-    ks2, red2, end2, _ = seg.rowwise_groupby_scan(key2, cols2p)
-
-    stage = stage.then("otto::retrieval.stage_e")
-    # ---------------- Stage E: compaction ------------------------------------
-    # one transport sort keyed on the per-candidate ts_order priority
-    # (segment ends only) compacts the groupby result and applies the
-    # top-C cut together: only the C kept lanes move, and only the columns
-    # the features read
-    ts_order = torch.where(end2, _null_to(red2["ts_order_aid"], SENT, 999), SENT)
-    prio = torch.where(end2, ts_order.clamp(0, 999), SENT)
-    # a cap beyond the union's lane width is a no-op (there can be no more
-    # candidates than lanes)
-    C = min(max_candidates, prio.shape[1])
-    pk, comp = seg.rowwise_transport_sort(
-        prio,
-        [torch.where(end2, ks2, -1), ts_order] + [red2[n] for n in k7.COLUMNS[2:]],
-        width=C,
-    )
-    del red2
-    idents = {n: seg._reduce_identity(cols2p[n][0].dtype, cols2p[n][1])
-              for n in k7.COLUMNS[2:]}
-    del cols2p
-    cand, feats, ts_out = _stage_e(pk, dict(zip(k7.COLUMNS, comp)), idents, ss, ctx,
-                                   ses_emb, max_candidates)
-    stage.close()
-    return cand, feats, ts_out
+    return key2, cols2p
 
 
 def _stage_e(pk, moved, idents, ss, ctx, ses_emb, max_candidates):

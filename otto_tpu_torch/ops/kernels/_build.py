@@ -149,6 +149,12 @@ def load() -> ctypes.CDLL:
                                              ptr, i32, i32, ptr, i32, ptr, i32]
                                             + [ptr] * 3 + [i32] * 3 + [ptr])
     lib.otto_retrieval_features.restype = i32
+    lib.otto_retrieval_keys.argtypes = ([ptr, i32] + [ptr] * 6 + [i32] * 3
+                                        + [ptr, ptr, i32, i32, ptr])
+    lib.otto_retrieval_keys.restype = i32
+    lib.otto_retrieval_columns.argtypes = ([ptr, i32] + [ptr] * 6 + [i32] * 3 + [ptr] * 3
+                                           + [i32] * 3 + [ptr])
+    lib.otto_retrieval_columns.restype = i32
     return lib
 
 

@@ -1001,3 +1001,142 @@ def test_cuda_retrieval_features_scalar_loads(cuda_device, monkeypatch, layout):
     else:
         got, twin, _ = _k7_run(cuda_device, monkeypatch, 32, 256, seed=6, D=37)
     _k7_compare(got, twin)
+
+
+# K8: retrieve_batch's trim and Stage D columns on the card at the same
+# widths and on the same tables and batches as K7's tests, its Stage D
+# inputs caught at `_stage_d` and run through the twin on the card too
+def _k8_eager_stage_d(*args):
+    """Stage D as the twin runs it: _columns_program, then the groupby of
+    rowwise_groupby_scan (its transport sort moves the columns on K1)."""
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.ops import segment as seg
+
+    ks2, red2, end2, _ = seg.rowwise_groupby_scan(*retrieval._columns_program(*args))
+    return ks2, red2, end2
+
+
+def _k8_run(dev, monkeypatch, L, S, seed, mutate=None):
+    """retrieve_batch on the card (K8) and with the eager Stage D, on one
+    batch; `mutate(ctx, cluster)` may change the tables and clusters first.
+    -> (_stage_d's arguments, K8's (cand, feats, ts_order), the eager
+    path's)."""
+    from otto_tpu_torch.config import RetrievalConfig
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.ops.kernels import retrieval_columns as k8
+
+    ctx = _k7_context(dev, seed)
+    padded, cluster, semb = _k7_batch(dev, L, S, seed + 1)
+    if mutate is not None:
+        ctx, cluster = mutate(ctx, cluster)
+    cfg = RetrievalConfig()
+    trim = torch.tensor([cfg.trim_max_at_order_1, cfg.trim_min,
+                         (cfg.trim_max_at_order_1 - cfg.trim_min) / (cfg.trim_min_at_order - 1)],
+                        device=dev)
+    caught = []
+    stage_d = retrieval._stage_d
+    monkeypatch.setattr(retrieval, "_stage_d", lambda *a: caught.append(a) or stage_d(*a))
+    before = k8.LAUNCHES.value
+    got = retrieval.retrieve_batch(padded, ctx, cluster, semb, trim, 32, 512)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES.value == before + 1 and len(caught) == 1
+    monkeypatch.setattr(retrieval, "_stage_d", _k8_eager_stage_d)
+    eager = retrieval.retrieve_batch(padded, ctx, cluster, semb, trim, 32, 512)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES.value == before + 1
+    monkeypatch.setattr(retrieval, "_stage_d", stage_d)
+    return caught[0], got, eager
+
+
+def _k8_compare(args, got, eager):
+    """K8's two launches against the twin on the same arguments, bit for bit
+    (float32 words compared as words): key2; every column at every sorted
+    lane before the scans, and first / is_end; every column after K2's
+    scans (retrieve_batch's Stage D on the card against the eager
+    groupby); then retrieve_batch's cand, feats and ts_order against the
+    eager Stage D's. -> (key2, the twin's columns)."""
+    from otto_tpu_torch.engine import retrieval
+    from otto_tpu_torch.ops import segment as seg
+    from otto_tpu_torch.ops.kernels import retrieval_columns as k8
+
+    ks1, red1, end1, min_ts, cluster, ctx, trim = args
+    key2_t, cols = retrieval._columns_program(*args)
+    inputs = [red1[n] for n in k8.INPUTS]
+    key2, flags = k8.retrieval_keys(ks1, end1, inputs, trim, cluster, ctx.pop_cl50_cand,
+                                    ctx.pop_cl50_ranks)
+    assert torch.equal(key2, key2_t), "key2 not bit-equal to the twin's"
+    ks2, perm = torch.sort(key2, dim=-1, stable=True)
+    groups, first, is_end = k8.retrieval_columns(ks2, perm, flags, inputs, min_ts, cluster,
+                                                 ctx.pop_cl50_ranks)
+    off = [n for (_, _, names), g in zip(k8.GROUPS, groups) for n, col in zip(names, g)
+           if not torch.equal(col.view(torch.int32),
+                              torch.gather(cols[n][0], 1, perm).view(torch.int32))]
+    assert not off, f"columns not bit-equal to the twin's in sort order: {off}"
+    ks2_t, red2_t, end2_t, _ = seg.rowwise_groupby_scan(key2_t, cols)
+    assert torch.equal(ks2, ks2_t) and torch.equal(is_end, end2_t)
+    assert torch.equal(first, ks2_t != seg._prev(ks2_t, seg.NEG_SENTINEL))
+    _, red2, end2 = retrieval._stage_d(*args)
+    assert torch.equal(end2, end2_t)
+    off = [n for n in k8.COLUMNS
+           if not torch.equal(red2[n].view(torch.int32), red2_t[n].view(torch.int32))]
+    assert not off, f"scanned columns not bit-equal to the eager groupby's: {off}"
+    for name, a, b in zip(("cand", "feats", "ts_order"), got, eager):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{name} differs"
+    return key2, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 256, 2048])
+@pytest.mark.parametrize("L", [8, 32, 128])
+def test_cuda_retrieval_columns_match_twin(cuda_device, monkeypatch, L, S):
+    """K8 against its twin at the pass-B cells' widths in three length
+    buckets (8 kept aids in the 8 bucket, 32 above): among the rows, from
+    S = 256 on, all-padding sessions, which keep popularity candidates
+    only."""
+    args, got, eager = _k8_run(cuda_device, monkeypatch, L, S, seed=3 * L + S)
+    key2, _ = _k8_compare(args, got, eager)
+    P1 = args[0].shape[1]
+    assert P1 == min(L, 32) * 121 and key2.shape == (S, P1 + 128)
+    kept = key2[:, :P1] != 2**31 - 1
+    assert int(kept.sum()) > 50 * S
+    if S > 1:
+        pop_only = ~kept.any(1) & (key2[:, P1:] != 2**31 - 1).any(1)
+        assert bool(pop_only.any()), "no popularity-only row"
+
+
+def _k8_edges(ctx, cluster):
+    """Clusters beyond the table (clamped to its first and last row); the
+    first cluster's popularity ranks all above 20, so all-padding rows there
+    keep nothing; every fourth padding row in cluster 5 instead; co-
+    visitation counts whose products with the counts overflow int32."""
+    cl = cluster.clone()
+    cl[0::7] = 77
+    cl[3::11] = -4
+    pad = torch.nonzero(cluster == 0).flatten()
+    cl[pad] = 0
+    cl[pad[::4]] = 5
+    ranks = ctx.pop_cl50_ranks.clone()
+    ranks[0] = 21
+    covis = tuple(c._replace(count=c.count * 40_000, count_pop=c.count_pop * 3_000)
+                  for c in ctx.covis)
+    return ctx._replace(covis=covis, pop_cl50_ranks=ranks), cl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 32])
+def test_cuda_retrieval_columns_edge_rows(cuda_device, monkeypatch, L):
+    """K8 against its twin where rows keep nothing (all-padding sessions in
+    a cluster without a popularity candidate in rank), keep popularity
+    candidates only, read clusters beyond the table, and where the count
+    products wrap in int32 as PyTorch's do."""
+    args, got, eager = _k8_run(cuda_device, monkeypatch, L, 256, seed=L, mutate=_k8_edges)
+    key2, cols = _k8_compare(args, got, eager)
+    ks1, red1, _, _, cluster, _, _ = args
+    P1 = ks1.shape[1]
+    empty = (key2 == 2**31 - 1).all(1)
+    pop_only = (key2[:, :P1] == 2**31 - 1).all(1) & ~empty
+    assert bool(empty.any()) and bool(pop_only.any())
+    assert bool(((cluster < 0) | (cluster >= 50)).any())
+    wide = red1["cov0_count_pop"].long() * red1["cov0_count"].long()
+    kept = key2[:, :P1] != 2**31 - 1
+    assert bool((kept & (wide > 2**31 - 1)).any()), "no count product beyond int32"
