@@ -11,11 +11,14 @@ Phases, each printed before the last line:
    nvcc per source, all at once) for sm_90a; print the build seconds.
 3. Kernel check: K1 (row gather), K2 (segmented scan), K3 (top-k search),
    K4 (table row gather), K5 (the GBDT walk), K6 (HSTU's pointwise
-   attention), K7 (retrieval's Stage E features) and K8 (Stage D's
-   columns) against their plain PyTorch twins on the card at the main
-   paths' shapes (K1 at the transport sort's and at the GBDT validation
-   walk's, K5 at serving's, K6 at two of serving's length buckets, K7 at
-   pass B's 2,048 x 512, K8 at its 2,048 x 4,000),
+   attention), K7 (retrieval's Stage E features), K8 (Stage D's
+   columns), K9 (the MoE experts' grouped product) and K6's softmax form
+   against their plain PyTorch twins on the card at the main paths' shapes
+   (K1 at the transport sort's and at the GBDT validation walk's, K5 at
+   serving's, K6 and its softmax form at two of serving's length buckets,
+   K7 at pass B's 2,048 x 512, K8 at its 2,048 x 4,000, K9 at the MoE
+   cell's 6 x 65,536 routed rows over 64 experts, both products, after its
+   edge segments, with torch._grouped_mm as its library call),
    with CUDA event times of kernel, twin and library call and each
    kernel's bound; then one transport sort of 40 int32 columns
    at [2048, 4096] with K1 reading the columns by pointer, held bit for
@@ -89,6 +92,13 @@ Phases, each printed before the last line:
    drawn from the seed, not trained) serves every test session through
    score_pass: one K6 launch a block a batch, K4 reading the item rows;
    its sessions/s and launch counts are printed.
+5d. The MLA + MoE ranker (ranker_backend "mla_moe") at Moonlight-16B-A3B's
+   widths with its first three layers (the dense one and two MoE layers),
+   weights drawn from the seed at the benchmark's scales, serves the first
+   16,384 test sessions through score_pass: one softmax K6 launch a layer
+   a batch, two K9 launches a MoE layer's chunk of tokens (require_k9), K4
+   reading the item rows; its sessions/s, peak memory and launch counts
+   are printed.
 7. The batch runner from the cache: Pipeline.run on phase 4's work dir
    (every test session's retrieval kept on the card at once, C14 on the
    host, phase 4b's rankers): tables from the cache bit-equal to phase
@@ -265,27 +275,24 @@ WALK = {}
 UNSHARDED = {}
 
 
-def zero_launch_counts():
-    from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
-                                            mips, retrieval_columns, retrieval_features,
-                                            segscan)
+def kernel_modules():
+    """The wrapper modules of K1-K9, each with its LAUNCHES counter."""
+    from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, grouped_gemm,
+                                            hstu_attention, mips, retrieval_columns,
+                                            retrieval_features, segscan, softmax_attention)
 
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
-              retrieval_features, retrieval_columns):
+    return (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention, retrieval_features,
+            retrieval_columns, grouped_gemm, softmax_attention)
+
+
+def zero_launch_counts():
+    for m in kernel_modules():
         m.LAUNCHES.reset()
 
 
 def launch_counts():
-    from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention,
-                                            mips, retrieval_columns, retrieval_features,
-                                            segscan)
-
-    return {"gather_rows": gather.LAUNCHES.value, "segmented_scan": segscan.LAUNCHES.value,
-            "mips_topk": mips.LAUNCHES.value, "gather_rows_hbm": dma_gather.LAUNCHES.value,
-            "gbdt_walk": gbdt_walk.LAUNCHES.value,
-            "hstu_attention": hstu_attention.LAUNCHES.value,
-            "retrieval_features": retrieval_features.LAUNCHES.value,
-            "retrieval_columns": retrieval_columns.LAUNCHES.value}
+    """{kernel: launches}, named by the counter's last part."""
+    return {m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value for m in kernel_modules()}
 
 
 @contextlib.contextmanager
@@ -324,6 +331,14 @@ def require_k8(launches, n_batches, where):
     require(launches["retrieval_columns"] == n_batches > 0,
             f"one K8 column launch a batch retrieved on the card ({where}): "
             f"{launches['retrieval_columns']} launches, {n_batches} batches")
+
+
+def require_k9(launches, routed_chunks, where):
+    """Two K9 launches (gate and up, then down) for every chunk of tokens
+    that a MoE layer routed."""
+    require(launches["grouped_gemm"] == 2 * routed_chunks > 0,
+            f"two K9 launches a MoE layer's chunk ({where}): {launches['grouped_gemm']} "
+            f"launches, {routed_chunks} routed chunks")
 
 
 @contextlib.contextmanager
@@ -660,7 +675,143 @@ def phase_kernels(dev, smi):
               f"{2 * pairs * H6 * 128 / (ms * 1e-3) / 1e12:.2f} TFLOP/s over the open pairs")
         del buf, q, k, v, got, want, args
     retrieval_columns_check(report, retrieval_features_check(dev, report))
+    mla_moe_kernels_check(dev, report)
     return out
+
+
+# K9 against its twin (phase 3): the kernel sums each output's K products in
+# its own order, so a float32 output differs from the twin's by float32
+# rounding (~1e-6 of the largest); a bfloat16 output (gate_up form) may round
+# one step (2^-8 of its size) the other way where the float32 value lies near
+# a rounding
+K9_TOL = {"gate_up": 8e-3, "down": 1e-4}
+# K6's softmax form against its twin: the kernel rounds the unnormalised
+# weights to bfloat16 where the twin rounds the normalised ones (each 2^-9 of
+# a term), and a history row's first key is its whole output
+K6S_TOL = 1e-2
+
+
+def k9_case(dev, g, R, E, K, N, gate_up, counts=None):
+    """Sorted rows over E experts (drawn counts, or `counts`), a gathered
+    A and the weights of one K9 call, as the MoE layer hands them over."""
+    from otto_tpu_torch.ops.kernels import grouped_gemm as k9
+
+    if counts is None:
+        eid = torch.randint(0, E, (R,), generator=g, device=dev)
+        counts = torch.bincount(eid, minlength=E)
+    counts = torch.as_tensor(counts, device=dev)
+    offsets = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    R = int(offsets[-1])
+    N_w = 2 * N if gate_up else N
+    a = (torch.randn((max(R // 4, 1) if gate_up else R, K), generator=g, device=dev)).bfloat16()
+    w = (torch.randn((E, N_w, K), generator=g, device=dev) * K ** -0.5).bfloat16()
+    if gate_up:
+        rows = torch.randint(0, a.shape[0], (R,), generator=g, device=dev, dtype=torch.int32)
+        return dict(a=a, w=w, offsets=offsets, rows=rows, gate_up=True), k9
+    out_rows = torch.randperm(R, generator=g, device=dev).int()
+    scale = torch.rand(R, generator=g, device=dev) * 2.446
+    out = torch.zeros((R, N), device=dev)
+    return dict(a=a, w=w, offsets=offsets, out_rows=out_rows, row_scale=scale, out=out), k9
+
+
+def mla_moe_kernels_check(dev, report):
+    """K9 (the grouped expert product) and K6's softmax form at the MoE
+    ranker's widths. K9: edge segments (an empty expert, one expert holding
+    every row, counts not a multiple of a tile) against the twin, then the
+    cell's shape, 6 x 65,536 routed rows over 64 experts, 2048 -> 2 x 1408
+    (gate_up, rows gathered) and 1408 -> 2048 (rows scaled and scattered),
+    with its bound (the larger of its FLOPs at the dense bfloat16 peak and
+    its bytes: rows in, every expert's weights once, rows out) and
+    torch._grouped_mm on the gathered rows as the library column. K6
+    softmax: 2,048 sessions of the 32 and the 128 length buckets' shapes
+    (16 heads, q and k 192 wide, v 128), against the twin, with its bound.
+    -> (K9's gate_up ms, its library ms)."""
+    from otto_tpu_torch.ops.kernels import softmax_attention as k6s
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for gate_up in (True, False):
+        form = "gate_up" if gate_up else "down"
+        for counts in ([0, 300, 0, 0, 1, 129, 0, 70], [0, 0, 0, 1000, 0, 0, 0, 0]):
+            kw, k9 = k9_case(dev, g, 0, 8, 256, 128, gate_up, counts)
+            got = k9.grouped_gemm(**dict(kw, out=kw["out"].clone()) if "out" in kw else kw)
+            want = k9.grouped_gemm_ref(**dict(kw, out=kw["out"].clone()) if "out" in kw
+                                       else kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            require(err <= K9_TOL[form] * float(want.float().abs().max()),
+                    f"K9 {form} within {K9_TOL[form]} of the twin at counts {counts}: {err}")
+    lib_ms = None
+    for gate_up, K, N in ((True, 2048, 1408), (False, 1408, 2048)):
+        form = "gate_up" if gate_up else "down"
+        R = 6 * 65536
+        kw, k9 = k9_case(dev, g, R, 64, K, N, gate_up)
+        fresh = (lambda: dict(kw, out=torch.zeros_like(kw["out"]))) if "out" in kw \
+            else (lambda: kw)
+        got = k9.grouped_gemm(**fresh())
+        want = k9.grouped_gemm_ref(**fresh())
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        require(err <= K9_TOL[form] * float(want.float().abs().max()),
+                f"K9 {form} within {K9_TOL[form]} of the twin at the cell's shape: {err}")
+        del got, want
+        args = fresh()
+        ms = cuda_ms(lambda: k9.grouped_gemm(**args))
+        plain = cuda_ms(lambda: k9.grouped_gemm_ref(**args), reps=2)
+        N_w = 2 * N if gate_up else N
+        flops = 2 * R * N_w * K
+        n_bytes = (2 * R * K + 2 * 64 * N_w * K + 8 * 65 + (4 if gate_up else 8) * R
+                   + (2 * R * N if gate_up else 4 * R * N))
+        by_ops, by_bytes = flops / BF16_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        lib = None
+        if hasattr(torch, "_grouped_mm"):
+            a = kw["a"][kw["rows"].long()] if gate_up else kw["a"]
+            wt = kw["w"].transpose(1, 2)
+            ends = kw["offsets"][1:].contiguous()
+            try:
+                torch._grouped_mm(a, wt, offs=ends)
+                lib = cuda_ms(lambda: torch._grouped_mm(a, wt, offs=ends))
+            except (RuntimeError, TypeError) as e:
+                print(f"#   torch._grouped_mm refused the shape: {e}")
+        if gate_up:
+            lib_ms = lib
+        head = (by_ops, "operations", lib) if by_ops >= by_bytes else (by_bytes, "bytes", lib)
+        report(f"grouped_gemm {form}", (R, 64, K, N_w), err, ms, plain, head)
+        print(f"#   {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
+              + ("" if lib is None else f"; torch._grouped_mm {flops / (lib * 1e-3) / 1e12:.1f} "
+                 "TFLOP/s on the rows gathered beforehand"))
+        del kw, args
+        torch.cuda.empty_cache()
+
+    S6, H6 = BATCH, 16
+    for l_lo, l_hi, c_lo, c_hi in ((0, 30, 0, 330), (33, 128, 140, 165)):
+        L6 = torch.randint(l_lo, l_hi + 1, (S6,), generator=g, device=dev)
+        C6 = torch.randint(c_lo, c_hi + 1, (S6,), generator=g, device=dev)
+        off = torch.zeros(S6 + 1, dtype=torch.int32, device=dev)
+        off[1:] = torch.cumsum(L6 + C6, 0).int()
+        N6 = int(off[-1])
+        q = torch.randn((N6, H6, 192), generator=g, device=dev).bfloat16()
+        k = torch.randn((N6, H6, 192), generator=g, device=dev).bfloat16()
+        v = (torch.randn((N6, H6, 128), generator=g, device=dev) * 0.7).bfloat16()
+        args = (q, k, v, off, L6.int(), 192 ** -0.5)
+        got = k6s.softmax_attention(*args)
+        want = k6s.softmax_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(err <= K6S_TOL * float(want.abs().max()),
+                f"K6 softmax within {K6S_TOL} of the twin at L {l_lo}-{l_hi}: {err}")
+        del got, want
+        ms = cuda_ms(lambda: k6s.softmax_attention(*args))
+        plain = cuda_ms(lambda: k6s.softmax_attention_ref(*args), reps=1)
+        Lk, Ck = L6.long(), C6.long()
+        pairs = int((Lk * (Lk + 1) // 2 + Ck * (Lk + 1)).sum())
+        n_bytes = 2 * N6 * H6 * (2 * 192 + 128) + 12 * (S6 + 1) + 4 * N6 * H6 * 128
+        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        by_ops = 2 * pairs * H6 * 320 / BF16_FLOPS * 1e3
+        head = (by_bytes, "bytes", None) if by_bytes >= by_ops else (by_ops, "operations", None)
+        report(f"softmax_attention L{l_lo}-{l_hi}", (S6, N6, H6, 192), err, ms, plain, head)
+        del q, k, v, args
+    return lib_ms
 
 
 def retrieval_features_check(dev, report):
@@ -1361,6 +1512,65 @@ def phase_hstu(dev, smi, sp, retriever, batch=BATCH):
     return launches
 
 
+def phase_mla_moe(dev, smi, sp, retriever, batch=BATCH, n_sessions=16384):
+    """Phase 5d: the MLA + MoE ranker (ranker_backend "mla_moe") at
+    Moonlight-16B-A3B's widths with its first three layers, weights drawn
+    from SEED over the N_AIDS items at the benchmark's scales, serves the
+    first n_sessions test sessions through score_pass: one softmax K6
+    launch a layer a batch, two K9 launches a MoE layer's chunk, one K4
+    item lookup a batch, every session listed. -> launch counts."""
+    from benchmark import serve_mla_moe
+    from otto_tpu_torch.config import MLAMoEConfig, TYPES
+    from otto_tpu_torch.engine.retrieval import FEATURE_NAMES
+    from otto_tpu_torch.models import mla_moe
+    from otto_tpu_torch.pipeline.runner import score_pass
+
+    cfg = dataclasses.replace(MLAMoEConfig(), num_hidden_layers=3)
+    params = serve_mla_moe.mla_moe_weights(dataclasses.asdict(cfg), N_AIDS,
+                                           len(FEATURE_NAMES), SEED, dev)
+    ranker = mla_moe.MLAMoERanker(cfg, params, tuple(FEATURE_NAMES))
+    rankers = {t: ranker for t in TYPES}
+    sessions = np.unique(sp.test.session)[:n_sessions]
+    test = sp.test.select(np.isin(sp.test.session, sessions))
+    ranker.predict_scores_multi(next(retriever.iter_run(test, batch_sessions=batch)))
+    routed = [0]
+    route = mla_moe.route
+
+    def counted(*a, **kw):
+        routed[0] += 1
+        return route(*a, **kw)
+
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mla_moe.route = counted
+    try:
+        t0 = time.perf_counter()
+        with batches_retrieved() as n_batches:
+            preds = score_pass(retriever, test, rankers, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        mla_moe.route = route
+    launches = launch_counts()
+    print(f"# MLA + MoE serving ({cfg.num_hidden_layers} layers): {len(sessions)} sessions in "
+          f"{dt:.2f} s = {len(sessions) / dt:.1f} sessions/s, {n_batches[0]} batches, "
+          f"{routed[0]} routed chunks, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB allocated, launches {launches} ({smi})")
+    require(launches["softmax_attention"] == cfg.num_hidden_layers * n_batches[0] > 0,
+            f"one softmax K6 launch a layer a batch: {launches}, {n_batches[0]} batches")
+    require_k9(launches, routed[0], "MLA + MoE serving")
+    require(launches["gather_rows_hbm"] >= n_batches[0], f"K4 reads the items: {launches}")
+    require_k7(launches, n_batches[0], "MLA + MoE serving")
+    require_k8(launches, n_batches[0], "MLA + MoE serving")
+    for t, (s_, a) in preds.items():
+        require(s_.shape == (len(sessions),) and a.shape == (len(sessions), 20),
+                f"MLA + MoE {t} shapes")
+        require((a[:, 0] >= 0).mean() > 0.99, f"MLA + MoE {t} sessions get predictions")
+    del params, ranker, rankers
+    return launches
+
+
 # --------------------------------------------------------------------------
 # phase 5b: the MLP ranker, trained and served
 # --------------------------------------------------------------------------
@@ -1630,15 +1840,10 @@ def write_otto_jsonl(ev_path, lab_path, ev, labels):
 CLI_WITH_COUNTS = """
 import atexit, json, runpy, sys
 import chip_smoke
-from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
-                                        retrieval_columns, retrieval_features, segscan)
 _counting = chip_smoke.batches_retrieved()   # held: its exit would unwrap
 _batches = _counting.__enter__()
-atexit.register(lambda: print("LAUNCHES " + json.dumps({
-    m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
-              retrieval_features, retrieval_columns)}) + "\\nBATCHES " + str(_batches[0]),
-    file=sys.stderr))
+atexit.register(lambda: print("LAUNCHES " + json.dumps(chip_smoke.launch_counts())
+                              + "\\nBATCHES " + str(_batches[0]), file=sys.stderr))
 sys.argv = ["otto_tpu_torch.pipeline.cli"] + sys.argv[1:]
 runpy.run_module("otto_tpu_torch.pipeline.cli", run_name="__main__", alter_sys=True)
 """
@@ -1728,15 +1933,10 @@ FULLSCALE_STAGES = [
 SCRIPT_WITH_COUNTS = """
 import atexit, json, runpy, sys
 import chip_smoke
-from otto_tpu_torch.ops.kernels import (dma_gather, gather, gbdt_walk, hstu_attention, mips,
-                                        retrieval_columns, retrieval_features, segscan)
 _counting = chip_smoke.batches_retrieved()   # held: its exit would unwrap
 _batches = _counting.__enter__()
-atexit.register(lambda: print("LAUNCHES " + json.dumps({
-    m.LAUNCHES.name.rsplit(".", 1)[1]: m.LAUNCHES.value
-    for m in (gather, segscan, mips, dma_gather, gbdt_walk, hstu_attention,
-              retrieval_features, retrieval_columns)}) + "\\nBATCHES " + str(_batches[0]),
-    file=sys.stderr))
+atexit.register(lambda: print("LAUNCHES " + json.dumps(chip_smoke.launch_counts())
+                              + "\\nBATCHES " + str(_batches[0]), file=sys.stderr))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
@@ -1805,11 +2005,12 @@ def phase_fullscale(smi, root):
     require(rec["generator"] == "device" and rec["spec"]["n_sessions"] == FULLSCALE_SESSIONS,
             "the events were drawn on the card at the asked scale")
     require("src_any" in rec["per_source"], "the per-source report is in the record")
-    # the script serves GBDT rankers: K1-K5, K7 and K8 launch, K6 (the
-    # HSTU ranker's) does not
-    require(all(v > 0 for k, v in launches.items() if k != "hstu_attention")
-            and launches["hstu_attention"] == 0,
-            f"K1-K5, K7 and K8 launched by the script, K6 not: {launches}")
+    # the script serves GBDT rankers: K1-K5, K7 and K8 launch, K6 and K9
+    # (the HSTU and MLA + MoE rankers') do not
+    sequence = ("hstu_attention", "grouped_gemm", "softmax_attention")
+    require(all(v > 0 for k, v in launches.items() if k not in sequence)
+            and all(launches[k] == 0 for k in sequence),
+            f"K1-K5, K7 and K8 launched by the script, K6 and K9 not: {launches}")
     m = rec["metrics"]
 
     # the heuristic baseline on the same test sessions and co-visitation tables
@@ -2882,6 +3083,8 @@ def main():
         torch.cuda.empty_cache()
         hstu_launches = phase_hstu(dev, smi, sp, retriever)
         torch.cuda.empty_cache()
+        mla_launches = phase_mla_moe(dev, smi, sp, retriever)
+        torch.cuda.empty_cache()
         mlp_tr_launches, mlp_launches = phase_mlp(dev, smi, sp, retriever, work, pa_metrics,
                                                   serve_recall, base_recall)
         torch.cuda.empty_cache()
@@ -2911,7 +3114,8 @@ def main():
     # (K1, K2), the two CLI runs (all), the multi-device stages (all, every
     # rank) and the reference-scale script (all)
     paths = {k: sum(p[k] for p in (build_launches, pa_launches, tr_launches,
-                                   serve_launches, hstu_launches, mlp_tr_launches, mlp_launches,
+                                   serve_launches, hstu_launches, mla_launches,
+                                   mlp_tr_launches, mlp_launches,
                                    batch_launches, tool_launches, mesh_launches,
                                    fullscale_launches))
              for k in build_launches}
@@ -2933,6 +3137,10 @@ def main():
                                "none; otto_tpu's Stage E is XLA ops under jit"),
         "retrieval_columns": ("otto_tpu_torch/csrc/retrieval_columns.cu",
                               "none; otto_tpu's Stage D is XLA ops under jit"),
+        "grouped_gemm": ("otto_tpu_torch/csrc/grouped_gemm.cu",
+                         "none; the MLA + MoE ranker exists only in the port"),
+        "softmax_attention": ("otto_tpu_torch/csrc/hstu_attention.cu",
+                              "none; the MLA + MoE ranker exists only in the port"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -192,6 +192,57 @@ class HSTUConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAMoEConfig:
+    """The MLA + MoE decoder ranker's shape (models/mla_moe.py;
+    `ranker_backend="mla_moe"`), under the keys of a DeepSeek-V3-style
+    config.json; the defaults are Moonlight-16B-A3B's
+    (huggingface.co/moonshotai/Moonlight-16B-A3B, config.json). Latent
+    attention without a query latent (q_lora_rank None); the first
+    first_k_dense_replace layers dense, the others n_routed_experts
+    experts, num_experts_per_tok a token, chosen by sigmoid scores plus a
+    correction bias, and n_shared_experts experts' width of shared MLP.
+    The other settings are the ranker's: histories keep their last
+    max_seq_len events and kv_norm_eps is the latent's RMSNorm eps. A
+    saved ranker carries its shape; the port only serves one (no
+    training)."""
+
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    norm_topk_prob: bool = True
+    n_group: int = 1
+    topk_group: int = 1
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    kv_norm_eps: float = 1e-6
+    max_seq_len: int = 200
+
+    def __post_init__(self):
+        fixed = {"q_lora_rank": None, "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+                 "norm_topk_prob": True, "n_group": 1, "topk_group": 1}
+        wrong = {k: getattr(self, k) for k, v in fixed.items() if getattr(self, k) != v}
+        if wrong:
+            raise ValueError(f"MLAMoEConfig: the ranker takes only {fixed}, not {wrong}")
+        if self.qk_rope_head_dim % 2 or not 0 < self.num_experts_per_tok <= self.n_routed_experts:
+            raise ValueError("MLAMoEConfig: qk_rope_head_dim must be even and "
+                             "0 < num_experts_per_tok <= n_routed_experts")
+
+
+@dataclasses.dataclass(frozen=True)
 class GBDTConfig:
     """Histogram-GBDT lambdarank: the trees' shape (what scoring reads) and
     the training settings, with otto_tpu's names and defaults: 150 trees,

@@ -290,3 +290,251 @@ extern "C" int otto_hstu_attention(const void* q, const void* k, const void* v, 
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// K6, softmax form: the MLA + MoE ranker's attention (models/mla_moe.py;
+// wrapper and plain twin in ops/kernels/softmax_attention.py). The same
+// jagged layout, target-aware mask, 64-query tiles and 64-key history tiles
+// as HSTU's form above, with softmax(q.k * scale) in place of SiLU and no
+// position or time biases: 16 heads of q, k 192 wide (128 latent + 64 RoPE
+// dims) and v 128 wide. The softmax is online (a running row maximum and
+// sum, the output rescaled as a tile raises the maximum), taken in base 2 in
+// registers; P is rounded to bfloat16 as the A operand of P.V and the sum
+// kept in float32. A candidate's own key is folded in after the history
+// tiles as a per-row dot product. Q, K and the transposed V tile take 68 KB
+// of dynamic shared memory, rows padded so the fragment loads of the 8 row
+// groups fall in distinct banks.
+namespace {
+
+constexpr int SQK = 192;           // q, k width
+constexpr int SV = 128;            // v width
+constexpr int SBM = 64;            // query rows a block
+constexpr int SBN = 64;            // keys a tile
+constexpr int SLDQ = SQK + 8;      // 400 bytes a shared q or k row
+constexpr int SLDV = SBN + 8;      // 144 bytes a shared v^T row
+constexpr int SMEM_SOFTMAX = (SBM * SLDQ + SBN * SLDQ + SV * SLDV) * 2;
+
+struct SoftmaxParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  float* y;
+  const int32_t* offsets;
+  const int32_t* n_hist;
+  const int32_t* tile_off;
+  int S, H;
+  float scale_log2;                // the softmax scale times log2(e)
+};
+
+__global__ void __launch_bounds__(THREADS) softmax_attention_kernel(SoftmaxParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + SBM * SLDQ;
+  __nv_bfloat16* vt = ks + SBN * SLDQ;
+
+  const int tile = blockIdx.x;
+  const int h = blockIdx.y;
+  if (tile >= p.tile_off[p.S]) return;
+  int lo = 0, hi = p.S;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (p.tile_off[mid] <= tile) lo = mid; else hi = mid;
+  }
+  const int s = lo;
+  const long long base = p.offsets[s];
+  const int T = p.offsets[s + 1] - p.offsets[s];
+  const int L = p.n_hist[s];
+  const int q0 = (tile - p.tile_off[s]) * SBM;
+  const int q1 = min(q0 + SBM, T);
+  const int kmax = min(L, q1);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long qk_rs = static_cast<long long>(p.H) * SQK;
+  const long long v_rs = static_cast<long long>(p.H) * SV;
+  const int hq = h * SQK, hv = h * SV;
+  const float NEG = __int_as_float(0xff800000);   // -inf
+
+  for (int i = tid; i < SBM * (SQK / 8); i += THREADS) {
+    const int row = i / (SQK / 8), c = i % (SQK / 8);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (q0 + row < T)
+      val = *reinterpret_cast<const uint4*>(p.q + (base + q0 + row) * qk_rs + hq + c * 8);
+    *reinterpret_cast<uint4*>(qs + row * SLDQ + c * 8) = val;
+  }
+  __syncthreads();
+
+  int qrow[2];
+  bool qlive[2], qhist[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    qrow[e] = q0 + warp * 16 + g + 8 * e;
+    qlive[e] = qrow[e] < T;
+    qhist[e] = qrow[e] < L;
+  }
+  uint32_t qa[SQK / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < SQK / 16; ++kc) {
+    const __nv_bfloat16* r = qs + (warp * 16 + g) * SLDQ + kc * 16 + t * 2;
+    qa[kc][0] = ld32(r);
+    qa[kc][1] = ld32(r + 8 * SLDQ);
+    qa[kc][2] = ld32(r + 8);
+    qa[kc][3] = ld32(r + 8 * SLDQ + 8);
+  }
+
+  float o[SV / 8][4];
+#pragma unroll
+  for (int d = 0; d < SV / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+
+  for (int k0 = 0; k0 < kmax; k0 += SBN) {
+    __syncthreads();   // the previous tile's readers are done
+    for (int i = tid; i < SBN * (SQK / 8); i += THREADS) {
+      const int row = i / (SQK / 8), c = i % (SQK / 8);
+      uint4 kv = make_uint4(0, 0, 0, 0);
+      if (k0 + row < kmax)
+        kv = *reinterpret_cast<const uint4*>(p.k + (base + k0 + row) * qk_rs + hq + c * 8);
+      *reinterpret_cast<uint4*>(ks + row * SLDQ + c * 8) = kv;
+    }
+    for (int i = tid; i < SBN * (SV / 8); i += THREADS) {
+      const int row = i / (SV / 8), c = i % (SV / 8);
+      uint4 vv = make_uint4(0, 0, 0, 0);
+      if (k0 + row < kmax)
+        vv = *reinterpret_cast<const uint4*>(p.v + (base + k0 + row) * v_rs + hv + c * 8);
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[(c * 8 + e) * SLDV + row] = ve[e];
+    }
+    __syncthreads();
+
+    float sc[SBN / 8][4];
+#pragma unroll
+    for (int j = 0; j < SBN / 8; ++j) {
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+      const __nv_bfloat16* kr = ks + (j * 8 + g) * SLDQ + t * 2;
+#pragma unroll
+      for (int kc = 0; kc < SQK / 16; ++kc) mma(sc[j], qa[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
+    }
+    // scale and mask; the rows' maxima over the 4 threads of a row group
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < SBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = k0 + j * 8 + t * 2 + (e & 1);
+        const bool ok = qlive[r] && key < kmax && (!qhist[r] || key <= qrow[r]);
+        const float x = ok ? sc[j][e] * p.scale_log2 : NEG;
+        sc[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      mu[r] = mn == NEG ? 0.0f : mn;     // a row with no open key yet
+      const float alpha = exp2f(m[r] - mu[r]);
+      m[r] = mn;
+      l[r] *= alpha;
+#pragma unroll
+      for (int d = 0; d < SV / 8; ++d) {
+        o[d][2 * r] *= alpha;
+        o[d][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(sc[j][e] - mu[e >> 1]);
+        sc[j][e] = pe;
+        l[e >> 1] += pe;
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < SBN / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
+      pa[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
+      pa[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
+      pa[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
+#pragma unroll
+      for (int d = 0; d < SV / 8; ++d) {
+        const __nv_bfloat16* vr = vt + (d * 8 + g) * SLDV + kc * 16 + t * 2;
+        mma(o[d], pa, ld32(vr), ld32(vr + 8));
+      }
+    }
+  }
+
+  // the rows' sums over the 4 threads; a candidate's own key: the 4
+  // threads of a row group take 48 dims each
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    const bool self = qlive[e] && !qhist[e];
+    const int r = warp * 16 + g + 8 * e;
+    float part = 0.0f;
+    if (self) {
+      const __nv_bfloat16* kr = p.k + (base + qrow[e]) * qk_rs + hq;
+#pragma unroll 8
+      for (int d = t * (SQK / 4); d < (t + 1) * (SQK / 4); ++d)
+        part += __bfloat162float(qs[r * SLDQ + d]) * __bfloat162float(kr[d]);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (self) {
+      const float x = part * p.scale_log2;
+      const float mn = fmaxf(m[e], x);
+      const float alpha = exp2f(m[e] - mn);
+      const float pe = exp2f(x - mn);
+      l[e] = l[e] * alpha + pe;
+      const __nv_bfloat16* vr = p.v + (base + qrow[e]) * v_rs + hv + t * 2;
+#pragma unroll
+      for (int d = 0; d < SV / 8; ++d) {
+        o[d][2 * e] = o[d][2 * e] * alpha + pe * __bfloat162float(vr[d * 8]);
+        o[d][2 * e + 1] = o[d][2 * e + 1] * alpha + pe * __bfloat162float(vr[d * 8 + 1]);
+      }
+    }
+    if (qlive[e]) {
+      const float inv = 1.0f / l[e];
+      float* out = p.y + ((base + qrow[e]) * p.H + h) * SV + t * 2;
+#pragma unroll
+      for (int d = 0; d < SV / 8; ++d)
+        *reinterpret_cast<float2*>(out + d * 8) = make_float2(o[d][2 * e] * inv, o[d][2 * e + 1] * inv);
+    }
+  }
+}
+
+}  // namespace
+
+// q, k [N, H, 192] and v [N, H, 128] bf16, contiguous and 16-byte aligned;
+// y [N, H, 128] float32; offsets [S + 1], n_hist [S], tile_off [S + 1]
+// (cumulative ceil(T_s / 64)) int32; grid_tiles >= tile_off[S]. Returns
+// cudaGetLastError() after the launch.
+extern "C" int otto_softmax_attention(const void* q, const void* k, const void* v, void* y,
+                                      const void* offsets, const void* n_hist,
+                                      const void* tile_off, int S, int H, int grid_tiles,
+                                      float scale, void* stream) {
+  if (S > 0 && grid_tiles > 0 && H > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        softmax_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_SOFTMAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    SoftmaxParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k);
+    p.v = static_cast<const __nv_bfloat16*>(v);
+    p.y = static_cast<float*>(y);
+    p.offsets = static_cast<const int32_t*>(offsets);
+    p.n_hist = static_cast<const int32_t*>(n_hist);
+    p.tile_off = static_cast<const int32_t*>(tile_off);
+    p.S = S;
+    p.H = H;
+    p.scale_log2 = scale * 1.4426950408889634f;
+    const dim3 grid(static_cast<unsigned>(grid_tiles), static_cast<unsigned>(H));
+    softmax_attention_kernel<<<grid, THREADS, SMEM_SOFTMAX, static_cast<cudaStream_t>(stream)>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

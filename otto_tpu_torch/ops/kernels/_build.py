@@ -145,6 +145,10 @@ def load() -> ctypes.CDLL:
     lib.otto_hstu_attention.argtypes = ([ptr] * 11 + [ctypes.c_longlong] + [i32] * 5
                                         + [ctypes.c_float, ptr])
     lib.otto_hstu_attention.restype = i32
+    lib.otto_softmax_attention.argtypes = [ptr] * 7 + [i32] * 3 + [ctypes.c_float, ptr]
+    lib.otto_softmax_attention.restype = i32
+    lib.otto_grouped_gemm.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.otto_grouped_gemm.restype = i32
     lib.otto_retrieval_features.argtypes = ([ptr, i32, ptr, i32, ptr, ctypes.c_longlong,
                                              ptr, i32, i32, ptr, i32, ptr, i32]
                                             + [ptr] * 3 + [i32] * 3 + [ptr])

@@ -46,7 +46,8 @@ from otto_tpu_torch.config import (
 from otto_tpu_torch.data.schema import Events, Labels
 from otto_tpu_torch.data.split import split_events
 from otto_tpu_torch.data.synthetic import SyntheticSpec, generate
-from otto_tpu_torch.pipeline.runner import RANKER_BACKENDS, Pipeline, run_synthetic
+from otto_tpu_torch.pipeline.runner import (RANKER_BACKENDS, Pipeline, backends_help,
+                                            run_synthetic)
 
 log = logging.getLogger(__name__)
 
@@ -264,7 +265,7 @@ def main(argv=None) -> int:
 
     streaming_help = ("two-pass streaming runner (one batch's features on the "
                       "device; auto past 50k test sessions)")
-    backend_help = "the rankers' model class (default: the config's, gbdt)"
+    backend_help = f"the rankers' model class (default: the config's, gbdt); {backends_help()}"
     p = sub.add_parser("run", help=cmd_run.__doc__)
     p.add_argument("--train", required=True)
     p.add_argument("--test", required=True)

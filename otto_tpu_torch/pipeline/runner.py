@@ -13,8 +13,9 @@ functions:
   per-source retrieval eval (C14) and negative downsampling (C15), whose
   rows are persisted per target before any training;
 - `train_ranker_cached`: one target's ranker (C16) from those rows, as
-  `RANKER_BACKENDS` says for `Config.ranker_backend` (an HSTU ranker,
-  "hstu", is served from its saved file and never trained here);
+  `RANKER_BACKENDS` says for `Config.ranker_backend` (a backend without
+  a trainer there, "hstu" or "mla_moe", is served from its saved file and
+  never trained here);
 - `score_pass`: re-retrieve the test sessions, score every batch with the
   three target rankers on the device, keep the top-20 per target;
 - `submit_and_eval`: write the submission file and evaluate recall@20;
@@ -100,6 +101,7 @@ from otto_tpu_torch.eval.per_source import (
 from otto_tpu_torch.eval.recall import evaluate_submission_file, evaluate_topk, recall_at_k
 from otto_tpu_torch.models.gbdt import GBDTRanker, train_gbdt_ranker
 from otto_tpu_torch.models.hstu import HSTURanker
+from otto_tpu_torch.models.mla_moe import MLAMoERanker
 from otto_tpu_torch.models.ranker import Ranker, train_ranker
 from otto_tpu_torch.models.word2vec import Word2Vec, train_word2vec, train_word2vec_device
 from otto_tpu_torch.ops import counts as counts_ops
@@ -722,14 +724,25 @@ class RankerBackend:
 
 
 # Config.ranker_backend's values. Adding one takes its model file, its
-# row here and its config section.
+# row here and its config section: the CLI's --ranker-backend and
+# refuse_training read their names from this table.
 RANKER_BACKENDS: Dict[str, RankerBackend] = {
     "gbdt": RankerBackend("ranker-gbdt-{target}.npz",
                           lambda path, cfg: GBDTRanker.load(path), _train_gbdt),
     "mlp": RankerBackend("ranker-mlp-{target}.npz",
                          lambda path, cfg: Ranker.load(path, cfg.ranker), _train_mlp),
     "hstu": RankerBackend("ranker-hstu.npz", lambda path, cfg: HSTURanker.load(path)),
+    "mla_moe": RankerBackend("ranker-mla_moe.npz", lambda path, cfg: MLAMoERanker.load(path)),
 }
+
+
+def backends_help() -> str:
+    """The backends as the CLI lists them: which the port trains and which
+    it only serves from a saved file."""
+    trained = [n for n, b in RANKER_BACKENDS.items() if b.train is not None]
+    served = [n for n, b in RANKER_BACKENDS.items() if b.train is None]
+    return f"trained and served: {', '.join(trained)}; served from a saved file: " \
+        f"{', '.join(served)}"
 
 
 def _ranker_path(work_dir: str, tname: str, cfg: Config) -> str:
@@ -740,11 +753,10 @@ def _ranker_path(work_dir: str, tname: str, cfg: Config) -> str:
 def refuse_training(cfg: Config) -> None:
     """The port trains the backends that have a trainer in RANKER_BACKENDS."""
     if RANKER_BACKENDS[cfg.ranker_backend].train is None:
-        trained = [name for name, b in RANKER_BACKENDS.items() if b.train is not None]
         raise ValueError(
             f"ranker_backend {cfg.ranker_backend!r}: the port serves a saved ranker "
             f"({_ranker_path('<work_dir>', 'clicks', cfg)}) but does not train one; "
-            f"run without labels, or train one of {trained}")
+            f"run without labels ({backends_help()})")
 
 
 def load_rankers(work_dir: str, cfg: Config = Config()) -> Dict[str, object]:

@@ -816,6 +816,186 @@ def test_cuda_hstu_ranker_matches_reference(cuda_device):
     assert worst <= 0.05
 
 
+# K9 against its twin: each output's K products summed in the kernel's order,
+# so a float32 output differs by float32 rounding and a bfloat16 one (the
+# gate_up form) by one bfloat16 step (2^-8 of itself) where the float32 value
+# lies near a rounding (chip_smoke.py's K9_TOL)
+K9_TOL = {True: 8e-3, False: 1e-4}
+K9_COUNTS = {"spread": [0, 300, 0, 0, 1, 129, 0, 70], "one_expert": [0, 0, 0, 1000, 0, 0, 0, 0],
+             "single_row": [1, 0, 0, 0, 0, 0, 0, 0], "full_tiles": [128, 256, 128, 0, 0, 0, 0, 384]}
+
+
+def k9_args(dev, counts, gate_up, K=256, N=128, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = len(counts)
+    offsets = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(torch.tensor(counts, device=dev), 0)
+    R = int(offsets[-1])
+    w = (torch.randn(E, 2 * N if gate_up else N, K, generator=g, device=dev) * K ** -0.5).bfloat16()
+    if gate_up:
+        a = torch.randn(37, K, generator=g, device=dev).bfloat16()
+        rows = torch.randint(0, 37, (R,), generator=g, device=dev, dtype=torch.int32)
+        return dict(a=a, w=w, offsets=offsets, rows=rows, gate_up=True)
+    a = torch.randn(R, K, generator=g, device=dev).bfloat16()
+    out_rows = torch.randperm(R + 5, generator=g, device=dev)[:R].int()
+    return dict(a=a, w=w, offsets=offsets, out_rows=out_rows,
+                row_scale=torch.rand(R, generator=g, device=dev),
+                out=torch.full((R + 5, N), 3.0, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate_up", [True, False])
+@pytest.mark.parametrize("case", list(K9_COUNTS))
+def test_cuda_grouped_gemm_matches_twin(cuda_device, case, gate_up):
+    from otto_tpu_torch.ops.kernels import grouped_gemm as k9
+
+    kw = k9_args(cuda_device, K9_COUNTS[case], gate_up)
+    fresh = (lambda: dict(kw, out=kw["out"].clone())) if not gate_up else (lambda: kw)
+    before = k9.LAUNCHES.value
+    got = k9.grouped_gemm(**fresh())
+    assert k9.LAUNCHES.value == before + 1
+    want = k9.grouped_gemm_ref(**fresh())
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= K9_TOL[gate_up] * want.abs().max().clamp(min=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["cpu_tensor", "k_width", "n_width", "unaligned"])
+def test_cuda_grouped_gemm_refuses(cuda_device, fault):
+    from otto_tpu_torch.ops.kernels import grouped_gemm as k9
+
+    kw = k9_args(cuda_device, [3, 0, 5], True)
+    if fault == "cpu_tensor":
+        kw["rows"] = kw["rows"].cpu()
+    elif fault == "k_width":
+        kw["a"], kw["w"] = kw["a"][:, :48].contiguous(), kw["w"][:, :, :48].contiguous()
+    elif fault == "n_width":
+        kw["w"] = kw["w"][:, :200].contiguous()
+    else:
+        buf = torch.zeros(37 * 256 + 4, dtype=torch.bfloat16, device=cuda_device)
+        kw["a"] = buf[4:].view(37, 256)
+    before = k9.LAUNCHES.value
+    with pytest.raises((TypeError, ValueError)):
+        k9.grouped_gemm(**kw)
+    assert k9.LAUNCHES.value == before
+
+
+# K6's softmax form against its twin: the kernel rounds the unnormalised
+# weights to bfloat16, the twin the normalised ones (2^-9 of a term each),
+# and a history row's first key is its whole output (chip_smoke.py's K6S_TOL)
+K6S_TOL = 1e-2
+K6S_CASES = {"serve": (2048, 30, 200, None, None), "L1": (300, 1, 40, 1, None),
+             "C0": (64, 200, 0, None, 0), "L0": (64, 0, 200, 0, None),
+             "one_session": (1, 200, 512, None, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K6S_CASES))
+def test_cuda_softmax_attention_matches_twin(cuda_device, case):
+    from otto_tpu_torch.ops.kernels import softmax_attention as k6s
+
+    S, Lmax, Cmax, Lfix, Cfix = K6S_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    L = (torch.randint(0, Lmax + 1, (S,), generator=g, device=cuda_device) if Lfix is None
+         else torch.full((S,), Lfix, device=cuda_device))
+    C = (torch.randint(0, Cmax + 1, (S,), generator=g, device=cuda_device) if Cfix is None
+         else torch.full((S,), Cfix, device=cuda_device))
+    off = torch.zeros(S + 1, dtype=torch.int32, device=cuda_device)
+    off[1:] = torch.cumsum(L + C, 0).int()
+    N = int(off[-1])
+    q, k = (torch.randn(N, 16, 192, generator=g, device=cuda_device).bfloat16() for _ in range(2))
+    v = (torch.randn(N, 16, 128, generator=g, device=cuda_device) * 0.7).bfloat16()
+    before = k6s.LAUNCHES.value
+    got = k6s.softmax_attention(q, k, v, off, L.int(), 192 ** -0.5)
+    assert k6s.LAUNCHES.value == before + 1
+    want = k6s.softmax_attention_ref(q, k, v, off, L.int(), 192 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= K6S_TOL * want.abs().max().clamp(min=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_moe_ranker_matches_reference(cuda_device):
+    """The MLA + MoE ranker at Moonlight-16B-A3B's widths with its first
+    three layers, through score_topk_multi on a 512-session batch: one
+    softmax K6 launch a layer, two K9 launches a MoE layer's chunk, the
+    items read through K4, and every served list within 0.05 of the
+    reference's order (a sample of sessions scored by
+    benchmark/reference/mla_moe.py, float32, TF32 off, on the program's
+    expert sets, each within 0.01 of the reference's own top-k)."""
+    import dataclasses
+    import types
+
+    import numpy as np
+
+    from benchmark import serve_mla_moe
+    from benchmark.reference import mla_moe as ref
+    from otto_tpu_torch.config import MLAMoEConfig
+    from otto_tpu_torch.engine import rank
+    from otto_tpu_torch.engine.retrieval import FEATURE_NAMES, RetrievedBatch
+    from otto_tpu_torch.models import mla_moe
+    from otto_tpu_torch.ops.kernels import grouped_gemm as k9
+    from otto_tpu_torch.ops.kernels import softmax_attention as k6s
+    from test_torch_hstu import draw_batch
+
+    cfg = MLAMoEConfig(num_hidden_layers=3)
+    m = dataclasses.asdict(cfg)
+    params = serve_mla_moe.mla_moe_weights(m, 5000, len(FEATURE_NAMES), 1, cuda_device)
+    r = mla_moe.MLAMoERanker(cfg, params, tuple(FEATURE_NAMES))
+    aid, ts, typ, cand, feats = (x.to(cuda_device) for x in
+                                 draw_batch(512, seed=2, max_len=128, max_cand=300,
+                                            c_slots=512, min_cand=100))
+    aid = aid % 5000
+    cand = torch.where(cand >= 0, cand % 5000, -1)
+    b = RetrievedBatch(np.arange(512), cand, feats, torch.zeros_like(cand),
+                       history=(aid, ts, typ))
+    n_tok = int(((aid >= 0).sum(1).clamp(max=cfg.max_seq_len) + (cand >= 0).sum(1)).sum())
+    chunks = -(-n_tok // mla_moe.CHUNK_TOKENS)
+    k6_before, k9_before = k6s.LAUNCHES.value, k9.LAUNCHES.value
+    k4_before = dma_gather.LAUNCHES.value
+    tops = rank.score_topk_multi(b, [r, r, r])
+    assert k6s.LAUNCHES.value - k6_before == cfg.num_hidden_layers
+    assert k9.LAUNCHES.value - k9_before == 2 * chunks * (cfg.num_hidden_layers - 1)
+    assert dma_gather.LAUNCHES.value - k4_before == 1
+    picks = list(range(0, 512, 37))
+    rows = []
+    for s in picks:
+        n = int((aid[s] >= 0).sum())
+        ok = cand[s] >= 0
+        rows.append((aid[s, :n].cpu().numpy(), typ[s, :n].cpu().numpy(),
+                     cand[s][ok].cpu().numpy(), feats[s][ok]))
+    sub = [x[picks] for x in (aid, ts, typ, cand, feats)]
+    log = []
+    orig = mla_moe.route
+    try:
+        mla_moe.route = lambda *a, **k: (lambda o: (log.append(o[0]), o)[1])(orig(*a, **k))
+        with torch.no_grad():
+            r.encode(*sub)
+    finally:
+        mla_moe.route = orig
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    sets = list(torch.cat(log).view(n_moe, -1, cfg.num_experts_per_tok))
+    routing = {}
+    with torch.no_grad():
+        want = ref.forward(params, types.SimpleNamespace(**m), rows,
+                           [("full", "full", sets)], routing=routing)["full"]
+    assert routing["full"].max_margin() <= 0.01
+    worst = 0.0
+    for s, w in zip(picks, want):
+        ok = cand[s] >= 0
+        by_aid = dict(zip(cand[s][ok].tolist(), w.T.tolist()))
+        for t in range(3):
+            got = tops[t, s][tops[t, s] >= 0]
+            assert len(got) == min(20, int(ok.sum()))
+            served = np.array([by_aid[a][t] for a in got.tolist()])
+            best = np.sort(w[t].cpu().numpy())[::-1][:len(got)]
+            worst = max(worst, float((best - served).max()))
+    # three layers carry float32 summing orders across bfloat16 roundings
+    assert worst <= 0.05
+
+
 # K7: retrieve_batch on the card at production widths (five co-visitation
 # tables of 10-20 neighbours, two kNN tables of 20, 128 popularity
 # candidates of 50 clusters, 100-d embeddings, 32 kept aids, 512 slots),
